@@ -1,0 +1,382 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
+
+Drives the port's fused two-stage serve path once, at the repository's
+large serve configuration (``bench.py::bench_serve_e2e_large``): 6,040
+users, a 1,000,000-item catalog, two towers of width 128, a bf16 fused
+index with the item-bias column, the MLP LambdaRank ranker (128, 64) over
+52 features with query norm and blend 1, top-500 candidates, top-100
+output, the seen filter. Weights and data are random, made from ``--seed``
+and written in the JAX package's file formats.
+
+Phases (each failure raises, so the exit code is not 0):
+
+1. build the window-MIPS CUDA kernel from ``recommendit_tpu_torch/csrc``;
+2. write the artifacts, embed the catalog with the port's item tower and
+   build + save the fused index;
+3. kernel phase: at Q in {256, 1024} over the 1M x 129 (136 padded) bf16
+   corpus, W=64, k=500, the kernel against its plain twin — window maxima
+   within 1e-3, top-500 id overlap >= 0.99, recall@500 >= 0.98 against the
+   exact top-500 of the same scores — and both times (CUDA events);
+4. serve phase: ``batch_recommend`` for 2,048 users at batch 1,024 (the
+   kernel route) and 20 single requests (the scan route), with the launch
+   counts read around exactly that run.
+
+Usage, from the repository root: ``python3 chip_smoke.py [--seed N]``.
+Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
+last, ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+N_USERS, N_ITEMS, DIM, HIDDEN = 6040, 1_000_000, 128, 128
+N_RATINGS = 1_000_209            # the ML-1M rating count
+RANKER_HIDDEN = (128, 64)
+TOP_K_CANDIDATES = 500
+INDEX_BLOCK = 4096
+WINDOW = 64
+KERNEL_QS = (256, 1024)
+BATCH = 1024
+N_BATCH_USERS = 2048
+N_REQUESTS = 20
+REQUEST_K = 20
+
+KERNEL_SOURCE = "recommendit_tpu_torch/csrc/window_mips.cu"
+KERNEL_REPLACES = "recommendit_tpu/ops/pallas_mips.py:359"
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _glorot(rng, shape):
+    limit = float(np.sqrt(6.0 / (shape[0] + shape[-1])))
+    return rng.uniform(-limit, limit, size=shape).astype(np.float32)
+
+
+def make_artifacts(workdir: Path, seed: int, device, n_users: int = N_USERS,
+                   n_items: int = N_ITEMS, dim: int = DIM,
+                   hidden: int = HIDDEN, n_ratings: int = N_RATINGS,
+                   block_size: int = INDEX_BLOCK):
+    """Random two-tower, fused bf16 index, ranker, packed feature tables
+    and ratings, in the JAX package's formats. Returns (paths, ServeData)."""
+    from recommendit_tpu_torch.features.schema import (
+        FEATURE_COLUMNS,
+        ITEM_PACKED_DIM,
+        N_GENRES,
+        USER_PACKED_DIM,
+    )
+    from recommendit_tpu_torch.models import LambdaRankScorer, MIPSIndex, TwoTower
+    from recommendit_tpu_torch.serving.recommender import ServeData
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    params = {
+        "user_embed": 0.1 * rng.standard_normal((n_users + 1, dim), np.float32),
+        "item_embed": 0.1 * rng.standard_normal((n_items + 1, dim), np.float32),
+        "user_w1": _glorot(rng, (dim, hidden)),
+        "user_b1": np.zeros(hidden, np.float32),
+        "user_w2": _glorot(rng, (hidden, dim)),
+        "user_b2": np.zeros(dim, np.float32),
+        "item_w1": _glorot(rng, (dim + N_GENRES, hidden)),
+        "item_b1": np.zeros(hidden, np.float32),
+        "item_w2": _glorot(rng, (hidden, dim)),
+        "item_b2": np.zeros(dim, np.float32),
+        "item_bias": rng.standard_normal(n_items + 1, np.float32),
+    }
+    params["user_embed"][0] = 0.0
+    params["item_embed"][0] = 0.0
+    model = TwoTower.from_numpy(params, n_users, n_items, dim, hidden,
+                                device=device)
+    paths = {"model_path": str(workdir / "two_tower.npz"),
+             "index_path": str(workdir / "mips.index.npz"),
+             "ranker_path": str(workdir / "ranker.npz"),
+             "features_dir": str(workdir / "features")}
+    model.save(paths["model_path"])
+
+    # catalog: 1-3 genres per item
+    item_ids = np.arange(1, n_items + 1)
+    genres = np.zeros((n_items, N_GENRES), np.float32)
+    n_gen = rng.integers(1, 4, n_items)
+    for j in range(3):
+        g = rng.integers(0, N_GENRES, n_items)
+        genres[np.arange(n_items)[n_gen > j], g[n_gen > j]] = 1.0
+    index = MIPSIndex(dim, block_size, "fused", "bfloat16", device=device)
+    index.build(model.get_item_embeddings(item_ids, genres), item_ids,
+                bias=0.05 * model.item_bias_np(item_ids))
+    index.save(paths["index_path"])
+    del model, index
+
+    names = FEATURE_COLUMNS + ["retrieval_score", "retrieval_rank"]
+    ranker = LambdaRankScorer(feature_names=names, hidden_dims=RANKER_HIDDEN,
+                              query_norm=True, device=device)
+    dims = [len(names), *RANKER_HIDDEN, 1]
+    ranker.params = {}
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        ranker.params[f"w{i}"] = torch.as_tensor(_glorot(rng, (a, b)))
+        ranker.params[f"b{i}"] = torch.zeros(b)
+    ranker.feat_mean = rng.standard_normal(len(names), np.float32)
+    ranker.feat_std = rng.uniform(0.5, 2.0, len(names)).astype(np.float32)
+    ranker.save(paths["ranker_path"])
+
+    feats = Path(paths["features_dir"])
+    feats.mkdir(parents=True, exist_ok=True)
+    np.save(feats / "user_packed.npy",
+            rng.standard_normal((n_users + 1, USER_PACKED_DIM), np.float32))
+    np.save(feats / "item_packed.npy",
+            rng.standard_normal((n_items + 1, ITEM_PACKED_DIM), np.float32))
+
+    # ratings: half uniform over the catalog, half on a popular head
+    head = max(1, n_items // 50)
+    users = rng.integers(1, n_users + 1, n_ratings)
+    items = np.where(rng.random(n_ratings) < 0.5,
+                     rng.integers(1, n_items + 1, n_ratings),
+                     rng.integers(1, head + 1, n_ratings))
+    return paths, ServeData(user_id=users, item_id=items, n_users=n_users,
+                            n_items=n_items)
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Mean per-row share of ``a``'s ids that are in ``b``'s row."""
+    width = int(max(a.max(), b.max())) + 1
+    rows = torch.arange(a.shape[0], device=a.device)[:, None] * width
+    return float(torch.isin(a + rows, b + rows).float().mean())
+
+
+def cuda_ms(fn, reps: int, warm: int = 1) -> float:
+    """Mean device time of ``fn()`` in ms, by CUDA events after warm-up."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_phase(paths, device, seed: int, qs=KERNEL_QS, k=TOP_K_CANDIDATES,
+                 window=WINDOW, timer=cuda_ms, min_recall=0.98):
+    """The kernel against its twin on the index's own corpus and user-tower
+    queries; recall@k against the exact top-k of the same scores must reach
+    ``min_recall`` (the bin model gives 0.984 at the serve shape). Returns
+    one record per batch size."""
+    from recommendit_tpu_torch.models import MIPSIndex, TwoTower
+    from recommendit_tpu_torch.ops import mips_window as mw
+    from recommendit_tpu_torch.ops.topk import fast_topk, score_matrix
+
+    model = TwoTower.load(paths["model_path"], device=device)
+    index = MIPSIndex.load(paths["index_path"], device=device)
+    corpus, n_valid = index._embs, index.n_total
+    rng = np.random.default_rng(seed + 1)
+    out = []
+    for n_q in qs:
+        uids = torch.as_tensor(rng.integers(1, model.n_users + 1, n_q),
+                               device=device)
+        q = index._augment(model.user_tower(uids))
+        kv, ka = mw.window_candidates(q, corpus, window, n_valid)
+        rv, ra = mw.window_candidates_ref(q, corpus, window, n_valid)
+        err = float((kv - rv).abs().max())
+        v, i = mw.mips_topk_window_im(q, corpus, k, INDEX_BLOCK, window,
+                                      n_valid=n_valid)
+        tv, ti = mw.mips_topk_window_im_ref(q, corpus, k, INDEX_BLOCK, window,
+                                            n_valid=n_valid)
+        _, ei = fast_topk(score_matrix(q, corpus[:n_valid], "default"), k)
+        _, fi = fast_topk(score_matrix(q, corpus[:n_valid], "highest"), k)
+        rec = {
+            "q": n_q, "n": n_valid, "d": int(corpus.shape[1]),
+            "window": window, "k": k, "dtype": str(corpus.dtype),
+            "window_max_abs_err": err,
+            "topk_value_abs_err": float((v - tv).abs().max()),
+            "id_overlap_vs_twin": _overlap(i, ti),
+            "recall_vs_exact": _overlap(i, ei),
+            "recall_vs_exact_f32_queries": _overlap(i, fi),
+            "bin_model_recall": 1 - (k - 1) * window / (2 * n_valid),
+            "args_equal_share": float((ka == ra).float().mean()),
+        }
+        del kv, ka, rv, ra, ei, fi
+        reps = 20 if n_q <= 256 else 10
+        rec["kernel_ms"] = timer(
+            lambda: mw.window_candidates(q, corpus, window, n_valid), reps)
+        rec["twin_ms"] = timer(
+            lambda: mw.window_candidates_ref(q, corpus, window, n_valid), 3)
+        rec["kernel_topk_ms"] = timer(
+            lambda: mw.mips_topk_window_im(q, corpus, k, INDEX_BLOCK, window,
+                                           n_valid=n_valid), reps)
+        rec["twin_topk_ms"] = timer(
+            lambda: mw.mips_topk_window_im_ref(q, corpus, k, INDEX_BLOCK,
+                                               window, n_valid=n_valid), 3)
+        print(json.dumps({"kernel_check": rec}), flush=True)
+        if err > 1e-3:
+            raise AssertionError(f"window maxima differ by {err} (> 1e-3)")
+        if rec["topk_value_abs_err"] > 1e-3:
+            raise AssertionError(f"top-{k} values differ: {rec}")
+        if rec["id_overlap_vs_twin"] < 0.99:
+            raise AssertionError(f"top-{k} id overlap with the twin < 0.99: {rec}")
+        if rec["recall_vs_exact"] < min_recall:
+            raise AssertionError(f"recall@{k} < {min_recall}: {rec}")
+        out.append(rec)
+    return out
+
+
+def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
+                batch: int = BATCH, n_requests: int = N_REQUESTS,
+                k: int = REQUEST_K):
+    """Load the port's pipeline and drive its main path: batch_recommend at
+    ``batch`` and ``n_requests`` single requests. Checks what comes out and
+    returns the measurements and the launch counts of exactly that run."""
+    from recommendit_tpu.config import Settings
+    from recommendit_tpu_torch.ops import mips_window as mw
+    from recommendit_tpu_torch.serving.recommender import RecommendationPipeline
+
+    cfg = Settings(EMBEDDING_DIM=DIM, HIDDEN_DIM=HIDDEN, INDEX_MODE="fused",
+                   INDEX_DTYPE="bfloat16", TOP_K_CANDIDATES=TOP_K_CANDIDATES,
+                   TOP_K_RESULTS=k, FILTER_SEEN=True,
+                   RANKER_BLEND_RETRIEVAL=1.0, RANKER_QUERY_NORM=True,
+                   STAGE_RECAL_EVERY=0)
+    t0 = time.perf_counter()
+    pipe = RecommendationPipeline(cfg=cfg, device=device, **paths)
+    pipe.load(data)
+    load_s = time.perf_counter() - t0
+    n_users, n_items = pipe._n_users, pipe.index.n_total
+    rng = np.random.default_rng(7)
+    users = rng.choice(np.arange(1, n_users + 1), size=n_batch_users,
+                       replace=n_batch_users > n_users).tolist()
+
+    # a warm batch (outside the counted run), then the checks on its output
+    ids, scores, rvals = pipe.serve_batch(users[:batch])
+    if ids.shape != (batch, min(100, TOP_K_CANDIDATES)):
+        raise AssertionError(f"serve_batch shape {tuple(ids.shape)}")
+    fin = torch.isfinite(scores)
+    if not bool(fin[:, 0].all()):
+        raise AssertionError("a user has no unseen candidate")
+    if not bool((scores[:, :-1] >= scores[:, 1:]).all()):
+        raise AssertionError("serve_batch scores are not sorted")
+    if int(ids.min()) < 1 or int(ids.max()) > n_items:
+        raise AssertionError("item id out of range")
+    # each returned retrieval score is the tower query times the item's row
+    pos = torch.searchsorted(pipe.index._ids_dev, ids)
+    q = pipe.index._augment(pipe.model.user_tower(
+        torch.as_tensor(users[:batch], device=device)))
+    rows = pipe.index._embs[pos]
+    want = (rows.float() * q.to(rows.dtype).float()[:, None, :]).sum(-1)
+    rerr = float((want - rvals).abs().max())
+    if rerr > 1e-3:
+        raise AssertionError(f"retrieval scores disagree with the corpus: {rerr}")
+
+    mw.LAUNCHES["window_mips"] = 0
+    t0 = time.perf_counter()
+    recs = pipe.batch_recommend(users, k=k, batch_size=batch)
+    batch_s = time.perf_counter() - t0
+    lat = []
+    singles = {}
+    for u in users[:n_requests]:
+        t0 = time.perf_counter()
+        singles[u] = pipe.get_recommendations(u, k=k, use_cache=False)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    cold = pipe.get_recommendations(n_users + 1000, k=k, use_cache=False)
+    launches = dict(mw.LAUNCHES)
+
+    for u, got in singles.items():
+        ids_u = [r.item_id for r in got]
+        if len(ids_u) != k or len(set(ids_u)) != k:
+            raise AssertionError(f"user {u}: {len(ids_u)} items, expected {k}")
+        if min(ids_u) < 1 or max(ids_u) > n_items:
+            raise AssertionError(f"user {u}: item id out of range")
+        if pipe._seen.contains(np.full(k, u), np.asarray(ids_u)).any():
+            raise AssertionError(f"user {u}: a seen item was recommended")
+    if [r.item_id for r in cold] != pipe._popularity_fallback[:k]:
+        raise AssertionError("unknown user did not get the popularity fallback")
+    if len(recs) != len(set(users)) or any(len(v) != k for v in recs.values()):
+        raise AssertionError("batch_recommend returned short lists")
+    agree = float(np.mean([
+        len(set(recs[u]) & {r.item_id for r in singles[u]}) / k
+        for u in singles]))
+    return {
+        "load_s": load_s,
+        "batch_users": len(users), "batch_size": batch,
+        "batch_s": batch_s, "users_per_s": len(users) / batch_s,
+        "requests": len(lat), "request_p50_ms": float(np.median(lat)),
+        "request_max_ms": float(np.max(lat)),
+        "batch_vs_single_top_k_agreement": agree,
+        "retrieval_score_abs_err": rerr,
+        "stage_split": pipe.get_stats()["stage_split"],
+        "launches": launches,
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--workdir", default=None,
+                    help="artifact directory (default: "
+                         "recommendit_tpu_torch/build/chip_smoke)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this test runs on an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+
+    from recommendit_tpu_torch.ops import _build
+
+    root = Path(__file__).resolve().parent
+    workdir = Path(args.workdir or root / "recommendit_tpu_torch" / "build"
+                   / "chip_smoke")
+    device = torch.device("cuda", 0)
+    card = card_line()
+    print(card, flush=True)
+
+    t0 = time.perf_counter()
+    _build.load_library("window_mips")
+    print(json.dumps({"build_s": time.perf_counter() - t0,
+                      "nvcc_s": _build.build_seconds["window_mips"]}),
+          flush=True)
+
+    t0 = time.perf_counter()
+    paths, data = make_artifacts(workdir, args.seed, device)
+    print(json.dumps({"artifacts_s": time.perf_counter() - t0}), flush=True)
+
+    checks = kernel_phase(paths, device, args.seed)
+    torch.cuda.empty_cache()
+    serve = serve_phase(paths, data, device)
+    print(json.dumps({"serve": serve, "card": card}), flush=True)
+    if serve["launches"].get("window_mips", 0) <= 0:
+        raise AssertionError("the serve path launched no window kernel")
+
+    main_q = checks[-1]
+    print(json.dumps({"kernels": [{
+        "name": "window_mips",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": KERNEL_REPLACES,
+        "launches": serve["launches"]["window_mips"],
+        "max_abs_err": max(c["window_max_abs_err"] for c in checks),
+        "ms": main_q["kernel_ms"],
+        "plain_ms": main_q["twin_ms"],
+    }]}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,86 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` into ``build/lib<name>-<hash>.so`` at first use, then loaded with
+``ctypes``. The file name carries a hash of the source, so an edited kernel
+is rebuilt and a stale library is never loaded. Nothing is compiled when a
+module is imported: CPU-only installs never reach this code.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+build_seconds: Dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            cands.append(str(Path(os.environ[env]) / "bin" / "nvcc"))
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cands.append(str(Path(CUDA_HOME) / "bin" / "nvcc"))
+    for c in cands:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The compiled ``csrc/<name>.cu`` as a ``ctypes.CDLL``, built on the
+    first call in this process if no library for this source exists yet.
+    The seconds spent building are kept in ``build_seconds[name]``."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        src = CSRC_DIR / f"{name}.cu"
+        digest = hashlib.sha256(
+            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+        out = BUILD_DIR / f"lib{name}-{digest}.so"
+        t0 = time.perf_counter()
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            # compile to a private name, then rename: a concurrent process
+            # never loads a half-written library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                proc = subprocess.run(
+                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                    capture_output=True, text=True,
+                )
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed for {src.name}:\n{proc.stdout}{proc.stderr}"
+                    )
+                os.replace(tmp, out)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        build_seconds[name] = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(out))
+        _libs[name] = lib
+        return lib

@@ -1,0 +1,100 @@
+"""The port imports and runs with neither jax nor pandas installed.
+
+Each check runs in a subprocess whose ``sys.modules`` maps ``jax`` and
+``pandas`` to None, so any import of either raises there, as it would on a
+machine without them.
+"""
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+MODULES = [
+    "recommendit_tpu_torch",
+    "recommendit_tpu_torch.features.schema",
+    "recommendit_tpu_torch.features.store",
+    "recommendit_tpu_torch.ops.topk",
+    "recommendit_tpu_torch.ops.seen",
+    "recommendit_tpu_torch.ops._build",
+    "recommendit_tpu_torch.ops.mips_window",
+    "recommendit_tpu_torch.models",
+    "recommendit_tpu_torch.models.two_tower",
+    "recommendit_tpu_torch.models.retrieval",
+    "recommendit_tpu_torch.models.ranker",
+    "recommendit_tpu_torch.serving.recommender",
+    "chip_smoke",
+]
+_BLOCK = 'import sys\nsys.modules["jax"] = None\nsys.modules["pandas"] = None\n'
+# what the port may load from the JAX package: config and utils.latency
+_ALLOWED_JAX_PKG = {
+    "recommendit_tpu", "recommendit_tpu.config", "recommendit_tpu.utils",
+    "recommendit_tpu.utils.latency", "recommendit_tpu.utils.logging",
+}
+
+
+def _run(code: str, cwd=ROOT, timeout=300):
+    return subprocess.run([sys.executable, "-c", _BLOCK + code], cwd=cwd,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+@pytest.fixture(scope="module")
+def import_report():
+    code = f"""
+import importlib, json, traceback
+errors = {{}}
+for m in {MODULES!r}:
+    try:
+        importlib.import_module(m)
+        errors[m] = None
+    except Exception:
+        errors[m] = traceback.format_exc()
+loaded = sorted(k for k in sys.modules if sys.modules[k] is not None)
+print(json.dumps({{"errors": errors, "loaded": loaded}}))
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_imports_without_jax_or_pandas(import_report, module):
+    assert import_report["errors"][module] is None, import_report["errors"][module]
+
+
+def test_no_jax_pandas_or_other_jax_package_modules_loaded(import_report):
+    loaded = import_report["loaded"]
+    assert not [m for m in loaded if m.split(".")[0] in ("jax", "jaxlib", "pandas")]
+    jax_pkg = {m for m in loaded if m.split(".")[0] == "recommendit_tpu"}
+    assert jax_pkg <= _ALLOWED_JAX_PKG, jax_pkg - _ALLOWED_JAX_PKG
+
+
+def test_port_sources_never_import_jax():
+    pkg = ROOT / "recommendit_tpu_torch"
+    for path in pkg.rglob("*.py"):
+        if "build" in path.relative_to(pkg).parts:   # build outputs
+            continue
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            assert not (s.startswith("import jax") or s.startswith("from jax")), (
+                f"{path}: {s}")
+
+
+def test_serves_without_jax_or_pandas(tmp_path):
+    """Small artifacts made and served on the CPU with both blocked."""
+    code = f"""
+from pathlib import Path
+import chip_smoke
+paths, data = chip_smoke.make_artifacts(
+    Path({str(tmp_path)!r}), seed=1, device="cpu", n_users=120, n_items=3000,
+    dim=16, hidden=16, n_ratings=4000, block_size=512)
+out = chip_smoke.serve_phase(paths, data, "cpu", n_batch_users=200,
+                             batch=100, n_requests=3, k=5)
+assert out["requests"] == 3, out
+print("served", out["batch_users"])
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "served 200" in proc.stdout

@@ -1,0 +1,116 @@
+"""The window-MIPS CUDA kernel against its plain PyTorch twin.
+
+The ``cuda`` tests need an NVIDIA GPU and nvcc and skip without them. On
+the card run ``python -m pytest tests/test_torch_kernels.py -m cuda
+--noconftest``: this file imports torch only, and ``tests/conftest.py``
+imports jax, which the card's machine does not have.
+
+Tolerances: window maxima within 1e-4 absolute — both sides sum the same
+f32 products (bf16 x bf16-rounded products are exact in f32) in different
+orders; positions must name a row whose twin score equals the kernel's
+maximum within the same 1e-4.
+"""
+import pytest
+import torch
+
+from recommendit_tpu_torch.ops import mips_window as mw
+from recommendit_tpu_torch.ops.topk import mm_operands
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _corpus(n, d, dtype, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    items = torch.randn(n, d, generator=g)
+    items = items / items.norm(dim=1, keepdim=True)
+    q = torch.randn(100, d, generator=g)
+    return q.to(device), items.to(dtype).to(device)
+
+
+def _row_scores(q, items, cand_args, window, precision="default"):
+    """Twin scores (n_cand, Q) of the rows the kernel chose."""
+    n_cand, n_q = cand_args.shape
+    rows = (torch.arange(n_cand, device=items.device)[:, None] * window
+            + cand_args.long()).clamp(max=items.shape[0] - 1)
+    qq, it = mm_operands(q, items, precision)
+    return (it[rows] * qq[None, :, :]).sum(-1)
+
+
+def test_cpu_tensor_takes_the_twin():
+    q, items = _corpus(500, 16, torch.float32, "cpu")
+    before = dict(mw.LAUNCHES)
+    got = mw.window_candidates(q, items, 8, 490)
+    want = mw.window_candidates_ref(q, items, 8, 490)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert mw.LAUNCHES == before
+
+
+def test_other_device_raises():
+    q = torch.empty(4, 16, device="meta")
+    items = torch.empty(64, 16, device="meta")
+    with pytest.raises(ValueError, match="no window kernel"):
+        mw.window_candidates(q, items, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [1, 8, 64, 128, 512])
+@pytest.mark.parametrize("n,n_valid", [(4096, 4096), (5000, 4801)])
+def test_kernel_matches_twin(cuda_device, dtype, window, n, n_valid):
+    q, items = _corpus(n, 136, dtype, cuda_device)
+    before = mw.LAUNCHES["window_mips"]
+    kv, ka = mw.window_candidates(q, items, window, n_valid)
+    torch.cuda.synchronize()
+    assert mw.LAUNCHES["window_mips"] == before + 1
+    rv, ra = mw.window_candidates_ref(q, items, window, n_valid)
+    assert kv.shape == rv.shape == (-(-n // window), 100)
+    assert ka.dtype == torch.int32
+    torch.testing.assert_close(kv, rv, atol=1e-4, rtol=0)
+    # the kernel's position holds its maximum (ties may pick another row
+    # only if the twin sees them within the tolerance)
+    real = kv > -1e38
+    picked = _row_scores(q, items, ka, window)
+    assert (picked[real] - kv[real]).abs().max() <= 1e-4
+    assert (ka == ra).float().mean() >= 0.999
+    assert (ka[~real] == 0).all()          # fully masked windows: first row
+
+
+@pytest.mark.cuda
+def test_topk_matches_twin_at_serve_width(cuda_device):
+    """k=500 over a padded 262,144-row bf16 corpus, W=64, D=136."""
+    q, items = _corpus(262_144, 136, torch.bfloat16, cuda_device, seed=3)
+    v, i = mw.mips_topk_window_im(q, items, 500, 4096, 64, n_valid=260_000)
+    rv, ri = mw.mips_topk_window_im_ref(q, items, 500, 4096, 64,
+                                        n_valid=260_000)
+    torch.testing.assert_close(v, rv, atol=1e-4, rtol=0)
+    assert int(i.max()) < 260_000
+    overlap = sum(len(set(a) & set(b)) for a, b in zip(i.tolist(), ri.tolist()))
+    assert overlap / i.numel() >= 0.99
+
+
+@pytest.mark.cuda
+def test_highest_precision_keeps_f32_queries(cuda_device):
+    q, items = _corpus(2048, 136, torch.bfloat16, cuda_device, seed=4)
+    kv, _ = mw.window_candidates(q, items, 8, precision="highest")
+    rv, _ = mw.window_candidates_ref(q, items, 8, precision="highest")
+    torch.testing.assert_close(kv, rv, atol=1e-4, rtol=0)
+    dv, _ = mw.window_candidates_ref(q, items, 8, precision="default")
+    assert not torch.equal(rv, dv)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_bad_arguments(cuda_device):
+    q, items = _corpus(1024, 136, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="power of two"):
+        mw.window_candidates(q, items, 24)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        mw.window_candidates(q[:, :129], items[:, :129].contiguous(), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        mw.window_candidates(q[:, :64], items[:, :64], 8)
+    with pytest.raises(TypeError):
+        mw.window_candidates(q, items.half(), 8)
