@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-Drives the port's fused two-stage serve path once, at the repository's
-large serve configuration (``bench.py::bench_serve_e2e_large``): 6,040
+Drives two paths of the port. First the fused two-stage serve path, at the
+repository's large serve configuration (``bench.py::bench_serve_e2e_large``): 6,040
 users, a 1,000,000-item catalog, two towers of width 128, a bf16 fused
 index with the item-bias column, the MLP LambdaRank ranker (128, 64) over
 52 features with query norm and blend 1, top-500 candidates, top-100
 output, the seen filter. Weights and data are random, made from ``--seed``
 and written in the JAX package's file formats.
 
+Then two-tower training, at the repository's BPR training configuration
+(``bench.py::bench_bpr_train``, ML-1M shape): 6,040 users, 3,952 items,
+towers 64/128, batch 1,024, dropout 0.2, AdamW under a cosine schedule with
+global-norm clipping at 1.0, ``LOSS_MODE=in_batch``, on synthetic ML-1M
+data (1,000,209 ratings requested) made from ``--seed``.
+
 Phases (each failure raises, so the exit code is not 0):
 
-1. build the window-MIPS CUDA kernel from ``recommendit_tpu_torch/csrc``;
+1. build the CUDA kernels from ``recommendit_tpu_torch/csrc`` (one nvcc per
+   source, all started together);
 2. write the artifacts, embed the catalog with the port's item tower and
    build + save the fused index;
 3. kernel phase: at Q in {256, 1024} over the 1M x 129 (136 padded) bf16
@@ -20,7 +27,19 @@ Phases (each failure raises, so the exit code is not 0):
    exact top-500 of the same scores — and both times (CUDA events);
 4. serve phase: ``batch_recommend`` for 2,048 users at batch 1,024 (the
    kernel route) and 20 single requests (the scan route), with the launch
-   counts read around exactly that run.
+   counts read around exactly that run;
+5. BPR kernel phase: at B=1024 and a ragged B=1000, D=64 f32, the forward
+   and backward kernels against their twins — the loss within 1e-5
+   relative, du and dv within 1e-4 of the twin's largest entry — and all
+   four times (CUDA events);
+6. train phase: the synthetic data, its 0.9 temporal train view, 2 epochs
+   of in-batch BPR (the loss finite, falling, below ln 2; one forward and
+   one backward kernel launch per step, counted around exactly that run),
+   then 1 epoch of the default softmax loss (no BPR launch);
+7. index phase: ``IndexBuilder`` on the in-batch model (exact f32 index),
+   ``batch_search`` for 1,024 users with held-out positives: valid ids,
+   and Recall@20 of the held-out 10 % positives (train items filtered)
+   above a random ranking's.
 
 Usage, from the repository root: ``python3 chip_smoke.py [--seed N]``.
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
@@ -33,6 +52,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -52,6 +72,18 @@ REQUEST_K = 20
 
 KERNEL_SOURCE = "recommendit_tpu_torch/csrc/window_mips.cu"
 KERNEL_REPLACES = "recommendit_tpu/ops/pallas_mips.py:359"
+BPR_SOURCE = "recommendit_tpu_torch/csrc/bpr.cu"
+BPR_REPLACES = {"bpr_fwd": "recommendit_tpu/ops/bpr.py:53",
+                "bpr_bwd": "recommendit_tpu/ops/bpr.py:123"}
+LIBRARIES = ("window_mips", "bpr")
+
+# training: bench.py::bench_bpr_train at ML-1M shape
+TRAIN_USERS, TRAIN_ITEMS = 6040, 3952
+TRAIN_DIM, TRAIN_HIDDEN, TRAIN_BATCH, TRAIN_DROPOUT = 64, 128, 1024, 0.2
+TRAIN_EPOCHS = 2
+TRAIN_SPLIT = 0.9
+BPR_SHAPES = ((1024, TRAIN_DIM), (1000, TRAIN_DIM))
+INDEX_USERS, RECALL_K = 1024, 20
 
 
 def card_line() -> str:
@@ -320,6 +352,162 @@ def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
     }
 
 
+def bpr_kernel_phase(device, seed: int, shapes=BPR_SHAPES, timer=cuda_ms):
+    """The BPR forward and backward (kernels on the card) against their
+    twins on seeded unit rows. Returns one record per (B, D)."""
+    from recommendit_tpu_torch.ops import bpr
+
+    gen = torch.Generator().manual_seed(seed + 2)
+    out = []
+    for b, d in shapes:
+        u, v = (torch.nn.functional.normalize(torch.randn(b, d, generator=gen),
+                                              dim=1).to(device) for _ in "uv")
+        g = torch.tensor(1.0, device=device)
+        loss = bpr.bpr_forward(u, v)
+        ref = bpr.in_batch_bpr_loss_ref(u, v)
+        du, dv = bpr.bpr_backward(u, v, g)
+        rdu, rdv = bpr._bpr_bwd_ref(u, v, g)
+        rec = {
+            "b": b, "d": d, "loss": float(loss), "twin_loss": float(ref),
+            "loss_rel_err": abs(float(loss) - float(ref)) / abs(float(ref)),
+            "du_err": float((du - rdu).abs().max() / rdu.abs().max()),
+            "dv_err": float((dv - rdv).abs().max() / rdv.abs().max()),
+            "grad_max_abs_err": float(max((du - rdu).abs().max(),
+                                          (dv - rdv).abs().max())),
+        }
+        rec["fwd_ms"] = timer(lambda: bpr.bpr_forward(u, v), 50)
+        rec["twin_fwd_ms"] = timer(lambda: bpr.in_batch_bpr_loss_ref(u, v), 50)
+        rec["bwd_ms"] = timer(lambda: bpr.bpr_backward(u, v, g), 50)
+        rec["twin_bwd_ms"] = timer(lambda: bpr._bpr_bwd_ref(u, v, g), 50)
+        print(json.dumps({"bpr_check": rec}), flush=True)
+        if not rec["loss_rel_err"] <= 1e-5:
+            raise AssertionError(f"BPR loss differs from the twin: {rec}")
+        if not max(rec["du_err"], rec["dv_err"]) <= 1e-4:
+            raise AssertionError(f"BPR gradients differ from the twin: {rec}")
+        out.append(rec)
+    return out
+
+
+def make_train_data(seed: int, n_users: int = TRAIN_USERS,
+                    n_items: int = TRAIN_ITEMS, n_ratings: int = N_RATINGS):
+    """Synthetic ML-1M-shaped data and its temporal train view."""
+    from recommendit_tpu_torch.data.synthetic import make_synthetic_movielens
+
+    data = make_synthetic_movielens(n_users, n_items, n_ratings, seed=seed)
+    return data, data.train_view(TRAIN_SPLIT)
+
+
+def _train_cfg(seed: int, loss_mode: str, dim: int, hidden: int, batch: int):
+    from recommendit_tpu.config import Settings
+
+    return Settings(LOSS_MODE=loss_mode, EMBEDDING_DIM=dim, HIDDEN_DIM=hidden,
+                    BATCH_SIZE=batch, DROPOUT=TRAIN_DROPOUT, USE_PALLAS=True,
+                    SEED=seed, INDEX_MODE="exact", INDEX_DTYPE="float32")
+
+
+def train_phase(view, device, seed: int, workdir: Path, epochs: int = TRAIN_EPOCHS,
+                dim: int = TRAIN_DIM, hidden: int = TRAIN_HIDDEN,
+                batch: int = TRAIN_BATCH):
+    """In-batch BPR training (the main path), with the kernel launch counts
+    read around exactly that run — one forward and one backward launch per
+    step on the card, none on the CPU (the twins) — then one softmax epoch.
+    Returns the in-batch model and the measurements."""
+    from recommendit_tpu_torch.ops import bpr
+    from recommendit_tpu_torch.training import EmbeddingTrainer
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    trainer = EmbeddingTrainer(view, _train_cfg(seed, "in_batch", dim, hidden,
+                                                batch),
+                               model_output_path=str(workdir / "two_tower_bpr.npz"),
+                               device=device)
+    for name in bpr.LAUNCHES:
+        bpr.LAUNCHES[name] = 0
+    model = trainer.train(epochs=epochs)
+    launches = dict(bpr.LAUNCHES)
+    hist = trainer.history
+    steps = sum(h["steps"] for h in hist)
+    losses = [h["loss"] for h in hist]
+    rec = {
+        "positives": len(trainer.pos_users), "steps": steps,
+        "losses": losses, "seconds": [h["seconds"] for h in hist],
+        "examples_per_s": [h["examples_per_s"] for h in hist],
+        "ms_per_step": [1e3 * h["seconds"] / h["steps"] for h in hist],
+        "launches": launches,
+    }
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if not losses[-1] < np.log(2.0):
+        raise AssertionError(f"the loss {losses[-1]} is not below ln 2")
+    per_step = steps if torch.device(device).type == "cuda" else 0
+    if launches != {"bpr_fwd": per_step, "bpr_bwd": per_step}:
+        raise AssertionError(
+            f"expected {per_step} forward and backward launches ({steps} "
+            f"steps), got {launches}")
+
+    soft = EmbeddingTrainer(view, _train_cfg(seed, "softmax", dim, hidden, batch),
+                            model_output_path="", device=device)
+    soft.train(epochs=1)
+    rec["softmax_loss"] = soft.history[0]["loss"]
+    rec["softmax_examples_per_s"] = soft.history[0]["examples_per_s"]
+    rec["softmax_launches"] = dict(bpr.LAUNCHES)
+    if not np.isfinite(rec["softmax_loss"]):
+        raise AssertionError(f"non-finite softmax loss: {rec['softmax_loss']}")
+    if rec["softmax_launches"] != launches:
+        raise AssertionError("the softmax epoch launched a BPR kernel")
+    return model, rec
+
+
+def index_phase(model, data, view, device, seed: int, workdir: Path,
+                n_users: int = INDEX_USERS, k: int = RECALL_K):
+    """Build the exact f32 index from the trained towers and search it for
+    users with held-out positives: Recall@k of those positives, the items
+    each user rated in the train view filtered out, against a random
+    ranking of the same unrated items."""
+    from recommendit_tpu_torch.data.movielens import timestamp_order
+    from recommendit_tpu_torch.training import IndexBuilder
+
+    cfg = _train_cfg(seed, "in_batch", model.embed_dim, model.hidden_dim, 0)
+    index = IndexBuilder(view, cfg, index_output_path=str(workdir / "bpr.index.npz"),
+                         device=device).build(model=model)
+    n_items = model.n_items
+    seen = np.zeros((model.n_users + 1, n_items + 1), dtype=bool)
+    seen[view.user_id, view.item_id] = True
+    # held out: the positives past the train view's timestamp cut
+    rows = timestamp_order(data.timestamp)[len(view):]
+    rows = rows[data.rating[rows] >= 4]
+    held = np.zeros_like(seen)
+    held[data.user_id[rows], data.item_id[rows]] = True
+    held &= ~seen
+    cand = np.flatnonzero(held.any(axis=1))
+    users = np.random.default_rng(seed + 3).choice(
+        cand, size=min(n_users, len(cand)), replace=False)
+
+    q = model.user_tower(torch.as_tensor(users, device=device)).cpu().numpy()
+    scores, ids = index.batch_search(q, k=n_items)
+    if ids.shape != (len(users), n_items):
+        raise AssertionError(f"batch_search returned {ids.shape}")
+    if ids.min() < 1 or ids.max() > n_items or not np.isfinite(scores).all():
+        raise AssertionError("batch_search returned an invalid id or score")
+    if not (np.sort(ids, axis=1) == np.arange(1, n_items + 1)).all():
+        raise AssertionError("a full-catalog search repeated or lost an item")
+
+    def recall(ranked):
+        unseen = ~seen[users[:, None], ranked]
+        top = unseen & (np.cumsum(unseen, axis=1) <= k)
+        hits = (held[users[:, None], ranked] & top).sum(axis=1)
+        return float(np.mean(hits / held[users].sum(axis=1)))
+
+    rnd = np.argsort(np.random.default_rng(seed + 4).random(ids.shape), axis=1) + 1
+    rec = {"users": len(users), "index_items": index.n_total,
+           "index_has_bias": index.has_bias,
+           f"recall@{k}": recall(ids), f"random_recall@{k}": recall(rnd)}
+    if not rec[f"recall@{k}"] > rec[f"random_recall@{k}"]:
+        raise AssertionError(f"retrieval does not beat a random ranking: {rec}")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -342,9 +530,10 @@ def main(argv=None) -> int:
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    _build.load_library("window_mips")
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        list(pool.map(_build.load_library, LIBRARIES))
     print(json.dumps({"build_s": time.perf_counter() - t0,
-                      "nvcc_s": _build.build_seconds["window_mips"]}),
+                      "nvcc_s": {n: _build.build_seconds[n] for n in LIBRARIES}}),
           flush=True)
 
     t0 = time.perf_counter()
@@ -358,7 +547,23 @@ def main(argv=None) -> int:
     if serve["launches"].get("window_mips", 0) <= 0:
         raise AssertionError("the serve path launched no window kernel")
 
+    del paths, data
+    torch.cuda.empty_cache()
+
+    bpr_checks = bpr_kernel_phase(device, args.seed)
+    t0 = time.perf_counter()
+    data, view = make_train_data(args.seed)
+    print(json.dumps({"train_data": {
+        "ratings": len(data), "train_view": len(view), "users": data.n_users,
+        "items": data.n_items, "seconds": time.perf_counter() - t0}}),
+        flush=True)
+    model, train = train_phase(view, device, args.seed, workdir)
+    print(json.dumps({"train": train, "card": card}), flush=True)
+    index = index_phase(model, data, view, device, args.seed, workdir)
+    print(json.dumps({"index": index}), flush=True)
+
     main_q = checks[-1]
+    main_b = bpr_checks[0]
     print(json.dumps({"kernels": [{
         "name": "window_mips",
         "route": "cuda",
@@ -368,6 +573,24 @@ def main(argv=None) -> int:
         "max_abs_err": max(c["window_max_abs_err"] for c in checks),
         "ms": main_q["kernel_ms"],
         "plain_ms": main_q["twin_ms"],
+    }, {
+        "name": "bpr_fwd",
+        "route": "cuda",
+        "source": BPR_SOURCE,
+        "replaces": BPR_REPLACES["bpr_fwd"],
+        "launches": train["launches"]["bpr_fwd"],
+        "max_abs_err": max(abs(c["loss"] - c["twin_loss"]) for c in bpr_checks),
+        "ms": main_b["fwd_ms"],
+        "plain_ms": main_b["twin_fwd_ms"],
+    }, {
+        "name": "bpr_bwd",
+        "route": "cuda",
+        "source": BPR_SOURCE,
+        "replaces": BPR_REPLACES["bpr_bwd"],
+        "launches": train["launches"]["bpr_bwd"],
+        "max_abs_err": max(c["grad_max_abs_err"] for c in bpr_checks),
+        "ms": main_b["bwd_ms"],
+        "plain_ms": main_b["twin_bwd_ms"],
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,14 @@ from typing import List
 import numpy as np
 import torch
 
-N_GENRES = 18
+# MovieLens-1M genre vocabulary, in dataset order
+GENRES: List[str] = [
+    "Action", "Adventure", "Animation", "Children's", "Comedy",
+    "Crime", "Documentary", "Drama", "Fantasy", "Film-Noir",
+    "Horror", "Musical", "Mystery", "Romance", "Sci-Fi",
+    "Thriller", "War", "Western",
+]
+N_GENRES = len(GENRES)
 
 USER_SCALAR_COLS = [
     "avg_rating", "log_rating_count", "recency_score",

@@ -1,16 +1,26 @@
-"""Two-tower embedding model — torch port, inference.
+"""Two-tower embedding model — torch port.
 
 Counterpart of ``recommendit_tpu/models/two_tower.py``: user tower =
 embedding → MLP → L2-normalise; item tower = embedding ⊕ 18-d genre vector
 → MLP → L2-normalise; a learned per-item score bias. Parameters keep the
 JAX names, and :meth:`TwoTower.load` / :meth:`TwoTower.save` read and write
 the JAX npz + ``.meta.json`` format, so one checkpoint serves both.
+
+Two surfaces:
+
+* :class:`TwoTower` — the inference model the serve path loads (no grad).
+* the functions :func:`init_params`, :func:`user_tower`, :func:`item_tower`
+  (and their ``*_from_embed`` heads) — pure functions over a dict of
+  JAX-named tensors, differentiable, with dropout from an explicit
+  ``torch.Generator`` and an optional reduced-precision compute dtype, as
+  the JAX trainer uses them. :func:`from_jax_params` carries the JAX
+  package's params (numpy arrays) into a :class:`TwoTower`.
 """
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -29,8 +39,92 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x * torch.rsqrt((x * x).sum(dim=-1, keepdim=True) + eps)
 
 
-def _mlp(x, w1, b1, w2, b2):
-    return torch.relu(x @ w1 + b1) @ w2 + b2
+def _mlp(x, w1, b1, w2, b2, dropout_rate: float = 0.0,
+         rng: Optional[torch.Generator] = None, compute_dtype=None):
+    """MLP head. ``compute_dtype`` (e.g. ``torch.bfloat16``) casts the input
+    and weights, computes, and returns f32 before normalisation; dropout
+    draws its keep mask from ``rng`` and scales the kept units by
+    1 / (1 − rate), as the JAX ``_mlp`` does."""
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        w1, b1 = w1.to(compute_dtype), b1.to(compute_dtype)
+        w2, b2 = w2.to(compute_dtype), b2.to(compute_dtype)
+    h = torch.relu(x @ w1 + b1)
+    if dropout_rate > 0.0 and rng is not None:
+        keep = torch.rand(h.shape, generator=rng, device=h.device) < 1.0 - dropout_rate
+        h = torch.where(keep, h / (1.0 - dropout_rate), torch.zeros_like(h))
+    return (h @ w2 + b2).float()
+
+
+Params = Dict[str, torch.Tensor]
+
+
+def init_params(rng: torch.Generator, n_users: int, n_items: int,
+                embed_dim: int = 64, hidden_dim: int = 128,
+                device="cpu") -> Params:
+    """Fresh two-tower params with the JAX initialisers: embeddings
+    N(0, 0.1²) with a zero padding row 0, Glorot-uniform weights, zero biases
+    and item bias. ``rng`` is a CPU generator; ``jax.random`` streams cannot
+    be replayed, so parity with JAX runs through :func:`from_jax_params`."""
+    def glorot(shape):
+        limit = float(np.sqrt(6.0 / (shape[0] + shape[-1])))
+        return (torch.rand(shape, generator=rng) * 2 - 1) * limit
+
+    params = {
+        "user_embed": 0.1 * torch.randn((n_users + 1, embed_dim), generator=rng),
+        "item_embed": 0.1 * torch.randn((n_items + 1, embed_dim), generator=rng),
+        "user_w1": glorot((embed_dim, hidden_dim)),
+        "user_b1": torch.zeros(hidden_dim),
+        "user_w2": glorot((hidden_dim, embed_dim)),
+        "user_b2": torch.zeros(embed_dim),
+        "item_w1": glorot((embed_dim + N_GENRES, hidden_dim)),
+        "item_b1": torch.zeros(hidden_dim),
+        "item_w2": glorot((hidden_dim, embed_dim)),
+        "item_b2": torch.zeros(embed_dim),
+        "item_bias": torch.zeros(n_items + 1),
+    }
+    params["user_embed"][0] = 0.0
+    params["item_embed"][0] = 0.0
+    return {k: v.to(device) for k, v in params.items()}
+
+
+def user_tower_from_embed(params: Params, emb: torch.Tensor,
+                          dropout_rate: float = 0.0,
+                          rng: Optional[torch.Generator] = None,
+                          compute_dtype=None) -> torch.Tensor:
+    """MLP head over gathered user embedding rows → (B, D) normalised."""
+    return l2_normalize(_mlp(emb, params["user_w1"], params["user_b1"],
+                             params["user_w2"], params["user_b2"],
+                             dropout_rate, rng, compute_dtype))
+
+
+def item_tower_from_embed(params: Params, emb: torch.Tensor,
+                          genre_vecs: torch.Tensor, dropout_rate: float = 0.0,
+                          rng: Optional[torch.Generator] = None,
+                          compute_dtype=None) -> torch.Tensor:
+    """MLP head over gathered item embedding rows ⊕ genre vector."""
+    x = torch.cat([emb, genre_vecs.to(emb.dtype)], dim=-1)
+    return l2_normalize(_mlp(x, params["item_w1"], params["item_b1"],
+                             params["item_w2"], params["item_b2"],
+                             dropout_rate, rng, compute_dtype))
+
+
+def user_tower(params: Params, user_ids: torch.Tensor,
+               dropout_rate: float = 0.0, rng: Optional[torch.Generator] = None,
+               compute_dtype=None) -> torch.Tensor:
+    """(B,) int ids → (B, D) L2-normalised user embeddings (differentiable;
+    the gather's gradient is dense, as JAX's is)."""
+    emb = params["user_embed"][user_ids.long()]
+    return user_tower_from_embed(params, emb, dropout_rate, rng, compute_dtype)
+
+
+def item_tower(params: Params, item_ids: torch.Tensor, genre_vecs: torch.Tensor,
+               dropout_rate: float = 0.0, rng: Optional[torch.Generator] = None,
+               compute_dtype=None) -> torch.Tensor:
+    """(B,) int ids + (B, 18) genre multi-hot → (B, D) normalised."""
+    emb = params["item_embed"][item_ids.long()]
+    return item_tower_from_embed(params, emb, genre_vecs, dropout_rate, rng,
+                                 compute_dtype)
 
 
 class TwoTower(nn.Module):
@@ -58,6 +152,8 @@ class TwoTower(nn.Module):
         for name in PARAM_NAMES:
             self.register_parameter(name, nn.Parameter(
                 torch.zeros(shapes[name], device=device), requires_grad=False))
+        self._item_embeddings: Optional[np.ndarray] = None
+        self._item_ids: Optional[np.ndarray] = None
 
     @classmethod
     def from_numpy(cls, params: Dict[str, np.ndarray], n_users: int,
@@ -110,6 +206,17 @@ class TwoTower(nn.Module):
             return np.zeros((0, self.embed_dim), np.float32)
         return np.concatenate(out, axis=0)
 
+    def precompute_item_embeddings(self, item_ids: np.ndarray,
+                                   genre_matrix: np.ndarray) -> np.ndarray:
+        """Compute and keep the whole catalog's embeddings."""
+        self._item_embeddings = self.get_item_embeddings(item_ids, genre_matrix)
+        self._item_ids = np.asarray(item_ids)
+        return self._item_embeddings
+
+    def params(self) -> Params:
+        """The parameters as a dict of detached tensors, by JAX name."""
+        return {n: getattr(self, n).detach() for n in PARAM_NAMES}
+
     def item_bias_np(self, item_ids: np.ndarray) -> np.ndarray:
         """Learned per-item score bias for the given ids."""
         ids = torch.as_tensor(np.asarray(item_ids), device=self.device).long()
@@ -138,3 +245,17 @@ class TwoTower(nn.Module):
         with np.load(p) as data:
             params = {k: data[k] for k in data.files}
         return cls.from_numpy(params, device=device, **meta)
+
+
+def from_jax_params(params: Mapping[str, np.ndarray], dropout: float = 0.2,
+                    device="cpu") -> TwoTower:
+    """The JAX package's two-tower params (numpy arrays, JAX names) as a
+    :class:`TwoTower`; the sizes are read from the shapes. The trainer takes
+    the result as its initial state (``EmbeddingTrainer.train(init_params=)``),
+    so the JAX trainer and the port can start from identical weights."""
+    n_users = params["user_embed"].shape[0] - 1
+    n_items = params["item_embed"].shape[0] - 1
+    embed_dim, hidden_dim = params["user_w1"].shape
+    return TwoTower.from_numpy({k: np.asarray(v) for k, v in params.items()},
+                               n_users, n_items, embed_dim, hidden_dim,
+                               dropout, device)

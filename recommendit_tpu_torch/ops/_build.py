@@ -27,7 +27,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-_lock = threading.Lock()
+_locks_guard = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}   # one per library: builds run in parallel
 _libs: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}
 
@@ -50,8 +51,12 @@ def _nvcc() -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """The compiled ``csrc/<name>.cu`` as a ``ctypes.CDLL``, built on the
     first call in this process if no library for this source exists yet.
-    The seconds spent building are kept in ``build_seconds[name]``."""
-    with _lock:
+    The seconds spent building are kept in ``build_seconds[name]``.
+    Different libraries build concurrently when called from several
+    threads."""
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

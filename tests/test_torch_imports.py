@@ -25,6 +25,13 @@ MODULES = [
     "recommendit_tpu_torch.models.retrieval",
     "recommendit_tpu_torch.models.ranker",
     "recommendit_tpu_torch.serving.recommender",
+    "recommendit_tpu_torch.ops.bpr",
+    "recommendit_tpu_torch.data",
+    "recommendit_tpu_torch.data.movielens",
+    "recommendit_tpu_torch.data.synthetic",
+    "recommendit_tpu_torch.training",
+    "recommendit_tpu_torch.training.train_embeddings",
+    "recommendit_tpu_torch.training.build_index",
     "chip_smoke",
 ]
 _BLOCK = 'import sys\nsys.modules["jax"] = None\nsys.modules["pandas"] = None\n'
@@ -80,6 +87,26 @@ def test_port_sources_never_import_jax():
             s = line.strip()
             assert not (s.startswith("import jax") or s.startswith("from jax")), (
                 f"{path}: {s}")
+
+
+def test_trains_without_jax_or_pandas(tmp_path):
+    """The train and index phases at a small size on the CPU with both
+    blocked."""
+    code = f"""
+from pathlib import Path
+import torch
+import chip_smoke
+torch.set_num_threads(1)   # a small training loop; see test_torch_smoke.py
+data, view = chip_smoke.make_train_data(0, 600, 400, 40_000)
+model, rec = chip_smoke.train_phase(view, "cpu", 0, Path({str(tmp_path)!r}),
+                                    epochs=4, dim=16, hidden=32, batch=256)
+out = chip_smoke.index_phase(model, data, view, "cpu", 0, Path({str(tmp_path)!r}),
+                             n_users=200)
+print("trained", rec["steps"], out["users"])
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "trained" in proc.stdout
 
 
 def test_serves_without_jax_or_pandas(tmp_path):

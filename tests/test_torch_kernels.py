@@ -1,4 +1,5 @@
-"""The window-MIPS CUDA kernel against its plain PyTorch twin.
+"""The CUDA kernels (window MIPS, in-batch BPR forward and backward)
+against their plain PyTorch twins.
 
 The ``cuda`` tests need an NVIDIA GPU and nvcc and skip without them. On
 the card run ``python -m pytest tests/test_torch_kernels.py -m cuda
@@ -8,11 +9,14 @@ imports jax, which the card's machine does not have.
 Tolerances: window maxima within 1e-4 absolute — both sides sum the same
 f32 products (bf16 x bf16-rounded products are exact in f32) in different
 orders; positions must name a row whose twin score equals the kernel's
-maximum within the same 1e-4.
+maximum within the same 1e-4. BPR: the loss within 1e-5 relative, du and dv
+within 1e-4 of the twin's largest entry (f32 sums of up to B·D terms in
+another order).
 """
 import pytest
 import torch
 
+from recommendit_tpu_torch.ops import bpr
 from recommendit_tpu_torch.ops import mips_window as mw
 from recommendit_tpu_torch.ops.topk import mm_operands
 
@@ -114,3 +118,61 @@ def test_kernel_rejects_bad_arguments(cuda_device):
         mw.window_candidates(q[:, :64], items[:, :64], 8)
     with pytest.raises(TypeError):
         mw.window_candidates(q, items.half(), 8)
+
+
+def _unit_pair(b, d, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    u, v = (torch.nn.functional.normalize(torch.randn(b, d, generator=g), dim=1)
+            for _ in "uv")
+    return u.to(device), v.to(device)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [2, 3, 20, 1000, 1024, 1100])
+@pytest.mark.parametrize("d", [8, 64, 128, 256])
+def test_bpr_kernels_match_twins(cuda_device, b, d):
+    u, v = _unit_pair(b, d, cuda_device, seed=b * d)
+    g = torch.tensor(1.3, device=cuda_device)
+    before = dict(bpr.LAUNCHES)
+    loss = bpr.bpr_forward(u, v)
+    du, dv = bpr.bpr_backward(u, v, g)
+    torch.cuda.synchronize()
+    assert bpr.LAUNCHES == {k: n + 1 for k, n in before.items()}
+    ref = bpr.in_batch_bpr_loss_ref(u, v)
+    rdu, rdv = bpr._bpr_bwd_ref(u, v, g)
+    assert abs(float(loss) - float(ref)) <= 1e-5 * abs(float(ref))
+    assert _rel(du, rdu) <= 1e-4 and _rel(dv, rdv) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_bpr_autograd_on_the_card_matches_the_cpu_twins(cuda_device):
+    u, v = _unit_pair(1024, 64, "cpu", seed=5)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        a, c = (t.detach().to(dev).clone().requires_grad_() for t in (u, v))
+        loss = bpr.InBatchBPR.apply(a, c)
+        loss.backward()
+        grads.append((float(loss.detach()), a.grad.cpu(), c.grad.cpu()))
+    (lc, uc, vc), (lg, ug, vg) = grads
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    assert _rel(ug, uc) <= 1e-4 and _rel(vg, vc) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_bpr_kernels_reject_bad_arguments(cuda_device):
+    u, v = _unit_pair(64, 64, cuda_device)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        bpr.bpr_forward(u[:, :62].contiguous(), v[:, :62].contiguous())
+    with pytest.raises(ValueError, match="at most 256"):
+        w = torch.zeros(64, 260, device=cuda_device)
+        bpr.bpr_forward(w, w)
+    with pytest.raises(ValueError, match="at least 2 rows"):
+        bpr.bpr_forward(u[:1], v[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        bpr.bpr_forward(u[:, :32], v[:, :32])
+    with pytest.raises(TypeError):
+        bpr.bpr_forward(u.double(), v.double())

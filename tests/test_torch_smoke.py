@@ -9,10 +9,22 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The training loops here run many tiny ops. With several test workers
+    on one machine, torch's default pool of one spinning thread per core
+    oversubscribes it (a 3 s rehearsal took 110 s); one thread each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _host_ms(fn, reps, warm=1):
@@ -64,6 +76,61 @@ def test_serve_phase_checks_pass(small_artifacts):
     assert out["retrieval_score_abs_err"] <= 1e-3
     assert out["batch_vs_single_top_k_agreement"] == 1.0
     assert out["launches"] == {"window_mips": 0}   # the CPU runs the twin
+
+
+def test_bpr_kernel_phase_on_the_twins():
+    recs = chip_smoke.bpr_kernel_phase("cpu", 0, shapes=((64, 16), (50, 16)),
+                                       timer=_host_ms)
+    assert [(r["b"], r["d"]) for r in recs] == [(64, 16), (50, 16)]
+    for r in recs:
+        assert r["loss_rel_err"] == 0.0 and r["grad_max_abs_err"] == 0.0
+        assert 0.6 < r["loss"] < 0.8          # ≈ ln 2 for random unit rows
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """The train phase at 600 users x 400 items, towers 16/32, batch 256,
+    4 epochs (enough for retrieval to beat a random ranking clearly)."""
+    tmp = tmp_path_factory.mktemp("train")
+    data, view = chip_smoke.make_train_data(0, 600, 400, 40_000)
+    model, rec = chip_smoke.train_phase(view, "cpu", 0, tmp, epochs=4, dim=16,
+                                        hidden=32, batch=256)
+    return data, view, model, rec, tmp
+
+
+def test_train_phase_checks_pass(trained):
+    data, view, model, rec, tmp = trained
+    assert len(view) == int(len(data) * chip_smoke.TRAIN_SPLIT)
+    assert rec["steps"] == 4 * (rec["positives"] // 256)
+    assert rec["losses"][-1] < rec["losses"][0] < 0.7
+    assert rec["launches"] == {"bpr_fwd": 0, "bpr_bwd": 0}   # twins on the CPU
+    assert np.isfinite(rec["softmax_loss"])
+    assert (tmp / "two_tower_bpr.npz").exists()
+
+
+def test_index_phase_checks_pass(trained):
+    data, view, model, _, tmp = trained
+    rec = chip_smoke.index_phase(model, data, view, "cpu", 0, tmp, n_users=200)
+    assert rec["users"] == 200 and rec["index_items"] == 400
+    assert not rec["index_has_bias"]
+    assert 0 < 1.2 * rec["random_recall@20"] < rec["recall@20"]
+
+
+def test_train_phase_counts_every_launch(trained, monkeypatch):
+    """A forward counted without its backward fails the launch check."""
+    from recommendit_tpu_torch.ops import bpr
+
+    _, view, _, _, tmp = trained
+    twin = bpr.bpr_forward
+
+    def counted(u, v):
+        bpr.LAUNCHES["bpr_fwd"] += 1
+        return twin(u, v)
+
+    monkeypatch.setattr(bpr, "bpr_forward", counted)
+    with pytest.raises(AssertionError, match="launches"):
+        chip_smoke.train_phase(view, "cpu", 0, tmp, epochs=4, dim=16,
+                               hidden=32, batch=256)
 
 
 def test_overlap_counts_shared_ids():
