@@ -9,6 +9,11 @@ index with the item-bias column, the MLP LambdaRank ranker (128, 64) over
 output, the seen filter. Weights and data are random, made from ``--seed``
 and written in the JAX package's file formats.
 
+Then the same serve path with the index stored in int8 (``INDEX_DTYPE=int8``,
+the int8 window kernel for batches of 1,024 users), and the int8 capacity
+shape of ``scripts/capacity_30m.py``: 30,000,000 random unit rows x 128,
+window 512, k=500, Q=1024.
+
 Then two-tower training, at the repository's BPR training configuration
 (``bench.py::bench_bpr_train``, ML-1M shape): 6,040 users, 3,952 items,
 towers 64/128, batch 1,024, dropout 0.2, AdamW under a cosine schedule with
@@ -20,23 +25,38 @@ Phases (each failure raises, so the exit code is not 0):
 1. build the CUDA kernels from ``recommendit_tpu_torch/csrc`` (one nvcc per
    source, all started together);
 2. write the artifacts, embed the catalog with the port's item tower and
-   build + save the fused index;
+   build + save the fused bf16 index and, from the same embeddings and
+   bias, the fused int8 index (quant seed ``--seed``);
 3. kernel phase: at Q in {256, 1024} over the 1M x 129 (136 padded) bf16
    corpus, W=64, k=500, the kernel against its plain twin — window maxima
    within 1e-3, top-500 id overlap >= 0.99, recall@500 >= 0.98 against the
    exact top-500 of the same scores — and both times (CUDA events);
 4. serve phase: ``batch_recommend`` for 2,048 users at batch 1,024 (the
-   kernel route) and 20 single requests (the scan route), with the launch
-   counts read around exactly that run;
-5. BPR kernel phase: at B=1024 and a ragged B=1000, D=64 f32, the forward
+   kernel route: one launch per batch) and 20 single requests (the scan
+   route: none), with the launch counts read around exactly that run;
+5. quantize phase: at 1M x 129, the catalog's augmented f32 rows, the
+   quantize kernel against its twin (int8 values and scales equal), and
+   the times of both and of the build quantizer (threefry);
+6. int8 kernel phase: at Q in {256, 1024} over the saved 1M x 129 (144
+   padded) int8 corpus, W=64, k=500, the int8 window kernel against its
+   twin — window maxima and positions equal, top-500 ids equal — recall@500
+   >= 0.98 against the exact top-500 of the same int8 scores and >= 0.95
+   against the exact top-500 of the unquantised f32 rows, and both times;
+7. int8 serve phase: the serve phase over the int8 index, with exactly one
+   int8 window launch per batch and none of the bf16 kernel;
+8. capacity phase: 30M x 128 random unit rows made and quantised on the
+   card in chunks, the int8 window kernel at Q=1024 and W=512 (windows
+   wider than a tile) timed, and on 64 queries its maxima and positions
+   equal to the twin's and recall@500 >= 0.98 against int8-exact;
+9. BPR kernel phase: at B=1024 and a ragged B=1000, D=64 f32, the forward
    and backward kernels against their twins — the loss within 1e-5
    relative, du and dv within 1e-4 of the twin's largest entry — and all
    four times (CUDA events);
-6. train phase: the synthetic data, its 0.9 temporal train view, 2 epochs
+10. train phase: the synthetic data, its 0.9 temporal train view, 2 epochs
    of in-batch BPR (the loss finite, falling, below ln 2; one forward and
    one backward kernel launch per step, counted around exactly that run),
    then 1 epoch of the default softmax loss (no BPR launch);
-7. index phase: ``IndexBuilder`` on the in-batch model (exact f32 index),
+11. index phase: ``IndexBuilder`` on the in-batch model (exact f32 index),
    ``batch_search`` for 1,024 users with held-out positives: valid ids,
    and Recall@20 of the held-out 10 % positives (train items filtered)
    above a random ranking's.
@@ -75,7 +95,18 @@ KERNEL_REPLACES = "recommendit_tpu/ops/pallas_mips.py:359"
 BPR_SOURCE = "recommendit_tpu_torch/csrc/bpr.cu"
 BPR_REPLACES = {"bpr_fwd": "recommendit_tpu/ops/bpr.py:53",
                 "bpr_bwd": "recommendit_tpu/ops/bpr.py:123"}
-LIBRARIES = ("window_mips", "bpr")
+I8_SOURCE = "recommendit_tpu_torch/csrc/window_mips_i8.cu"
+I8_REPLACES = "recommendit_tpu/ops/pallas_mips.py:470"
+QUANT_SOURCE = "recommendit_tpu_torch/csrc/quantize_i8.cu"
+QUANT_REPLACES = "recommendit_tpu/ops/quantize.py:60"
+LIBRARIES = ("window_mips", "bpr", "window_mips_i8", "quantize_i8")
+INDEX_PATHS = {"bfloat16": "index_path", "int8": "index_i8_path"}
+SERVE_KERNELS = {"bfloat16": "window_mips", "int8": "window_mips_i8"}
+
+# capacity: scripts/capacity_30m.py
+CAPACITY_ROWS, CAPACITY_DIM, CAPACITY_WINDOW = 30_000_000, 128, 512
+CAPACITY_Q, CAPACITY_CHECK_Q = 1024, 64
+CAPACITY_CHUNK = 1 << 21          # rows made and quantised at a time
 
 # training: bench.py::bench_bpr_train at ML-1M shape
 TRAIN_USERS, TRAIN_ITEMS = 6040, 3952
@@ -102,8 +133,10 @@ def make_artifacts(workdir: Path, seed: int, device, n_users: int = N_USERS,
                    n_items: int = N_ITEMS, dim: int = DIM,
                    hidden: int = HIDDEN, n_ratings: int = N_RATINGS,
                    block_size: int = INDEX_BLOCK):
-    """Random two-tower, fused bf16 index, ranker, packed feature tables
-    and ratings, in the JAX package's formats. Returns (paths, ServeData)."""
+    """Random two-tower, fused bf16 and int8 indexes, ranker, packed
+    feature tables and ratings, in the JAX package's formats, and the
+    catalog's augmented f32 rows (normalised embedding and bias column) as
+    ``catalog.npy``. Returns (paths, ServeData)."""
     from recommendit_tpu_torch.features.schema import (
         FEATURE_COLUMNS,
         ITEM_PACKED_DIM,
@@ -134,6 +167,8 @@ def make_artifacts(workdir: Path, seed: int, device, n_users: int = N_USERS,
                                 device=device)
     paths = {"model_path": str(workdir / "two_tower.npz"),
              "index_path": str(workdir / "mips.index.npz"),
+             "index_i8_path": str(workdir / "mips_i8.index.npz"),
+             "catalog_path": str(workdir / "catalog.npy"),
              "ranker_path": str(workdir / "ranker.npz"),
              "features_dir": str(workdir / "features")}
     model.save(paths["model_path"])
@@ -145,11 +180,17 @@ def make_artifacts(workdir: Path, seed: int, device, n_users: int = N_USERS,
     for j in range(3):
         g = rng.integers(0, N_GENRES, n_items)
         genres[np.arange(n_items)[n_gen > j], g[n_gen > j]] = 1.0
-    index = MIPSIndex(dim, block_size, "fused", "bfloat16", device=device)
-    index.build(model.get_item_embeddings(item_ids, genres), item_ids,
-                bias=0.05 * model.item_bias_np(item_ids))
-    index.save(paths["index_path"])
-    del model, index
+    embs = model.get_item_embeddings(item_ids, genres)
+    bias = 0.05 * model.item_bias_np(item_ids)
+    for dtype in INDEX_PATHS:
+        index = MIPSIndex(dim, block_size, "fused", dtype, quant_seed=seed,
+                          device=device)
+        index.build(embs, item_ids, bias=bias)
+        index.save(paths[INDEX_PATHS[dtype]])
+    unit = embs / np.maximum(np.linalg.norm(embs, axis=1, keepdims=True), 1e-12)
+    np.save(paths["catalog_path"],
+            np.concatenate([unit, bias[:, None]], axis=1).astype(np.float32))
+    del model, index, embs, unit
 
     names = FEATURE_COLUMNS + ["retrieval_score", "retrieval_rank"]
     ranker = LambdaRankScorer(feature_names=names, hidden_dims=RANKER_HIDDEN,
@@ -268,21 +309,28 @@ def kernel_phase(paths, device, seed: int, qs=KERNEL_QS, k=TOP_K_CANDIDATES,
 
 def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
                 batch: int = BATCH, n_requests: int = N_REQUESTS,
-                k: int = REQUEST_K):
-    """Load the port's pipeline and drive its main path: batch_recommend at
-    ``batch`` and ``n_requests`` single requests. Checks what comes out and
-    returns the measurements and the launch counts of exactly that run."""
+                k: int = REQUEST_K, dtype: str = "bfloat16"):
+    """Load the port's pipeline over the fused index of ``dtype`` and drive
+    its main path: batch_recommend at ``batch`` and ``n_requests`` single
+    requests. Checks what comes out and the launch counts of exactly that
+    run — on the card one launch of the dtype's window kernel per batch,
+    none for the single requests (the scan route) and none of the other
+    kernel — and returns the measurements and the counts."""
     from recommendit_tpu.config import Settings
     from recommendit_tpu_torch.ops import mips_window as mw
+    from recommendit_tpu_torch.ops.topk import quantize_queries
     from recommendit_tpu_torch.serving.recommender import RecommendationPipeline
 
     cfg = Settings(EMBEDDING_DIM=DIM, HIDDEN_DIM=HIDDEN, INDEX_MODE="fused",
-                   INDEX_DTYPE="bfloat16", TOP_K_CANDIDATES=TOP_K_CANDIDATES,
+                   INDEX_DTYPE=dtype, TOP_K_CANDIDATES=TOP_K_CANDIDATES,
                    TOP_K_RESULTS=k, FILTER_SEEN=True,
                    RANKER_BLEND_RETRIEVAL=1.0, RANKER_QUERY_NORM=True,
                    STAGE_RECAL_EVERY=0)
+    files = {key: paths[key] for key in ("model_path", "ranker_path",
+                                         "features_dir")}
     t0 = time.perf_counter()
-    pipe = RecommendationPipeline(cfg=cfg, device=device, **paths)
+    pipe = RecommendationPipeline(cfg=cfg, device=device,
+                                  index_path=paths[INDEX_PATHS[dtype]], **files)
     pipe.load(data)
     load_s = time.perf_counter() - t0
     n_users, n_items = pipe._n_users, pipe.index.n_total
@@ -301,20 +349,28 @@ def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
         raise AssertionError("serve_batch scores are not sorted")
     if int(ids.min()) < 1 or int(ids.max()) > n_items:
         raise AssertionError("item id out of range")
-    # each returned retrieval score is the tower query times the item's row
+    # each returned retrieval score is the tower query times the item's
+    # row; over int8, (q_i8 · e_i8) · s_item · s_q
     pos = torch.searchsorted(pipe.index._ids_dev, ids)
     q = pipe.index._augment(pipe.model.user_tower(
         torch.as_tensor(users[:batch], device=device)))
     rows = pipe.index._embs[pos]
-    want = (rows.float() * q.to(rows.dtype).float()[:, None, :]).sum(-1)
+    if dtype == "int8":
+        q8, q_scale = quantize_queries(q)
+        dot = (rows.float() * q8.float()[:, None, :]).sum(-1)
+        want = dot * pipe.index._scales[pos] * q_scale[:, None]
+    else:
+        want = (rows.float() * q.to(rows.dtype).float()[:, None, :]).sum(-1)
     rerr = float((want - rvals).abs().max())
     if rerr > 1e-3:
         raise AssertionError(f"retrieval scores disagree with the corpus: {rerr}")
 
-    mw.LAUNCHES["window_mips"] = 0
+    for name in mw.LAUNCHES:
+        mw.LAUNCHES[name] = 0
     t0 = time.perf_counter()
     recs = pipe.batch_recommend(users, k=k, batch_size=batch)
     batch_s = time.perf_counter() - t0
+    batch_launches = dict(mw.LAUNCHES)
     lat = []
     singles = {}
     for u in users[:n_requests]:
@@ -323,6 +379,16 @@ def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
         lat.append((time.perf_counter() - t0) * 1e3)
     cold = pipe.get_recommendations(n_users + 1000, k=k, use_cache=False)
     launches = dict(mw.LAUNCHES)
+
+    n_batches = -(-len(users) // batch)
+    expect = {name: 0 for name in mw.LAUNCHES}
+    if torch.device(device).type == "cuda":
+        expect[SERVE_KERNELS[dtype]] = n_batches
+    if batch_launches != expect or launches != expect:
+        raise AssertionError(
+            f"expected launches {expect} ({n_batches} batches, none for the "
+            f"single requests), got {batch_launches} after the batches and "
+            f"{launches} after the requests")
 
     for u, got in singles.items():
         ids_u = [r.item_id for r in got]
@@ -340,7 +406,7 @@ def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
         len(set(recs[u]) & {r.item_id for r in singles[u]}) / k
         for u in singles]))
     return {
-        "load_s": load_s,
+        "index_dtype": dtype, "load_s": load_s,
         "batch_users": len(users), "batch_size": batch,
         "batch_s": batch_s, "users_per_s": len(users) / batch_s,
         "requests": len(lat), "request_p50_ms": float(np.median(lat)),
@@ -350,6 +416,188 @@ def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
         "stage_split": pipe.get_stats()["stage_split"],
         "launches": launches,
     }
+
+
+def quantize_phase(paths, device, seed: int, timer=cuda_ms):
+    """Kernel 7 on the catalog's augmented f32 rows: one launch through its
+    wrapper (the counted run), then its int8 values and scales against the
+    twin's, which must be equal, and the times of the kernel, the twin and
+    the build quantizer (threefry, ``quantize_int8``), whose scales must
+    equal the kernel's and whose rows must be the saved int8 index's."""
+    from recommendit_tpu_torch.ops import quantize as qz
+
+    x = torch.as_tensor(np.load(paths["catalog_path"]), device=device)
+    for name in qz.LAUNCHES:
+        qz.LAUNCHES[name] = 0
+    vals, scales = qz.quantize_int8_hash(x, seed)
+    launches = dict(qz.LAUNCHES)
+    rv, rs = qz.quantize_int8_hash_ref(x, seed)
+    bv, bs = qz.quantize_int8(x, seed)
+    with np.load(paths["index_i8_path"]) as saved:
+        built_equal = bool(np.array_equal(
+            saved["embeddings_i8"][: x.shape[0]], bv.cpu().numpy()))
+    rec = {
+        "n": x.shape[0], "d": x.shape[1], "seed": seed,
+        "values_equal": bool(torch.equal(vals, rv)),
+        "scales_equal": bool(torch.equal(scales, rs)),
+        "max_abs_err": float(max((vals.int() - rv.int()).abs().max(),
+                                 (scales - rs).abs().max())),
+        "build_scales_equal": bool(torch.equal(bs, scales)),
+        "build_equals_saved_index": built_equal,
+        "mean_abs_dequant_err": float(
+            (qz.dequantize_int8(vals, scales) - x).abs().mean()),
+        "launches": launches,
+    }
+    del rv, rs, bv, bs
+    rec["kernel_ms"] = timer(lambda: qz.quantize_int8_hash(x, seed), 20)
+    rec["twin_ms"] = timer(lambda: qz.quantize_int8_hash_ref(x, seed), 3)
+    rec["build_quantizer_ms"] = timer(lambda: qz.quantize_int8(x, seed), 3)
+    print(json.dumps({"quantize_check": rec}), flush=True)
+    if not (rec["values_equal"] and rec["scales_equal"]):
+        raise AssertionError(f"the quantize kernel differs from its twin: {rec}")
+    if not (rec["build_scales_equal"] and built_equal):
+        raise AssertionError(f"the build quantizer disagrees: {rec}")
+    want = 1 if torch.device(device).type == "cuda" else 0
+    if launches != {"quantize_i8": want}:
+        raise AssertionError(f"expected {want} quantize launch, got {launches}")
+    return rec
+
+
+def int8_kernel_phase(paths, device, seed: int, qs=KERNEL_QS,
+                      k=TOP_K_CANDIDATES, window=WINDOW, timer=cuda_ms,
+                      min_recall=0.98, min_f32_recall=0.95):
+    """The int8 window kernel against its twin on the saved int8 index and
+    user-tower queries: window maxima and positions equal, the top-k ids
+    equal after ``canonical_tie_order``; recall@k against the exact top-k
+    of the same int8 scores (``min_recall``) and of the unquantised f32
+    rows (``min_f32_recall``). Returns one record per batch size."""
+    from recommendit_tpu_torch.models import MIPSIndex, TwoTower
+    from recommendit_tpu_torch.ops import mips_window as mw
+    from recommendit_tpu_torch.ops.topk import (
+        canonical_tie_order,
+        fast_topk,
+        mips_topk_int8,
+        quantize_queries,
+        score_matrix,
+    )
+
+    model = TwoTower.load(paths["model_path"], device=device)
+    index = MIPSIndex.load(paths["index_i8_path"], device=device)
+    corpus, scales, n_valid = index._embs, index._scales, index.n_total
+    rows_f32 = torch.as_tensor(np.load(paths["catalog_path"]), device=device)
+    width = rows_f32.shape[1]
+    rng = np.random.default_rng(seed + 1)
+    out = []
+    for n_q in qs:
+        uids = torch.as_tensor(rng.integers(1, model.n_users + 1, n_q),
+                               device=device)
+        q = index._augment(model.user_tower(uids))
+        q8, _ = quantize_queries(q)
+        kv, ka = mw.window_candidates_i8(q8, corpus, scales, window, n_valid)
+        rv, ra = mw.window_candidates_i8_ref(q8, corpus, scales, window, n_valid)
+        args = (q, corpus, scales, k, INDEX_BLOCK, window, n_valid)
+        v, i = mw.mips_topk_window_im_int8(*args)
+        tv, ti = mw.mips_topk_window_im_int8_ref(*args)
+        (cv, ci), (ctv, cti) = canonical_tie_order(v, i), canonical_tie_order(tv, ti)
+        _, ei = mips_topk_int8(q, corpus[:n_valid], scales[:n_valid], k)
+        _, fi = fast_topk(score_matrix(q[:, :width], rows_f32, "highest"), k)
+        rec = {
+            "q": n_q, "n": n_valid, "d": int(corpus.shape[1]),
+            "window": window, "k": k, "dtype": str(corpus.dtype),
+            "window_max_equal": bool(torch.equal(kv, rv)),
+            "window_arg_equal": bool(torch.equal(ka, ra)),
+            "window_max_abs_err": float((kv - rv).abs().max()),
+            "topk_ids_equal": bool(torch.equal(ci, cti)),
+            "topk_values_equal": bool(torch.equal(cv, ctv)),
+            "recall_vs_int8_exact": _overlap(i, ei),
+            "recall_vs_f32_exact": _overlap(i, fi),
+            "bin_model_recall": 1 - (k - 1) * window / (2 * n_valid),
+        }
+        del kv, ka, rv, ra, ei, fi
+        reps = 20 if n_q <= 256 else 10
+        rec["kernel_ms"] = timer(
+            lambda: mw.window_candidates_i8(q8, corpus, scales, window, n_valid),
+            reps)
+        rec["twin_ms"] = timer(
+            lambda: mw.window_candidates_i8_ref(q8, corpus, scales, window,
+                                                n_valid), 3)
+        rec["kernel_topk_ms"] = timer(lambda: mw.mips_topk_window_im_int8(*args),
+                                      reps)
+        rec["twin_topk_ms"] = timer(
+            lambda: mw.mips_topk_window_im_int8_ref(*args), 3)
+        print(json.dumps({"int8_kernel_check": rec}), flush=True)
+        if not (rec["window_max_equal"] and rec["window_arg_equal"]):
+            raise AssertionError(f"int8 window maxima differ from the twin: {rec}")
+        if not (rec["topk_ids_equal"] and rec["topk_values_equal"]):
+            raise AssertionError(f"int8 top-{k} differs from the twin: {rec}")
+        if rec["recall_vs_int8_exact"] < min_recall:
+            raise AssertionError(f"recall@{k} vs int8-exact < {min_recall}: {rec}")
+        if rec["recall_vs_f32_exact"] < min_f32_recall:
+            raise AssertionError(f"recall@{k} vs f32-exact < {min_f32_recall}: {rec}")
+        out.append(rec)
+    return out
+
+
+def capacity_phase(device, seed: int, n_rows: int = CAPACITY_ROWS,
+                   dim: int = CAPACITY_DIM, window: int = CAPACITY_WINDOW,
+                   n_q: int = CAPACITY_Q, n_check: int = CAPACITY_CHECK_Q,
+                   k: int = TOP_K_CANDIDATES, chunk: int = CAPACITY_CHUNK,
+                   block: int = INDEX_BLOCK, timer=cuda_ms, min_recall=0.98):
+    """The shape of ``scripts/capacity_30m.py``: ``n_rows`` random unit rows
+    made, normalised and quantised on the device chunk by chunk (the
+    threefry counter offset by each chunk's first row), padded with scale-0
+    rows to a ``block`` multiple; the int8 window kernel timed at ``n_q``
+    queries; on ``n_check`` of them its maxima and positions equal to the
+    twin's (row-chunked) and recall@k against int8-exact."""
+    from recommendit_tpu_torch.ops import mips_window as mw
+    from recommendit_tpu_torch.ops.quantize import quantize_int8
+    from recommendit_tpu_torch.ops.topk import mips_topk_int8, quantize_queries
+
+    t0 = time.perf_counter()
+    n_pad = n_rows + (-n_rows % block)
+    corpus = torch.zeros((n_pad, dim), dtype=torch.int8, device=device)
+    scales = torch.zeros(n_pad, dtype=torch.float32, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    for r0 in range(0, n_rows, chunk):
+        r1 = min(n_rows, r0 + chunk)
+        x = torch.randn((r1 - r0, dim), generator=gen, device=device)
+        x = x / x.norm(dim=1, keepdim=True).clamp(min=1e-12)
+        corpus[r0:r1], scales[r0:r1] = quantize_int8(x, seed, row_offset=r0)
+        del x
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    q = torch.randn((n_q, dim), generator=gen, device=device)
+    q8, _ = quantize_queries(q[:n_check])
+    kv, ka = mw.window_candidates_i8(q8, corpus, scales, window, n_rows)
+    rv, ra = mw.window_candidates_i8_ref(q8, corpus, scales, window, n_rows)
+    _, i = mw.mips_topk_window_im_int8(q[:n_check], corpus, scales, k, block,
+                                       window, n_rows)
+    _, ei = mips_topk_int8(q[:n_check], corpus, scales, k, n_valid=n_rows)
+    rec = {
+        "n": n_rows, "d": dim, "window": window, "k": k, "q": n_q,
+        "check_q": n_check, "corpus_bytes": corpus.numel() + 4 * scales.numel(),
+        "build_s": build_s,
+        "window_max_equal": bool(torch.equal(kv, rv)),
+        "window_arg_equal": bool(torch.equal(ka, ra)),
+        "recall_vs_int8_exact": _overlap(i, ei),
+        "bin_model_recall": 1 - (k - 1) * window / (2 * n_rows),
+    }
+    del kv, ka, rv, ra, i, ei
+    q8, _ = quantize_queries(q)
+    rec["kernel_ms"] = timer(
+        lambda: mw.window_candidates_i8(q8, corpus, scales, window, n_rows), 3)
+    rec["kernel_topk_ms"] = timer(
+        lambda: mw.mips_topk_window_im_int8(q, corpus, scales, k, block, window,
+                                            n_rows), 3)
+    rec["queries_per_s"] = n_q / (rec["kernel_topk_ms"] / 1e3)
+    print(json.dumps({"capacity_check": rec}), flush=True)
+    if not (rec["window_max_equal"] and rec["window_arg_equal"]):
+        raise AssertionError(f"int8 window maxima differ from the twin: {rec}")
+    if rec["recall_vs_int8_exact"] < min_recall:
+        raise AssertionError(f"recall@{k} vs int8-exact < {min_recall}: {rec}")
+    return rec
 
 
 def bpr_kernel_phase(device, seed: int, shapes=BPR_SHAPES, timer=cuda_ms):
@@ -529,7 +777,7 @@ def main(argv=None) -> int:
     card = card_line()
     print(card, flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
         list(pool.map(_build.load_library, LIBRARIES))
     print(json.dumps({"build_s": time.perf_counter() - t0,
@@ -544,10 +792,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     serve = serve_phase(paths, data, device)
     print(json.dumps({"serve": serve, "card": card}), flush=True)
-    if serve["launches"].get("window_mips", 0) <= 0:
-        raise AssertionError("the serve path launched no window kernel")
+    torch.cuda.empty_cache()
 
+    quant = quantize_phase(paths, device, args.seed)
+    torch.cuda.empty_cache()
+    checks_i8 = int8_kernel_phase(paths, device, args.seed)
+    torch.cuda.empty_cache()
+    serve_i8 = serve_phase(paths, data, device, dtype="int8")
+    print(json.dumps({"serve_int8": serve_i8, "card": card}), flush=True)
     del paths, data
+    torch.cuda.empty_cache()
+
+    capacity = capacity_phase(device, args.seed)
+    print(json.dumps({"capacity": capacity, "card": card}), flush=True)
     torch.cuda.empty_cache()
 
     bpr_checks = bpr_kernel_phase(device, args.seed)
@@ -562,7 +819,9 @@ def main(argv=None) -> int:
     index = index_phase(model, data, view, device, args.seed, workdir)
     print(json.dumps({"index": index}), flush=True)
 
+    print(json.dumps({"total_s": time.perf_counter() - t_start}), flush=True)
     main_q = checks[-1]
+    main_i8 = checks_i8[-1]
     main_b = bpr_checks[0]
     print(json.dumps({"kernels": [{
         "name": "window_mips",
@@ -591,6 +850,24 @@ def main(argv=None) -> int:
         "max_abs_err": max(c["grad_max_abs_err"] for c in bpr_checks),
         "ms": main_b["bwd_ms"],
         "plain_ms": main_b["twin_bwd_ms"],
+    }, {
+        "name": "window_mips_i8",
+        "route": "cuda",
+        "source": I8_SOURCE,
+        "replaces": I8_REPLACES,
+        "launches": serve_i8["launches"]["window_mips_i8"],
+        "max_abs_err": max(c["window_max_abs_err"] for c in checks_i8),
+        "ms": main_i8["kernel_ms"],
+        "plain_ms": main_i8["twin_ms"],
+    }, {
+        "name": "quantize_i8",
+        "route": "cuda",
+        "source": QUANT_SOURCE,
+        "replaces": QUANT_REPLACES,
+        "launches": quant["launches"]["quantize_i8"],
+        "max_abs_err": quant["max_abs_err"],
+        "ms": quant["kernel_ms"],
+        "plain_ms": quant["twin_ms"],
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

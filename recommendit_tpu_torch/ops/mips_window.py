@@ -11,8 +11,15 @@ index serves through:
 * :func:`mips_topk_window_im` — the candidates plus the exact top-k over
   the window maxima (outside the kernel, as in JAX).
   :func:`mips_topk_window_im_ref` is its plain twin on any device.
+* :func:`window_candidates_i8` / :func:`mips_topk_window_im_int8` — the
+  same over an int8 corpus with per-row scales: ``csrc/window_mips_i8.cu``
+  (the port of ``_window_kernel_im_i8``) on the card,
+  :func:`window_candidates_i8_ref` on the CPU. Window maxima of
+  (q_i8 · e_i8) · s_item, masked after the scale; the per-query scale
+  multiplies the values after the selection.
 * :func:`mips_topk_fused_auto` — the production router: same batch and
-  window rules as the JAX function.
+  window rules as the JAX function, over f32/bf16 or (with ``scales``)
+  int8 corpora.
 
 Recall model of the window scheme (approx_max_k's bin argument):
 1 − (k−1)·W/(2N); ``window=1`` is exact.
@@ -25,7 +32,12 @@ from typing import Optional, Tuple
 import torch
 
 from recommendit_tpu_torch.ops.topk import (
+    INT8_MAX_DIM,
+    INT8_ROW_ALIGN,
     fast_topk,
+    int8_dot,
+    mips_topk_int8,
+    quantize_queries,
     round_queries,
     score_matrix,
 )
@@ -38,10 +50,11 @@ _TARGET_CAND = 16384     # window maxima the tail top-k should see
 
 _MASKED = -3e38
 _REF_QUERY_CHUNK = 256   # bounds the twin's live (Q, N) score slab
+_REF_SCORE_BUDGET = 1 << 27   # score elements per int8 twin chunk (512 MB)
 
 # Kernel launches since the last reset, by kernel name. Only the CUDA
-# wrapper adds to it, once per launch.
-LAUNCHES = {"window_mips": 0}
+# wrappers add to it, once per launch.
+LAUNCHES = {"window_mips": 0, "window_mips_i8": 0}
 
 
 def _check_window_args(n: int, k: int, block_items: int, window: int,
@@ -77,21 +90,16 @@ def window_candidates_ref(queries: torch.Tensor, items: torch.Tensor,
     (Q, N) score slab stays bounded."""
     n = items.shape[0]
     n_valid = n if n_valid is None else n_valid
-    n_cand = -(-n // window)
-    pad = n_cand * window - n
-    lane = torch.arange(window, dtype=torch.int32, device=items.device)
+    pad = -n % window
     vals, args = [], []
     for s in range(0, queries.shape[0], _REF_QUERY_CHUNK):
         scores = score_matrix(queries[s:s + _REF_QUERY_CHUNK], items, precision)
         scores[:, n_valid:] = _MASKED
         if pad:
             scores = torch.nn.functional.pad(scores, (0, pad), value=_MASKED)
-        s3 = scores.view(scores.shape[0], n_cand, window)
-        smax = s3.amax(dim=-1)
-        # first-occurrence argmax: the smallest lane attaining the max
-        arg = torch.where(s3 >= smax[..., None], lane, window).amin(dim=-1)
+        smax, arg = _window_max(scores, window)
         vals.append(smax)
-        args.append(arg.to(torch.int32))
+        args.append(arg)
     return torch.cat(vals).T.contiguous(), torch.cat(args).T.contiguous()
 
 
@@ -152,6 +160,127 @@ def window_candidates(queries: torch.Tensor, items: torch.Tensor, window: int,
     return _window_candidates_cuda(queries, items, window, n_valid, precision)
 
 
+def _window_max(scores: torch.Tensor, window: int):
+    """(Q, R) scores, R a multiple of ``window`` → (Q, R/W) maxima and
+    int32 first-occurrence positions (the smallest lane attaining the
+    max)."""
+    s3 = scores.view(scores.shape[0], -1, window)
+    smax = s3.amax(dim=-1)
+    lane = torch.arange(window, dtype=torch.int32, device=scores.device)
+    arg = torch.where(s3 >= smax[..., None], lane, window).amin(dim=-1)
+    return smax, arg.to(torch.int32)
+
+
+def window_candidates_i8_ref(q_i8: torch.Tensor, items_i8: torch.Tensor,
+                             item_scales: torch.Tensor, window: int,
+                             n_valid: Optional[int] = None):
+    """Plain twin of kernel 3: (n_cand, Q) f32 window maxima of
+    (q_i8 · e_i8) · item_scale and int32 first-occurrence positions,
+    n_cand = ceil(N / window). The dot is exact (``ops.topk.int8_dot``),
+    the scale is one f32 multiply, and rows >= ``n_valid`` score -3e38 after
+    it, so the kernel must agree bit for bit. Works in query chunks and
+    window-aligned row chunks, so neither the (Q, N) score slab nor a
+    widened corpus is ever live whole."""
+    n = items_i8.shape[0]
+    n_valid = n if n_valid is None else n_valid
+    n_cand = -(-n // window)
+    n_pad = n_cand * window
+    n_qc = min(_REF_QUERY_CHUNK, q_i8.shape[0])
+    rows = max(window, _REF_SCORE_BUDGET // n_qc // window * window)
+    vals = torch.empty((n_cand, q_i8.shape[0]), dtype=torch.float32,
+                       device=items_i8.device)
+    args = torch.empty((n_cand, q_i8.shape[0]), dtype=torch.int32,
+                       device=items_i8.device)
+    for r0 in range(0, n_pad, rows):
+        r1 = min(n_pad, r0 + rows)
+        blk, sc = items_i8[r0:r1], item_scales[r0:r1]
+        for q0 in range(0, q_i8.shape[0], n_qc):
+            scores = int8_dot(q_i8[q0:q0 + n_qc], blk) * sc[None, :]
+            scores[:, max(0, n_valid - r0):] = _MASKED
+            if scores.shape[1] < r1 - r0:    # the last window's missing rows
+                scores = torch.nn.functional.pad(
+                    scores, (0, r1 - r0 - scores.shape[1]), value=_MASKED)
+            smax, arg = _window_max(scores, window)
+            vals[r0 // window:r1 // window, q0:q0 + n_qc] = smax.T
+            args[r0 // window:r1 // window, q0:q0 + n_qc] = arg.T
+    return vals, args
+
+
+def _check_int8_operands(q_i8: torch.Tensor, items_i8: torch.Tensor,
+                         item_scales: torch.Tensor) -> None:
+    if q_i8.dtype != torch.int8 or items_i8.dtype != torch.int8:
+        raise TypeError(
+            f"queries and corpus must be int8, got {q_i8.dtype}, {items_i8.dtype}")
+    if item_scales.dtype != torch.float32:
+        raise TypeError(f"item scales must be float32, got {item_scales.dtype}")
+    if q_i8.dim() != 2 or items_i8.dim() != 2 or q_i8.shape[1] != items_i8.shape[1]:
+        raise ValueError(
+            f"shape mismatch: queries {tuple(q_i8.shape)}, corpus {tuple(items_i8.shape)}")
+    if item_scales.shape != (items_i8.shape[0],):
+        raise ValueError("item_scales length mismatch")
+
+
+def _window_candidates_i8_cuda(q_i8: torch.Tensor, items_i8: torch.Tensor,
+                               item_scales: torch.Tensor, window: int,
+                               n_valid: int):
+    """Launch ``csrc/window_mips_i8.cu`` on the current stream."""
+    from recommendit_tpu_torch.ops._build import load_library
+
+    if not (q_i8.device == items_i8.device == item_scales.device):
+        raise ValueError("queries, corpus and scales must be on the same device")
+    if not (items_i8.is_contiguous() and item_scales.is_contiguous()):
+        raise ValueError("corpus and scales must be contiguous")
+    n, d = items_i8.shape
+    if d % INT8_ROW_ALIGN or d > INT8_MAX_DIM:
+        raise ValueError(
+            f"feature dim {d} must be a multiple of {INT8_ROW_ALIGN} and at "
+            f"most {INT8_MAX_DIM} (pad the corpus)")
+    if window & (window - 1):
+        raise ValueError(f"window={window} must be a power of two")
+    if q_i8.shape[0] == 0 or q_i8.shape[0] >= 2 ** 31 or n >= 2 ** 31:
+        raise ValueError("unsupported query or corpus size")
+    q_i8 = q_i8.contiguous()
+    if (q_i8.data_ptr() | items_i8.data_ptr()) % 16:
+        raise ValueError("queries and corpus must start 16-byte aligned")
+
+    lib = load_library("window_mips_i8")
+    fn = lib.window_mips_i8_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    n_q = q_i8.shape[0]
+    n_cand = -(-n // window)
+    vals = torch.empty((n_cand, n_q), dtype=torch.float32, device=items_i8.device)
+    args = torch.empty((n_cand, n_q), dtype=torch.int32, device=items_i8.device)
+    with torch.cuda.device(items_i8.device):
+        stream = torch.cuda.current_stream(items_i8.device).cuda_stream
+        rc = fn(q_i8.data_ptr(), items_i8.data_ptr(), item_scales.data_ptr(),
+                vals.data_ptr(), args.data_ptr(), n_q, n, d, n_valid, window,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"window_mips_i8 launch failed: CUDA error {rc}")
+    LAUNCHES["window_mips_i8"] += 1
+    return vals, args
+
+
+def window_candidates_i8(q_i8: torch.Tensor, items_i8: torch.Tensor,
+                         item_scales: torch.Tensor, window: int,
+                         n_valid: Optional[int] = None):
+    """Int8 window maxima and positions, (n_cand, Q) each: the CUDA kernel
+    for a corpus on the card, the plain twin for one on the CPU."""
+    _check_int8_operands(q_i8, items_i8, item_scales)
+    n_valid = items_i8.shape[0] if n_valid is None else n_valid
+    if items_i8.device.type == "cpu":
+        return window_candidates_i8_ref(q_i8, items_i8, item_scales, window,
+                                        n_valid)
+    if items_i8.device.type != "cuda":
+        raise ValueError(f"no window kernel for device {items_i8.device}")
+    return _window_candidates_i8_cuda(q_i8, items_i8, item_scales, window,
+                                      n_valid)
+
+
 def _select(cand_vals: torch.Tensor, cand_args: torch.Tensor, k: int,
             window: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k over (n_cand, Q) window maxima → (Q, k) values and
@@ -197,6 +326,55 @@ def mips_topk_window_im_ref(
     return _select(cv, ca, k, window)
 
 
+def _int8_window_topk(candidates, queries, items_i8, item_scales, k,
+                      block_items, window, n_valid):
+    """The body of ``mips_topk_window_im_int8`` (pallas_mips.py:538-605)
+    with ``candidates`` the kernel or its twin."""
+    if item_scales.shape[0] != items_i8.shape[0]:
+        raise ValueError("item_scales length mismatch")
+    n_valid = _check_window_args(items_i8.shape[0], k, block_items, window,
+                                 n_valid)
+    q_i8, q_scale = quantize_queries(queries.float())
+    cv, ca = candidates(q_i8, items_i8, item_scales, window, n_valid)
+    vals, idx = _select(cv, ca, k, window)
+    # the per-query scale is positive and uniform along a row: applied
+    # after the selection, it cannot change any order
+    return vals * q_scale[:, None], idx
+
+
+def mips_topk_window_im_int8(
+    queries: torch.Tensor,
+    items_i8: torch.Tensor,
+    item_scales: torch.Tensor,
+    k: int,
+    block_items: int = 2048,
+    window: int = 64,
+    n_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Int8-corpus window-segment MIPS top-k → (values (Q, k) f32,
+    positions (Q, k) int64), sorted descending. f32 queries are quantised
+    per row (round to nearest); the kernel ranks (q_i8 · e_i8) · s_item.
+    Padded rows carry scale 0 and are masked by ``n_valid``. The kernel on
+    the card, its twin on the CPU."""
+    return _int8_window_topk(window_candidates_i8, queries, items_i8,
+                             item_scales, k, block_items, window, n_valid)
+
+
+def mips_topk_window_im_int8_ref(
+    queries: torch.Tensor,
+    items_i8: torch.Tensor,
+    item_scales: torch.Tensor,
+    k: int,
+    block_items: int = 2048,
+    window: int = 64,
+    n_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of :func:`mips_topk_window_im_int8` on any
+    device."""
+    return _int8_window_topk(window_candidates_i8_ref, queries, items_i8,
+                             item_scales, k, block_items, window, n_valid)
+
+
 def fused_window(n: int, k: int) -> int:
     """The JAX window rule (pallas_mips.py:665-677): about n/16384 rounded
     up to a power of two, clamped to [8, 512], halved while
@@ -228,17 +406,27 @@ def mips_topk_fused_auto(
     block_items: int = 4096,
     precision: str = "default",
     n_valid: Optional[int] = None,
+    scales: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Production entry for the fused index: small batches over large
     corpora and small corpora take a dense scan (matmul + exact top-k over
     the valid rows), everything else the window kernel. ``precision``
-    applies on every route (the JAX scan route drops it)."""
+    applies on every route of an f32/bf16 corpus (the JAX scan route drops
+    it). With ``scales`` the corpus is int8 and the same routes take the
+    int8 engines: ``mips_topk_int8`` (scan: "approx", tiny: "exact") and
+    the int8 window kernel."""
     n = item_embs.shape[0] if n_valid is None else n_valid
     route, window = fused_route(queries.shape[0], n, k)
     if route != "kernel":
         if k > n:
             raise ValueError(f"k={k} exceeds corpus size {n}")
+        if scales is not None:
+            mode = "approx" if route == "scan" else "exact"
+            return mips_topk_int8(queries, item_embs[:n], scales[:n], k, mode)
         return fast_topk(score_matrix(queries, item_embs[:n], precision), k)
     bn = max(window, block_items - block_items % window)
+    if scales is not None:
+        return mips_topk_window_im_int8(queries, item_embs, scales, k, bn,
+                                        window, n_valid)
     return mips_topk_window_im(queries, item_embs, k, bn, window, precision,
                                n_valid)

@@ -62,7 +62,7 @@ class IndexBuilder:
         index = MIPSIndex(embedding_dim=model.embed_dim,
                           block_size=cfg.RETRIEVAL_BLOCK_ITEMS,
                           mode=cfg.INDEX_MODE, dtype=cfg.INDEX_DTYPE,
-                          device=self.device)
+                          quant_seed=cfg.SEED, device=self.device)
         scaled = cfg.SOFTMAX_TEMPERATURE * model.item_bias_np(item_ids)
         if not np.any(scaled):
             scaled = None

@@ -11,15 +11,18 @@ and the model saved in the JAX npz + ``.meta.json`` format.
 The step matches the JAX one (optax) operation for operation:
 
 * the schedule is ``optax.cosine_decay_schedule(lr, epochs * n_batches)``
-  evaluated in f32 at update counts 0, 1, …, set on both param groups by
-  hand before each step;
+  evaluated in f32 at update counts 0, 1, … and handed to each step;
 * clipping is ``optax.clip_by_global_norm``: the gradients are divided by
   the global norm and multiplied by the limit only when the norm is at
   least the limit (``torch.nn.utils.clip_grad_norm_`` scales by
   limit / (norm + 1e-6) instead);
-* the optimizer is ``torch.optim.AdamW`` (b1 0.9, b2 0.999, eps 1e-8 added
-  to sqrt(v̂), decoupled decay scaled by the scheduled lr), the same update
-  as ``optax.adamw``, with ``item_bias`` in a group without decay;
+* the optimizer is :class:`OptaxAdamW`, the update of ``optax.adamw`` (b1
+  0.9, b2 0.999, eps 1e-8 added to sqrt(v̂), weight decay masked off
+  ``item_bias``) in optax's order of operations, so it rounds as optax
+  does. ``torch.optim.AdamW`` computes the same update in exact arithmetic
+  but decays first, p·(1 − lr·wd), and at lr 1e-3, wd 1e-5 that factor
+  rounds to 1 in f32: the decay is lost and the params drift from JAX's
+  step by step;
 * gradients are dense: a parameter the loss does not reach gets a zero
   gradient, so every row's moments decay on every step, as in JAX;
 * the batches and the pairwise negatives come from the same numpy
@@ -114,6 +117,63 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
     one = torch.ones_like(norm)
     torch._foreach_div_(grads, torch.where(keep, one, norm))
     torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
+
+
+# optax.adamw's defaults, which the JAX trainer uses
+ADAM_B1 = 0.9
+ADAM_B2 = 0.999
+ADAM_EPS = 1e-8
+
+
+class OptaxAdamW:
+    """``optax.adamw(lr, weight_decay=…, mask=…)`` at optax's default b1, b2
+    and eps, on a list of f32 params, operation for operation:
+
+    * ``scale_by_adam``: mu ← (1−b1)·g + b1·mu, nu ← (1−b2)·g² + b2·nu,
+      u = (mu / (1 − b1^t)) / (sqrt(nu / (1 − b2^t)) + eps);
+    * ``add_decayed_weights``: u ← u + wd·p on the params with ``decay``;
+    * ``scale_by_learning_rate``: u ← u · (−lr);
+    * ``apply_updates``: p ← p + u.
+
+    Every scalar is an f32 value computed on the host from the step count
+    (numpy's f32 power equals XLA's for the bias corrections), and every
+    tensor operation is a ``torch._foreach_*`` call, so a step never waits
+    for the device."""
+
+    def __init__(self, params: List[torch.Tensor], decay: List[bool],
+                 weight_decay: float):
+        self.params = list(params)
+        self.decayed = [i for i, d in enumerate(decay) if d]
+        self.weight_decay = weight_decay
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor], lr: float) -> None:
+        f32 = np.float32
+        self.count += 1
+        b1, b2 = float(f32(ADAM_B1)), float(f32(ADAM_B2))
+        bc1 = float(f32(1) - f32(ADAM_B1) ** f32(self.count))
+        bc2 = float(f32(1) - f32(ADAM_B2) ** f32(self.count))
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, float(f32(1 - ADAM_B1))))
+        sq = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(sq, float(f32(1 - ADAM_B2)))
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_add_(self.nu, sq)
+        den = torch._foreach_div(self.nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, ADAM_EPS)
+        upd = torch._foreach_div(self.mu, bc1)
+        torch._foreach_div_(upd, den)
+        if self.weight_decay:
+            torch._foreach_add_(
+                [upd[i] for i in self.decayed],
+                torch._foreach_mul([self.params[i] for i in self.decayed],
+                                   self.weight_decay))
+        torch._foreach_mul_(upd, -float(f32(lr)))
+        torch._foreach_add_(self.params, upd)
 
 
 class EmbeddingTrainer:
@@ -236,14 +296,11 @@ class EmbeddingTrainer:
         cdt = torch.bfloat16 if cfg.COMPUTE_DTYPE == "bfloat16" else None
 
         params = self._initial_params(init_params)
+        plist = [params[k] for k in PARAM_NAMES]
         # no weight decay on the item bias: decay would pull the popularity
         # prior toward 0
-        opt = torch.optim.AdamW(
-            [{"params": [params[k] for k in PARAM_NAMES if k != "item_bias"],
-              "weight_decay": cfg.WEIGHT_DECAY},
-             {"params": [params["item_bias"]], "weight_decay": 0.0}],
-            lr=cfg.LEARNING_RATE, betas=(0.9, 0.999), eps=1e-8)
-        plist = [params[k] for k in PARAM_NAMES]
+        opt = OptaxAdamW(plist, [k != "item_bias" for k in PARAM_NAMES],
+                         cfg.WEIGHT_DECAY)
         tables = (torch.as_tensor(self.genre_table, device=dev),
                   torch.as_tensor(self._log_q_table(), device=dev))
 
@@ -264,18 +321,15 @@ class EmbeddingTrainer:
                           for a in (u, i, neg))
             losses = []
             for s in range(ub.shape[0]):
-                lr = cosine_lr(cfg.LEARNING_RATE, count, decay_steps)
-                for group in opt.param_groups:
-                    group["lr"] = lr
-                opt.zero_grad(set_to_none=True)
+                for p in plist:
+                    p.grad = None
                 loss = self._loss(params, ub[s], ib[s], nb[s], gen, tables,
                                   cfg.USE_PALLAS, cdt)
                 loss.backward()
-                for p in plist:
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-                clip_by_global_norm_([p.grad for p in plist], cfg.GRAD_CLIP_NORM)
-                opt.step()
+                grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                         for p in plist]
+                clip_by_global_norm_(grads, cfg.GRAD_CLIP_NORM)
+                opt.step(grads, cosine_lr(cfg.LEARNING_RATE, count, decay_steps))
                 losses.append(loss.detach())
                 count += 1
             loss = float(torch.stack(losses).mean()) if losses else float("nan")

@@ -20,6 +20,7 @@ MODULES = [
     "recommendit_tpu_torch.ops.seen",
     "recommendit_tpu_torch.ops._build",
     "recommendit_tpu_torch.ops.mips_window",
+    "recommendit_tpu_torch.ops.quantize",
     "recommendit_tpu_torch.models",
     "recommendit_tpu_torch.models.two_tower",
     "recommendit_tpu_torch.models.retrieval",

@@ -214,7 +214,8 @@ def test_search_single_query(tmp_path):
     assert ti._embs.shape[1] == 24
 
 
-@pytest.mark.parametrize("kwargs", [dict(dtype="int8"), dict(mode="verified")])
+@pytest.mark.parametrize("kwargs", [dict(dtype="bfloat16", mode="verified"),
+                                    dict(mode="verified")])
 def test_unported_index_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MIPSIndex(16, **kwargs)

@@ -75,7 +75,70 @@ def test_serve_phase_checks_pass(small_artifacts):
     assert out["batch_users"] == 600 and out["requests"] == 5
     assert out["retrieval_score_abs_err"] <= 1e-3
     assert out["batch_vs_single_top_k_agreement"] == 1.0
-    assert out["launches"] == {"window_mips": 0}   # the CPU runs the twin
+    assert out["launches"] == {"window_mips": 0,   # the CPU runs the twins
+                               "window_mips_i8": 0}
+
+
+def test_artifacts_include_the_int8_index(small_artifacts):
+    from recommendit_tpu.models.retrieval import MIPSIndex as JaxIndex
+
+    paths, _ = small_artifacts
+    index = JaxIndex.load(paths["index_i8_path"])
+    assert (index.dtype, index.mode, index.quant_seed) == ("int8", "fused", 0)
+    assert index.n_total == 5000 and index.has_bias
+    assert index._embs.shape == (5120, 17)
+    rows = np.load(paths["catalog_path"])
+    assert rows.shape == (5000, 17) and rows.dtype == np.float32
+    np.testing.assert_allclose(np.linalg.norm(rows[:, :16], axis=1), 1.0,
+                               rtol=1e-5)
+
+
+def test_quantize_phase_on_the_twin(small_artifacts):
+    paths, _ = small_artifacts
+    rec = chip_smoke.quantize_phase(paths, "cpu", 0, timer=_host_ms)
+    assert rec["values_equal"] and rec["scales_equal"]
+    assert rec["build_equals_saved_index"] and rec["build_scales_equal"]
+    assert rec["max_abs_err"] == 0.0 and rec["launches"] == {"quantize_i8": 0}
+    assert (rec["n"], rec["d"]) == (5000, 17)
+
+
+def test_quantize_phase_fails_on_another_seed(small_artifacts):
+    """The saved index was quantised with seed 0: the build quantizer at
+    seed 1 does not reproduce it, and the phase says so."""
+    paths, _ = small_artifacts
+    with pytest.raises(AssertionError, match="build quantizer"):
+        chip_smoke.quantize_phase(paths, "cpu", 1, timer=_host_ms)
+
+
+def test_int8_kernel_phase_on_the_twin(small_artifacts):
+    paths, _ = small_artifacts
+    (rec,) = chip_smoke.int8_kernel_phase(paths, "cpu", 0, qs=(64,), k=100,
+                                          window=8, timer=_host_ms,
+                                          min_recall=0.9, min_f32_recall=0.8)
+    assert rec["window_max_equal"] and rec["window_arg_equal"]
+    assert rec["topk_ids_equal"] and rec["topk_values_equal"]
+    assert rec["recall_vs_int8_exact"] >= rec["bin_model_recall"] - 0.02
+    assert rec["d"] == 32 and rec["dtype"] == "torch.int8"
+
+
+def test_int8_serve_phase_checks_pass(small_artifacts):
+    paths, data = small_artifacts
+    out = chip_smoke.serve_phase(paths, data, "cpu", n_batch_users=600,
+                                 batch=400, n_requests=5, k=10, dtype="int8")
+    assert out["index_dtype"] == "int8" and out["batch_users"] == 600
+    assert out["retrieval_score_abs_err"] <= 1e-3
+    assert out["batch_vs_single_top_k_agreement"] == 1.0
+    assert out["launches"] == {"window_mips": 0, "window_mips_i8": 0}
+
+
+def test_capacity_phase_on_the_twin():
+    rec = chip_smoke.capacity_phase("cpu", 0, n_rows=50_000, dim=16, window=64,
+                                    n_q=64, n_check=16, k=100, chunk=7000,
+                                    block=1024, timer=_host_ms, min_recall=0.9)
+    assert rec["window_max_equal"] and rec["window_arg_equal"]
+    assert rec["corpus_bytes"] == 50_176 * 16 + 4 * 50_176
+    assert rec["recall_vs_int8_exact"] >= rec["bin_model_recall"] - 0.02
+    assert rec["queries_per_s"] > 0
 
 
 def test_bpr_kernel_phase_on_the_twins():
