@@ -14,6 +14,14 @@ the int8 window kernel for batches of 1,024 users), and the int8 capacity
 shape of ``scripts/capacity_30m.py``: 30,000,000 random unit rows x 128,
 window 512, k=500, Q=1024.
 
+Then, over the same saved bf16 corpus, the three kernels no serve or train
+path runs: the queries-major window kernel (``mips_topk_window``), the fold
+kernel (``mips_topk_fused``) and the row gather (``gather_rows``) over the
+serve's packed item table; then the kernel probe
+(``recommendit_tpu_torch.scripts.kernel_probe``, the counterpart of
+``scripts/pallas_probe.py``) in its four variants at 1M x 128, the path
+that drives the queries-major window and fold kernels.
+
 Then two-tower training, at the repository's BPR training configuration
 (``bench.py::bench_bpr_train``, ML-1M shape): 6,040 users, 3,952 items,
 towers 64/128, batch 1,024, dropout 0.2, AdamW under a cosine schedule with
@@ -44,26 +52,46 @@ Phases (each failure raises, so the exit code is not 0):
    against the exact top-500 of the unquantised f32 rows, and both times;
 7. int8 serve phase: the serve phase over the int8 index, with exactly one
    int8 window launch per batch and none of the bf16 kernel;
-8. capacity phase: 30M x 128 random unit rows made and quantised on the
+8. queries-major window phase: at Q in {256, 1024} over the saved bf16
+   corpus, W=64, the queries-major kernel against its twin (maxima within
+   1e-3, top-500 id overlap >= 0.99) and against the items-major kernel
+   (maxima and positions equal to its transpose); then Q=1024 at W=128, its
+   default, timed with its twin;
+9. fold phase: ``mips_topk_fused`` at Q=1024 over the valid rows, block
+   2048, R=64: candidates within 1e-4 (relative to the largest) of the
+   twin, recall@500 >= 0.98 against the exact top-500 of the same f32-query
+   scores; integer-valued inputs full of ties (f32 and bf16, bins narrower
+   and wider than a tile, a bias pad) equal to the twin; both times;
+10. gather phase: ``gather_rows`` of a (1024, 500) int64 index into the
+   packed item table (1,000,001 x 64 f32) — the counted run — equal to the
+   twin, and with out-of-range and int32 indices, a 23-wide f32 and a bf16
+   table; the times of the kernel, the twin and ``torch.index_select``;
+11. probe phase: the kernel probe's four variants in-process at N=1M,
+   D=128, Q=1024, k=500, block 2048, W=64, bf16, each exiting 0, with the
+   window and fold launch counts read around exactly that run;
+12. capacity phase: 30M x 128 random unit rows made and quantised on the
    card in chunks, the int8 window kernel at Q=1024 and W=512 (windows
    wider than a tile) timed, and on 64 queries its maxima and positions
    equal to the twin's and recall@500 >= 0.98 against int8-exact;
-9. BPR kernel phase: at B=1024 and a ragged B=1000, D=64 f32, the forward
+13. BPR kernel phase: at B=1024 and a ragged B=1000, D=64 f32, the forward
    and backward kernels against their twins — the loss within 1e-5
    relative, du and dv within 1e-4 of the twin's largest entry — and all
    four times (CUDA events);
-10. train phase: the synthetic data, its 0.9 temporal train view, 2 epochs
+14. train phase: the synthetic data, its 0.9 temporal train view, 2 epochs
    of in-batch BPR (the loss finite, falling, below ln 2; one forward and
    one backward kernel launch per step, counted around exactly that run),
    then 1 epoch of the default softmax loss (no BPR launch);
-11. index phase: ``IndexBuilder`` on the in-batch model (exact f32 index),
+15. index phase: ``IndexBuilder`` on the in-batch model (exact f32 index),
    ``batch_search`` for 1,024 users with held-out positives: valid ids,
    and Recall@20 of the held-out 10 % positives (train items filtered)
    above a random ranking's.
 
 Usage, from the repository root: ``python3 chip_smoke.py [--seed N]``.
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
+Prints the card's name and power limit, a ``{"kernels": [...]}`` line (each
+kernel's launches on its path, error against its twin, time, twin's time,
+bound and, where one PyTorch call computes the same function, that call's
+time) and, last, ``{"ok": true, "device": {...}}``. Exits non-zero without a
+GPU.
 """
 from __future__ import annotations
 
@@ -99,7 +127,25 @@ I8_SOURCE = "recommendit_tpu_torch/csrc/window_mips_i8.cu"
 I8_REPLACES = "recommendit_tpu/ops/pallas_mips.py:470"
 QUANT_SOURCE = "recommendit_tpu_torch/csrc/quantize_i8.cu"
 QUANT_REPLACES = "recommendit_tpu/ops/quantize.py:60"
-LIBRARIES = ("window_mips", "bpr", "window_mips_i8", "quantize_i8")
+QM_REPLACES = "recommendit_tpu/ops/pallas_mips.py:233"
+FOLD_SOURCE = "recommendit_tpu_torch/csrc/fold_mips.cu"
+FOLD_REPLACES = "recommendit_tpu/ops/pallas_mips.py:57"
+GATHER_SOURCE = "recommendit_tpu_torch/csrc/gather_rows.cu"
+GATHER_REPLACES = "recommendit_tpu/ops/gather.py:27"
+LIBRARIES = ("window_mips", "bpr", "window_mips_i8", "quantize_i8",
+             "fold_mips", "gather_rows")
+
+# the kernels no serve or train path runs
+QM_WINDOW = 128                   # mips_topk_window's default window
+QM_BLOCK = 16384                  # ... and block
+FOLD_Q, FOLD_BLOCK, FOLD_R = 1024, 2048, 64
+GATHER_SHAPE = (1024, 500)        # a batch of users x their candidates
+PROBE_ARGS = ("--n", "1000000", "--d", "128", "--q", "1024", "--k", "500",
+              "--block", "2048", "--window", "64", "--dtype", "bfloat16")
+
+# the H100 SXM's published peaks (dense), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 INDEX_PATHS = {"bfloat16": "index_path", "int8": "index_i8_path"}
 SERVE_KERNELS = {"bfloat16": "window_mips", "int8": "window_mips_i8"}
 
@@ -273,8 +319,8 @@ def kernel_phase(paths, device, seed: int, qs=KERNEL_QS, k=TOP_K_CANDIDATES,
         _, fi = fast_topk(score_matrix(q, corpus[:n_valid], "highest"), k)
         rec = {
             "q": n_q, "n": n_valid, "d": int(corpus.shape[1]),
-            "window": window, "k": k, "dtype": str(corpus.dtype),
-            "window_max_abs_err": err,
+            "d_func": index._width, "window": window, "k": k,
+            "dtype": str(corpus.dtype), "window_max_abs_err": err,
             "topk_value_abs_err": float((v - tv).abs().max()),
             "id_overlap_vs_twin": _overlap(i, ti),
             "recall_vs_exact": _overlap(i, ei),
@@ -316,7 +362,7 @@ def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
     run — on the card one launch of the dtype's window kernel per batch,
     none for the single requests (the scan route) and none of the other
     kernel — and returns the measurements and the counts."""
-    from recommendit_tpu.config import Settings
+    from recommendit_tpu_torch.config import Settings
     from recommendit_tpu_torch.ops import mips_window as mw
     from recommendit_tpu_torch.ops.topk import quantize_queries
     from recommendit_tpu_torch.serving.recommender import RecommendationPipeline
@@ -503,7 +549,8 @@ def int8_kernel_phase(paths, device, seed: int, qs=KERNEL_QS,
         _, fi = fast_topk(score_matrix(q[:, :width], rows_f32, "highest"), k)
         rec = {
             "q": n_q, "n": n_valid, "d": int(corpus.shape[1]),
-            "window": window, "k": k, "dtype": str(corpus.dtype),
+            "d_func": index._width, "window": window, "k": k,
+            "dtype": str(corpus.dtype),
             "window_max_equal": bool(torch.equal(kv, rv)),
             "window_arg_equal": bool(torch.equal(ka, ra)),
             "window_max_abs_err": float((kv - rv).abs().max()),
@@ -536,6 +583,225 @@ def int8_kernel_phase(paths, device, seed: int, qs=KERNEL_QS,
             raise AssertionError(f"recall@{k} vs f32-exact < {min_f32_recall}: {rec}")
         out.append(rec)
     return out
+
+
+def qm_window_phase(paths, device, seed: int, qs=KERNEL_QS, k=TOP_K_CANDIDATES,
+                    window=WINDOW, default_window=QM_WINDOW, block=QM_BLOCK,
+                    timer=cuda_ms):
+    """Kernel 2 (the queries-major window kernel) on the saved bf16 corpus
+    and user-tower queries: at each Q and ``window`` its maxima within 1e-3
+    of the twin, its top-k ids overlapping the twin's by >= 0.99, and its
+    maxima and positions equal to kernel 1's transposed (the same tiles and
+    arithmetic); then at the largest Q and ``default_window`` the same
+    checks and both times. Returns one record per (Q, window)."""
+    from recommendit_tpu_torch.models import MIPSIndex, TwoTower
+    from recommendit_tpu_torch.ops import mips_window as mw
+    from recommendit_tpu_torch.ops.topk import fast_topk, score_matrix
+
+    model = TwoTower.load(paths["model_path"], device=device)
+    index = MIPSIndex.load(paths["index_path"], device=device)
+    corpus, n_valid = index._embs, index.n_total
+    rng = np.random.default_rng(seed + 6)
+    out = []
+    for n_q, w in [(n_q, window) for n_q in qs] + [(qs[-1], default_window)]:
+        uids = torch.as_tensor(rng.integers(1, model.n_users + 1, n_q),
+                               device=device)
+        q = index._augment(model.user_tower(uids))
+        kv, ka = mw.window_candidates_qm(q, corpus, w, n_valid)
+        rv, ra = mw.window_candidates_qm_ref(q, corpus, w, n_valid)
+        iv, ia = mw.window_candidates(q, corpus, w, n_valid)
+        v, i = mw.mips_topk_window(q, corpus, k, block, w, n_valid=n_valid)
+        tv, ti = mw.mips_topk_window_ref(q, corpus, k, block, w, n_valid=n_valid)
+        _, ei = fast_topk(score_matrix(q, corpus[:n_valid], "default"), k)
+        rec = {
+            "q": n_q, "n": n_valid, "d": int(corpus.shape[1]),
+            "d_func": index._width, "window": w, "k": k,
+            "dtype": str(corpus.dtype),
+            "window_max_abs_err": float((kv - rv).abs().max()),
+            "equals_items_major_transposed": bool(
+                torch.equal(kv, iv.T) and torch.equal(ka, ia.T)),
+            "args_equal_share": float((ka == ra).float().mean()),
+            "topk_value_abs_err": float((v - tv).abs().max()),
+            "id_overlap_vs_twin": _overlap(i, ti),
+            "recall_vs_exact": _overlap(i, ei),
+            "bin_model_recall": 1 - (k - 1) * w / (2 * n_valid),
+        }
+        del kv, ka, rv, ra, iv, ia, ei
+        if w == default_window:
+            rec["kernel_ms"] = timer(
+                lambda: mw.window_candidates_qm(q, corpus, w, n_valid), 10)
+            rec["twin_ms"] = timer(
+                lambda: mw.window_candidates_qm_ref(q, corpus, w, n_valid), 3)
+        print(json.dumps({"qm_window_check": rec}), flush=True)
+        if rec["window_max_abs_err"] > 1e-3:
+            raise AssertionError(f"queries-major maxima differ from the twin: {rec}")
+        if not rec["equals_items_major_transposed"]:
+            raise AssertionError(f"kernel 2 differs from kernel 1 transposed: {rec}")
+        if rec["id_overlap_vs_twin"] < 0.99:
+            raise AssertionError(f"top-{k} id overlap with the twin < 0.99: {rec}")
+        out.append(rec)
+    return out
+
+
+def _tie_inputs(n, d, n_q, dtype, device, seed):
+    """Integer-valued queries and rows in {-1, 0, 1}: every score is an
+    exact small integer, so bins are full of ties."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randint(-1, 2, (n_q, d), generator=g).float()
+    items = torch.randint(-1, 2, (n, d), generator=g).float().to(dtype)
+    return q.to(device), items.to(device)
+
+
+# (N, D, Q, block, R): bins narrower than a 64-row tile (bn/R = 32) and
+# wider (256), both with a bias pad (N % bn != 0), and a tiny block
+TIE_CASES = ((5000, 8, 100, 256, 8), (9000, 12, 70, 2048, 8),
+             (301, 4, 3, 16, 4))
+
+
+def fold_phase(paths, device, seed: int, n_q: int = FOLD_Q,
+               k: int = TOP_K_CANDIDATES, block: int = FOLD_BLOCK,
+               reduction: int = FOLD_R, timer=cuda_ms, min_recall=0.98,
+               tie_cases=TIE_CASES):
+    """Kernel 4 (the fold) through ``mips_topk_fused`` on the valid rows of
+    the saved bf16 corpus and user-tower queries: candidates within 1e-4 of
+    the twin relative to the largest, recall@k against the exact top-k of
+    the same f32-query scores; on integer-valued inputs full of ties the
+    candidates equal to the twin's (values and ids); both times."""
+    from recommendit_tpu_torch.models import MIPSIndex, TwoTower
+    from recommendit_tpu_torch.ops import mips_fold as mf
+    from recommendit_tpu_torch.ops.topk import fast_topk, score_matrix
+
+    model = TwoTower.load(paths["model_path"], device=device)
+    index = MIPSIndex.load(paths["index_path"], device=device)
+    corpus = index._embs[:index.n_total]
+    n = corpus.shape[0]
+    rng = np.random.default_rng(seed + 7)
+    uids = torch.as_tensor(rng.integers(1, model.n_users + 1, n_q), device=device)
+    q = index._augment(model.user_tower(uids))
+    cv, ci = mf.fold_candidates(q, corpus, block, reduction)
+    rv, ri = mf.fold_candidates_ref(q, corpus, block, reduction)
+    v, i = mf.mips_topk_fused(q, corpus, k, block, reduction)
+    _, ei = fast_topk(score_matrix(q, corpus, "highest"), k)
+    bn, out, n_blocks = mf.fold_shape(n, k, block, reduction)
+    rec = {
+        "q": n_q, "n": n, "d": int(corpus.shape[1]), "d_func": index._width,
+        "block": bn,
+        "reduction": reduction, "k": k, "dtype": str(corpus.dtype),
+        "n_cand": n_blocks * out,
+        "max_abs_err": float((cv - rv).abs().max()),
+        "rel_err": float((cv - rv).abs().max() / rv.abs().max()),
+        "ids_equal_share": float((ci == ri).float().mean()),
+        "recall_vs_exact": _overlap(i, ei),
+        "bin_model_recall": 1 - (k - 1) * reduction / (2 * n),
+    }
+    del cv, ci, rv, ri, ei
+    ties = []
+    for j, (tn, td, tq, tb, tr) in enumerate(tie_cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            tq_, ti_ = _tie_inputs(tn, td, tq, dtype, device, seed + j)
+            a = mf.fold_candidates(tq_, ti_, tb, tr)
+            b = mf.fold_candidates_ref(tq_, ti_, tb, tr)
+            ties.append(bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])))
+    rec["ties_equal"] = ties
+    rec["kernel_ms"] = timer(
+        lambda: mf.fold_candidates(q, corpus, block, reduction), 10)
+    rec["twin_ms"] = timer(
+        lambda: mf.fold_candidates_ref(q, corpus, block, reduction), 3)
+    rec["kernel_topk_ms"] = timer(
+        lambda: mf.mips_topk_fused(q, corpus, k, block, reduction), 10)
+    print(json.dumps({"fold_check": rec}), flush=True)
+    if rec["rel_err"] > 1e-4:
+        raise AssertionError(f"fold candidates differ from the twin: {rec}")
+    if rec["ids_equal_share"] < 0.999:
+        raise AssertionError(f"fold rows differ from the twin's: {rec}")
+    if not all(ties):
+        raise AssertionError(f"fold ties differ from the twin: {rec}")
+    if rec["recall_vs_exact"] < min_recall:
+        raise AssertionError(f"recall@{k} < {min_recall}: {rec}")
+    return rec
+
+
+def gather_phase(paths, device, seed: int, shape=GATHER_SHAPE, timer=cuda_ms):
+    """Kernel 8 on the serve's packed item table (padded to 64 columns):
+    one launch through ``gather_rows`` with a ``shape`` int64 index (the
+    counted run), equal to the twin; out-of-range and int32 indices, the
+    unpadded 23-wide f32 table and a bf16 table, each equal to the twin;
+    the times of the kernel, the twin and ``torch.index_select``, and the
+    bytes this index must move (each distinct row read once, the output
+    written once, the index read once)."""
+    from recommendit_tpu_torch.features.schema import pad_packed_width
+    from recommendit_tpu_torch.ops import gather
+
+    raw = np.load(Path(paths["features_dir"]) / "item_packed.npy")
+    table = torch.as_tensor(pad_packed_width(raw), device=device)
+    rng = np.random.default_rng(seed + 8)
+    idx = torch.as_tensor(rng.integers(0, table.shape[0], size=shape),
+                          device=device)
+    for name in gather.LAUNCHES:
+        gather.LAUNCHES[name] = 0
+    got = gather.gather_rows(table, idx)
+    launches = dict(gather.LAUNCHES)
+    want = gather.gather_rows_ref(table, idx)
+    bad = torch.tensor([-5, table.shape[0], 10 ** 12, -10 ** 12], device=device)
+    wild = idx.clone()
+    at = torch.arange(0, wild.numel(), 997, device=device)
+    wild.view(-1)[at] = bad[torch.arange(len(at), device=device) % len(bad)]
+    narrow = torch.as_tensor(raw, device=device)
+    variants = {
+        "out_of_range": (table, wild),
+        "int32": (table, wild.clamp(-2 ** 31, 2 ** 31 - 1).int()),
+        "f32_23_wide": (narrow, wild),
+        "bf16": (table.to(torch.bfloat16), wild),
+        "zero_dim": (narrow, idx[0, 0]),
+    }
+    equal = {k: bool(torch.equal(gather.gather_rows(t, i), gather.gather_rows_ref(t, i)))
+             for k, (t, i) in variants.items()}
+    row_bytes = table.shape[1] * table.element_size()
+    rec = {
+        "table": list(table.shape), "index": list(shape),
+        "equal": bool(torch.equal(got, want)), "variants_equal": equal,
+        "max_abs_err": float((got - want).abs().max()),
+        "bytes": (int(torch.unique(idx).numel()) * row_bytes
+                  + idx.numel() * row_bytes + idx.numel() * idx.element_size()),
+        "launches": launches,
+    }
+    flat = idx.view(-1)
+    rec["kernel_ms"] = timer(lambda: gather.gather_rows(table, idx), 50)
+    rec["twin_ms"] = timer(lambda: gather.gather_rows_ref(table, idx), 20)
+    rec["library_ms"] = timer(lambda: torch.index_select(table, 0, flat), 50)
+    print(json.dumps({"gather_check": rec}), flush=True)
+    if not rec["equal"] or not all(equal.values()):
+        raise AssertionError(f"gather_rows differs from its twin: {rec}")
+    want_launches = 1 if torch.device(device).type == "cuda" else 0
+    if launches != {"gather_rows": want_launches}:
+        raise AssertionError(f"expected {want_launches} gather launch, got {launches}")
+    return rec
+
+
+def probe_phase(device, probe_args=PROBE_ARGS):
+    """The kernel probe's four variants in-process (the path of kernels 2
+    and 4), each of which must exit 0; the window and fold launch counts
+    are read around exactly this run. Returns (records, launches)."""
+    from recommendit_tpu_torch.ops import mips_fold as mf
+    from recommendit_tpu_torch.ops import mips_window as mw
+    from recommendit_tpu_torch.scripts import kernel_probe
+
+    dev = torch.device(device).type
+    for counts in (mw.LAUNCHES, mf.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+    recs = []
+    for variant in kernel_probe.VARIANTS:
+        code, rec = kernel_probe.probe(["--variant", variant, *probe_args,
+                                        "--device", dev])
+        print(json.dumps(rec), flush=True)
+        if code != 0:
+            raise AssertionError(f"kernel probe {variant} exited {code}: {rec}")
+        recs.append(rec)
+    launches = {**mw.LAUNCHES, **mf.LAUNCHES}
+    if dev == "cuda" and not all(launches.values()):
+        raise AssertionError(f"the probe missed a kernel: {launches}")
+    return recs, launches
 
 
 def capacity_phase(device, seed: int, n_rows: int = CAPACITY_ROWS,
@@ -636,6 +902,29 @@ def bpr_kernel_phase(device, seed: int, shapes=BPR_SHAPES, timer=cuda_ms):
     return out
 
 
+def bound(n_bytes: float, ops: float = 0.0, kind: str = "f32"):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of ``n_bytes`` over the HBM rate and ``ops`` over the peak rate of
+    their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def window_bound(rec, corpus_bytes: int, query_bytes: int, kind: str,
+                 scales: bool = False):
+    """Bound of a window kernel call: the valid corpus rows (and their
+    scales), the queries and the (n_cand, Q) values and positions moved
+    once; 2·Q·N·D multiply-adds of ``kind``. D is the function's width
+    (``d_func``: the embedding and the bias column), not the device rows'
+    zero-padded one."""
+    q, n, d = rec["q"], rec["n"], rec["d_func"]
+    n_cand = -(-n // rec["window"])
+    n_bytes = (n * d * corpus_bytes + q * d * query_bytes + n_cand * q * 8
+               + (4 * n if scales else 0))
+    return bound(n_bytes, 2.0 * q * n * d, kind)
+
+
 def make_train_data(seed: int, n_users: int = TRAIN_USERS,
                     n_items: int = TRAIN_ITEMS, n_ratings: int = N_RATINGS):
     """Synthetic ML-1M-shaped data and its temporal train view."""
@@ -646,7 +935,7 @@ def make_train_data(seed: int, n_users: int = TRAIN_USERS,
 
 
 def _train_cfg(seed: int, loss_mode: str, dim: int, hidden: int, batch: int):
-    from recommendit_tpu.config import Settings
+    from recommendit_tpu_torch.config import Settings
 
     return Settings(LOSS_MODE=loss_mode, EMBEDDING_DIM=dim, HIDDEN_DIM=hidden,
                     BATCH_SIZE=batch, DROPOUT=TRAIN_DROPOUT, USE_PALLAS=True,
@@ -800,6 +1089,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     serve_i8 = serve_phase(paths, data, device, dtype="int8")
     print(json.dumps({"serve_int8": serve_i8, "card": card}), flush=True)
+    torch.cuda.empty_cache()
+
+    checks_qm = qm_window_phase(paths, device, args.seed)
+    torch.cuda.empty_cache()
+    fold = fold_phase(paths, device, args.seed)
+    torch.cuda.empty_cache()
+    gath = gather_phase(paths, device, args.seed)
+    torch.cuda.empty_cache()
+    probes, probe_launches = probe_phase(device)
+    print(json.dumps({"probe_launches": probe_launches, "card": card}),
+          flush=True)
     del paths, data
     torch.cuda.empty_cache()
 
@@ -823,52 +1123,71 @@ def main(argv=None) -> int:
     main_q = checks[-1]
     main_i8 = checks_i8[-1]
     main_b = bpr_checks[0]
-    print(json.dumps({"kernels": [{
-        "name": "window_mips",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
+    main_qm = checks_qm[-1]
+    b, d = main_b["b"], main_b["d"]
+    kernels = [{
+        "name": "window_mips", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": serve["launches"]["window_mips"],
         "max_abs_err": max(c["window_max_abs_err"] for c in checks),
-        "ms": main_q["kernel_ms"],
-        "plain_ms": main_q["twin_ms"],
+        "ms": main_q["kernel_ms"], "plain_ms": main_q["twin_ms"],
+        "bound": window_bound(main_q, 2, 4, "bf16"), "library_ms": None,
     }, {
-        "name": "bpr_fwd",
-        "route": "cuda",
-        "source": BPR_SOURCE,
-        "replaces": BPR_REPLACES["bpr_fwd"],
-        "launches": train["launches"]["bpr_fwd"],
-        "max_abs_err": max(abs(c["loss"] - c["twin_loss"]) for c in bpr_checks),
-        "ms": main_b["fwd_ms"],
-        "plain_ms": main_b["twin_fwd_ms"],
+        "name": "window_mips_qm", "source": KERNEL_SOURCE, "replaces": QM_REPLACES,
+        "launches": probe_launches["window_mips_qm"],
+        "max_abs_err": max(c["window_max_abs_err"] for c in checks_qm),
+        "ms": main_qm["kernel_ms"], "plain_ms": main_qm["twin_ms"],
+        "bound": window_bound(main_qm, 2, 4, "bf16"), "library_ms": None,
     }, {
-        "name": "bpr_bwd",
-        "route": "cuda",
-        "source": BPR_SOURCE,
-        "replaces": BPR_REPLACES["bpr_bwd"],
-        "launches": train["launches"]["bpr_bwd"],
-        "max_abs_err": max(c["grad_max_abs_err"] for c in bpr_checks),
-        "ms": main_b["bwd_ms"],
-        "plain_ms": main_b["twin_bwd_ms"],
-    }, {
-        "name": "window_mips_i8",
-        "route": "cuda",
-        "source": I8_SOURCE,
-        "replaces": I8_REPLACES,
+        "name": "window_mips_i8", "source": I8_SOURCE, "replaces": I8_REPLACES,
         "launches": serve_i8["launches"]["window_mips_i8"],
         "max_abs_err": max(c["window_max_abs_err"] for c in checks_i8),
-        "ms": main_i8["kernel_ms"],
-        "plain_ms": main_i8["twin_ms"],
+        "ms": main_i8["kernel_ms"], "plain_ms": main_i8["twin_ms"],
+        "bound": window_bound(main_i8, 1, 1, "int8", scales=True),
+        "library_ms": None,
     }, {
-        "name": "quantize_i8",
-        "route": "cuda",
-        "source": QUANT_SOURCE,
-        "replaces": QUANT_REPLACES,
+        "name": "fold_mips", "source": FOLD_SOURCE, "replaces": FOLD_REPLACES,
+        "launches": probe_launches["fold_mips"],
+        "max_abs_err": fold["max_abs_err"],
+        "ms": fold["kernel_ms"], "plain_ms": fold["twin_ms"],
+        "bound": bound(fold["n"] * fold["d_func"] * 2
+                       + fold["q"] * fold["d_func"] * 4
+                       + fold["n_cand"] * fold["q"] * 8,
+                       2.0 * fold["q"] * fold["n"] * fold["d_func"], "f32"),
+        "library_ms": None,
+    }, {
+        "name": "bpr_fwd", "source": BPR_SOURCE, "replaces": BPR_REPLACES["bpr_fwd"],
+        "launches": train["launches"]["bpr_fwd"],
+        "max_abs_err": max(abs(c["loss"] - c["twin_loss"]) for c in bpr_checks),
+        "ms": main_b["fwd_ms"], "plain_ms": main_b["twin_fwd_ms"],
+        # the (B, B) score matrix; the softplus per pair is not counted
+        "bound": bound(2 * b * d * 4 + 4, 2.0 * b * b * d, "f32"),
+        "library_ms": None,
+    }, {
+        "name": "bpr_bwd", "source": BPR_SOURCE, "replaces": BPR_REPLACES["bpr_bwd"],
+        "launches": train["launches"]["bpr_bwd"],
+        "max_abs_err": max(c["grad_max_abs_err"] for c in bpr_checks),
+        "ms": main_b["bwd_ms"], "plain_ms": main_b["twin_bwd_ms"],
+        # the scores again, then du = G V and dv = G^T U
+        "bound": bound(4 * b * d * 4 + 4, 6.0 * b * b * d, "f32"),
+        "library_ms": None,
+    }, {
+        "name": "quantize_i8", "source": QUANT_SOURCE, "replaces": QUANT_REPLACES,
         "launches": quant["launches"]["quantize_i8"],
         "max_abs_err": quant["max_abs_err"],
-        "ms": quant["kernel_ms"],
-        "plain_ms": quant["twin_ms"],
-    }]}), flush=True)
+        "ms": quant["kernel_ms"], "plain_ms": quant["twin_ms"],
+        "bound": bound(quant["n"] * quant["d"] * 5 + quant["n"] * 4),
+        "library_ms": None,
+    }, {
+        "name": "gather_rows", "source": GATHER_SOURCE, "replaces": GATHER_REPLACES,
+        "launches": gath["launches"]["gather_rows"],
+        "max_abs_err": gath["max_abs_err"],
+        "ms": gath["kernel_ms"], "plain_ms": gath["twin_ms"],
+        "bound": bound(gath["bytes"]), "library_ms": gath["library_ms"],
+    }]
+    for kern in kernels:
+        kern["route"] = "cuda"
+        kern["bound_ms"], kern["bound_by"] = kern.pop("bound")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

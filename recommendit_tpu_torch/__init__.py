@@ -3,9 +3,11 @@
 Mirrors the JAX package's layout and module names. Plain tensor code is
 PyTorch; each Pallas kernel of the JAX package becomes a kernel written by
 hand for Hopper (``csrc/``), with its plain PyTorch twin beside the wrapper.
-Imports ``torch`` and never ``jax``; from the JAX package only the
-framework-free ``recommendit_tpu.config`` and
-``recommendit_tpu.utils.latency`` are used.
+Imports ``torch`` and never ``jax``, and nothing of the JAX package: what it
+needs of the JAX package's framework-free modules it keeps as copies
+(``config.py``, ``utils/latency.py``), pinned to the originals by tests.
+Entry points run on the card (``device="cuda"``) unless the caller names
+the CPU; without a card a call that names no device raises.
 """
 
 __version__ = "0.1.0"

@@ -2,11 +2,15 @@
 // consecutive corpus rows and every query, the window's largest score and
 // the first position inside the window that attains it.
 //
-// Replaces the Pallas TPU kernel recommendit_tpu/ops/pallas_mips.py
-// ::_window_kernel_im (wrapper mips_topk_window_im). Same contract: scores
-// accumulate in f32; rows >= n_valid score -3e38; argmax ties go to the
-// earliest row; outputs are items-major (n_cand, n_q). The exact top-k over
-// the window maxima runs outside the kernel (torch.topk), as in JAX.
+// Replaces two Pallas TPU kernels of recommendit_tpu/ops/pallas_mips.py:
+// ::_window_kernel_im (wrapper mips_topk_window_im; entry window_mips_launch,
+// items-major outputs (n_cand, n_q)) and ::_window_kernel (wrapper
+// mips_topk_window; entry window_mips_qm_launch, queries-major outputs
+// (n_q, n_cand)). The two differ only in the layout they store, so one
+// template serves both and each launch writes its own layout. Same contract
+// as JAX: scores accumulate in f32; rows >= n_valid score -3e38; argmax ties
+// go to the earliest row. The exact top-k over the window maxima runs outside
+// the kernel (torch.topk), as in JAX.
 //
 // What bounds it on an H100: at the serve shape (Q=1024, N=1M, D=136 after
 // the zero pad of the 129-wide bias-augmented rows) one call is
@@ -17,8 +21,10 @@
 // each block stages a 64-row x 8-column corpus slice and a 64-query slice in
 // shared memory, each thread keeps a 4x4 register tile of scores, and the
 // 64x64 score tile goes to shared memory for the per-window max/argmax. The
-// (Q, N) score matrix never reaches device memory; only (N/W, Q) values and
-// positions do. Tensor cores (wgmma) and TMA are later work.
+// (Q, N) score matrix never reaches device memory; only the N/W x Q values
+// and positions do. Tensor cores (wgmma) and TMA are later work. The
+// queries-major layout stores a tile's 64 queries with a stride of n_cand:
+// scattered 4-byte writes, 1/W of the corpus traffic.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (recommendit_tpu_torch/ops/_build.py does this).
@@ -48,8 +54,8 @@ __device__ __forceinline__ float widen(__nv_bfloat16 x) {
 // Grid: x = groups of whole windows (max(window, 64) rows each), y = query
 // tiles. A block walks its rows in 64-row tiles; a window wider than a tile
 // carries its running max/argmax across tiles in registers, a narrower one
-// is finished inside the tile.
-template <typename T>
+// is finished inside the tile. kQueriesMajor picks the output layout.
+template <typename T, bool kQueriesMajor>
 __global__ void __launch_bounds__(kThreads)
 window_mips_kernel(const float* __restrict__ q, const T* __restrict__ items,
                    float* __restrict__ vals, int32_t* __restrict__ args,
@@ -69,6 +75,9 @@ window_mips_kernel(const float* __restrict__ q, const T* __restrict__ items,
   const int n_tiles = span / kTileRows;
   const int segs = wide ? 1 : kTileRows / window;      // windows per tile
   const int seg_rows = wide ? kTileRows : window;
+  auto at = [&](long long win, int gq) {
+    return kQueriesMajor ? (long long)gq * n_cand + win : win * n_q + gq;
+  };
 
   float carry_best = -CUDART_INF_F;   // wide windows: running max, argmax
   int carry_arg = 0;
@@ -136,8 +145,8 @@ window_mips_kernel(const float* __restrict__ q, const T* __restrict__ items,
         const long long win = tile_r0 / window + s;
         const int gq = q0 + qi;
         if (win < n_cand && gq < n_q) {
-          vals[win * n_q + gq] = best;
-          args[win * n_q + gq] = arg;
+          vals[at(win, gq)] = best;
+          args[at(win, gq)] = arg;
         }
       }
     }
@@ -148,23 +157,16 @@ window_mips_kernel(const float* __restrict__ q, const T* __restrict__ items,
     const long long win = blockIdx.x;
     const int gq = q0 + tid;
     if (win < n_cand && gq < n_q) {
-      vals[win * n_q + gq] = carry_best;
-      args[win * n_q + gq] = carry_arg;
+      vals[at(win, gq)] = carry_best;
+      args[at(win, gq)] = carry_arg;
     }
   }
 }
 
-}  // namespace
-
-// C entry, bound with ctypes. q: (n_q, d) f32; items: (n_items, d) f32 or
-// bf16 (items_bf16 != 0); vals/args: (n_cand, n_q) with
-// n_cand = ceil(n_items / window). All contiguous, on the device of
-// `stream`. Launches on `stream`, allocates nothing, does not synchronise;
-// returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int window_mips_launch(const float* q, const void* items,
-                                  int items_bf16, float* vals, int32_t* args,
-                                  int n_q, int n_items, int d, int n_valid,
-                                  int window, void* stream) {
+template <bool kQueriesMajor>
+int launch(const float* q, const void* items, int items_bf16, float* vals,
+           int32_t* args, int n_q, int n_items, int d, int n_valid, int window,
+           void* stream) {
   if (n_q <= 0 || n_items <= 0 || d <= 0 || d % kTileK != 0 || window <= 0 ||
       n_valid <= 0 || n_valid > n_items)
     return (int)cudaErrorInvalidValue;
@@ -177,13 +179,38 @@ extern "C" int window_mips_launch(const float* q, const void* items,
                   (unsigned)((n_q + kTileQ - 1) / kTileQ));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (items_bf16) {
-    window_mips_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+    window_mips_kernel<__nv_bfloat16, kQueriesMajor><<<grid, kThreads, 0, s>>>(
         q, static_cast<const __nv_bfloat16*>(items), vals, args, n_q, n_items,
         d, n_valid, window, n_cand);
   } else {
-    window_mips_kernel<float><<<grid, kThreads, 0, s>>>(
+    window_mips_kernel<float, kQueriesMajor><<<grid, kThreads, 0, s>>>(
         q, static_cast<const float*>(items), vals, args, n_q, n_items, d,
         n_valid, window, n_cand);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entries, bound with ctypes. q: (n_q, d) f32; items: (n_items, d) f32 or
+// bf16 (items_bf16 != 0); vals/args: (n_cand, n_q) for window_mips_launch and
+// (n_q, n_cand) for window_mips_qm_launch, with n_cand = ceil(n_items /
+// window). All contiguous, on the device of `stream`. Launches on `stream`,
+// allocates nothing, does not synchronise; returns cudaGetLastError() after
+// the launch (0 = launched).
+extern "C" int window_mips_launch(const float* q, const void* items,
+                                  int items_bf16, float* vals, int32_t* args,
+                                  int n_q, int n_items, int d, int n_valid,
+                                  int window, void* stream) {
+  return launch<false>(q, items, items_bf16, vals, args, n_q, n_items, d,
+                       n_valid, window, stream);
+}
+
+extern "C" int window_mips_qm_launch(const float* q, const void* items,
+                                     int items_bf16, float* vals,
+                                     int32_t* args, int n_q, int n_items,
+                                     int d, int n_valid, int window,
+                                     void* stream) {
+  return launch<true>(q, items, items_bf16, vals, args, n_q, n_items, d,
+                      n_valid, window, stream);
 }

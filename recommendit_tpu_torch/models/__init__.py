@@ -5,11 +5,12 @@ from pathlib import Path
 from recommendit_tpu_torch.models.ranker import LambdaRankScorer
 from recommendit_tpu_torch.models.retrieval import MIPSIndex
 from recommendit_tpu_torch.models.two_tower import TwoTower
+from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE
 
 __all__ = ["LambdaRankScorer", "MIPSIndex", "TwoTower", "load_ranker"]
 
 
-def load_ranker(path: str, device="cpu") -> LambdaRankScorer:
+def load_ranker(path: str, device=DEFAULT_DEVICE) -> LambdaRankScorer:
     """Load the ranker saved at ``path``, dispatching on its meta sidecar.
     Only the MLP LambdaRank ranker is ported; a GBDT checkpoint raises."""
     meta_path = Path(str(path) + ".meta.json")

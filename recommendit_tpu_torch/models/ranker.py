@@ -15,6 +15,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
 
 def mlp_score(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """(…, F) standardised features → (…,) scores; layers ``w0/b0 …``."""
@@ -35,7 +37,7 @@ class LambdaRankScorer:
                  label_gain: Sequence[float] = (0.0, 1.0, 3.0, 7.0, 15.0),
                  eval_at: Sequence[int] = (5, 10, 20), group_size: int = 64,
                  loss_type: str = "lambdarank", query_norm: bool = False,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         self.feature_names = feature_names
         self.hidden_dims = tuple(hidden_dims)
         self.label_gain = tuple(label_gain)
@@ -43,7 +45,7 @@ class LambdaRankScorer:
         self.group_size = group_size
         self.loss_type = loss_type
         self.query_norm = query_norm
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.params: Optional[Dict[str, torch.Tensor]] = None
         self.feat_mean: Optional[np.ndarray] = None
         self.feat_std: Optional[np.ndarray] = None
@@ -94,7 +96,7 @@ class LambdaRankScorer:
         Path(str(p) + ".meta.json").write_text(json.dumps(meta))
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "LambdaRankScorer":
+    def load(cls, path: str, device=DEFAULT_DEVICE) -> "LambdaRankScorer":
         p = Path(path)
         if not p.exists():
             raise FileNotFoundError(f"Ranker not found: {p}")

@@ -28,6 +28,7 @@ import torch
 from recommendit_tpu_torch.ops.mips_window import mips_topk_fused_auto
 from recommendit_tpu_torch.ops.quantize import quantize_int8
 from recommendit_tpu_torch.ops.topk import INT8_ROW_ALIGN, mips_topk, mips_topk_int8
+from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 _ROADMAP_VERIFIED = ("mode='verified' waits for the certified top-k engines "
                      "(ROADMAP.md, queue A, ops/topk.py remaining engines)")
@@ -50,7 +51,7 @@ class MIPSIndex:
 
     def __init__(self, embedding_dim: int = 64, block_size: int = 4096,
                  mode: str = "exact", dtype: str = "float32",
-                 quant_seed: int = 0, device="cpu"):
+                 quant_seed: int = 0, device=DEFAULT_DEVICE):
         if dtype not in COL_ALIGN:
             raise ValueError(f"unsupported corpus dtype: {dtype!r}")
         if mode not in ("exact", "verified", "approx", "fused"):
@@ -69,7 +70,7 @@ class MIPSIndex:
         self.mode = mode
         self.dtype = dtype
         self.quant_seed = quant_seed
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.item_ids: Optional[np.ndarray] = None       # (N,) int64
         self._embs: Optional[torch.Tensor] = None         # (N_pad, D_dev)
         self._scales: Optional[torch.Tensor] = None       # (N_pad,) f32, int8
@@ -208,7 +209,7 @@ class MIPSIndex:
         Path(str(p) + ".meta.json").write_text(json.dumps(meta))
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "MIPSIndex":
+    def load(cls, path: str, device=DEFAULT_DEVICE) -> "MIPSIndex":
         p = Path(path)
         if not p.exists():
             raise FileNotFoundError(f"Index not found: {p}")

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from recommendit_tpu_torch.features.schema import N_GENRES
+from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 PARAM_NAMES = (
     "user_embed", "item_embed", "user_w1", "user_b1", "user_w2", "user_b2",
@@ -61,7 +62,7 @@ Params = Dict[str, torch.Tensor]
 
 def init_params(rng: torch.Generator, n_users: int, n_items: int,
                 embed_dim: int = 64, hidden_dim: int = 128,
-                device="cpu") -> Params:
+                device=DEFAULT_DEVICE) -> Params:
     """Fresh two-tower params with the JAX initialisers: embeddings
     N(0, 0.1²) with a zero padding row 0, Glorot-uniform weights, zero biases
     and item bias. ``rng`` is a CPU generator; ``jax.random`` streams cannot
@@ -85,6 +86,7 @@ def init_params(rng: torch.Generator, n_users: int, n_items: int,
     }
     params["user_embed"][0] = 0.0
     params["item_embed"][0] = 0.0
+    device = resolve_device(device)
     return {k: v.to(device) for k, v in params.items()}
 
 
@@ -132,8 +134,9 @@ class TwoTower(nn.Module):
 
     def __init__(self, n_users: int, n_items: int, embed_dim: int = 64,
                  hidden_dim: int = 128, dropout: float = 0.2,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         super().__init__()
+        device = resolve_device(device)
         self.n_users = n_users
         self.n_items = n_items
         self.embed_dim = embed_dim
@@ -158,7 +161,7 @@ class TwoTower(nn.Module):
     @classmethod
     def from_numpy(cls, params: Dict[str, np.ndarray], n_users: int,
                    n_items: int, embed_dim: int = 64, hidden_dim: int = 128,
-                   dropout: float = 0.2, device="cpu") -> "TwoTower":
+                   dropout: float = 0.2, device=DEFAULT_DEVICE) -> "TwoTower":
         """Model holding the given JAX-named parameter arrays (a missing
         ``item_bias`` — pre-bias checkpoints — becomes zeros)."""
         model = cls(n_users, n_items, embed_dim, hidden_dim, dropout, device)
@@ -237,7 +240,7 @@ class TwoTower(nn.Module):
         Path(str(p) + ".meta.json").write_text(json.dumps(meta))
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "TwoTower":
+    def load(cls, path: str, device=DEFAULT_DEVICE) -> "TwoTower":
         p = Path(path)
         if not p.exists():
             raise FileNotFoundError(f"Two-tower checkpoint not found: {p}")
@@ -248,7 +251,7 @@ class TwoTower(nn.Module):
 
 
 def from_jax_params(params: Mapping[str, np.ndarray], dropout: float = 0.2,
-                    device="cpu") -> TwoTower:
+                    device=DEFAULT_DEVICE) -> TwoTower:
     """The JAX package's two-tower params (numpy arrays, JAX names) as a
     :class:`TwoTower`; the sizes are read from the shapes. The trainer takes
     the result as its initial state (``EmbeddingTrainer.train(init_params=)``),

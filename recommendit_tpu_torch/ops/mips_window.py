@@ -11,6 +11,11 @@ index serves through:
 * :func:`mips_topk_window_im` — the candidates plus the exact top-k over
   the window maxima (outside the kernel, as in JAX).
   :func:`mips_topk_window_im_ref` is its plain twin on any device.
+* :func:`window_candidates_qm` / :func:`mips_topk_window` — the same
+  maxima and positions queries-major, (Q, n_cand): the port of the Pallas
+  ``_window_kernel`` and its wrapper (JAX defaults: block 16384, W=128),
+  the queries-major entry of ``csrc/window_mips.cu`` on the card,
+  :func:`window_candidates_qm_ref` on the CPU.
 * :func:`window_candidates_i8` / :func:`mips_topk_window_im_int8` — the
   same over an int8 corpus with per-row scales: ``csrc/window_mips_i8.cu``
   (the port of ``_window_kernel_im_i8``) on the card,
@@ -54,13 +59,14 @@ _REF_SCORE_BUDGET = 1 << 27   # score elements per int8 twin chunk (512 MB)
 
 # Kernel launches since the last reset, by kernel name. Only the CUDA
 # wrappers add to it, once per launch.
-LAUNCHES = {"window_mips": 0, "window_mips_i8": 0}
+LAUNCHES = {"window_mips": 0, "window_mips_qm": 0, "window_mips_i8": 0}
 
 
 def _check_window_args(n: int, k: int, block_items: int, window: int,
                        n_valid: Optional[int]) -> int:
-    """The guards of ``mips_topk_window_im`` (pallas_mips.py:407-432), with
-    the same messages. Returns ``n_valid``."""
+    """The guards of ``mips_topk_window_im`` and ``mips_topk_window``
+    (pallas_mips.py:407-432, :294-321), with the same messages. Returns
+    ``n_valid``."""
     if n_valid is None:
         n_valid = n
     elif not (0 < n_valid <= n):
@@ -79,10 +85,10 @@ def _check_window_args(n: int, k: int, block_items: int, window: int,
     return n_valid
 
 
-def window_candidates_ref(queries: torch.Tensor, items: torch.Tensor,
-                          window: int, n_valid: Optional[int] = None,
-                          precision: str = "default"):
-    """Plain twin of the kernel: (n_cand, Q) f32 window maxima and int32
+def window_candidates_qm_ref(queries: torch.Tensor, items: torch.Tensor,
+                             window: int, n_valid: Optional[int] = None,
+                             precision: str = "default"):
+    """Plain twin of the kernel: (Q, n_cand) f32 window maxima and int32
     first-occurrence positions, n_cand = ceil(N / window).
 
     Scores are f32 sums of the ``ops.topk.mm_operands`` products (never rounded
@@ -100,12 +106,23 @@ def window_candidates_ref(queries: torch.Tensor, items: torch.Tensor,
         smax, arg = _window_max(scores, window)
         vals.append(smax)
         args.append(arg)
-    return torch.cat(vals).T.contiguous(), torch.cat(args).T.contiguous()
+    return torch.cat(vals), torch.cat(args)
+
+
+def window_candidates_ref(queries: torch.Tensor, items: torch.Tensor,
+                          window: int, n_valid: Optional[int] = None,
+                          precision: str = "default"):
+    """:func:`window_candidates_qm_ref` items-major, (n_cand, Q)."""
+    vals, args = window_candidates_qm_ref(queries, items, window, n_valid,
+                                          precision)
+    return vals.T.contiguous(), args.T.contiguous()
 
 
 def _window_candidates_cuda(queries: torch.Tensor, items: torch.Tensor,
-                            window: int, n_valid: int, precision: str):
-    """Launch ``csrc/window_mips.cu`` on the current stream."""
+                            window: int, n_valid: int, precision: str,
+                            queries_major: bool = False):
+    """Launch ``csrc/window_mips.cu`` on the current stream, items-major
+    (n_cand, Q) or queries-major (Q, n_cand)."""
     from recommendit_tpu_torch.ops._build import load_library
 
     if items.dtype not in (torch.float32, torch.bfloat16):
@@ -126,7 +143,7 @@ def _window_candidates_cuda(queries: torch.Tensor, items: torch.Tensor,
         raise ValueError("unsupported query or corpus size")
 
     lib = load_library("window_mips")
-    fn = lib.window_mips_launch
+    fn = lib.window_mips_qm_launch if queries_major else lib.window_mips_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -135,16 +152,18 @@ def _window_candidates_cuda(queries: torch.Tensor, items: torch.Tensor,
     q = round_queries(queries, items.dtype, precision).contiguous()
     n_q = q.shape[0]
     n_cand = -(-n // window)
-    vals = torch.empty((n_cand, n_q), dtype=torch.float32, device=items.device)
-    args = torch.empty((n_cand, n_q), dtype=torch.int32, device=items.device)
+    shape = (n_q, n_cand) if queries_major else (n_cand, n_q)
+    vals = torch.empty(shape, dtype=torch.float32, device=items.device)
+    args = torch.empty(shape, dtype=torch.int32, device=items.device)
     with torch.cuda.device(items.device):
         stream = torch.cuda.current_stream(items.device).cuda_stream
         rc = fn(q.data_ptr(), items.data_ptr(),
                 int(items.dtype == torch.bfloat16), vals.data_ptr(),
                 args.data_ptr(), n_q, n, d, n_valid, window, stream)
+    name = "window_mips_qm" if queries_major else "window_mips"
     if rc != 0:
-        raise RuntimeError(f"window_mips launch failed: CUDA error {rc}")
-    LAUNCHES["window_mips"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
     return vals, args
 
 
@@ -158,6 +177,22 @@ def window_candidates(queries: torch.Tensor, items: torch.Tensor, window: int,
     if items.device.type != "cuda":
         raise ValueError(f"no window kernel for device {items.device}")
     return _window_candidates_cuda(queries, items, window, n_valid, precision)
+
+
+def window_candidates_qm(queries: torch.Tensor, items: torch.Tensor,
+                         window: int, n_valid: Optional[int] = None,
+                         precision: str = "default"):
+    """Window maxima and positions queries-major, (Q, n_cand) each: the
+    kernel's queries-major launch for a corpus on the card, the plain twin
+    for one on the CPU."""
+    n_valid = items.shape[0] if n_valid is None else n_valid
+    if items.device.type == "cpu":
+        return window_candidates_qm_ref(queries, items, window, n_valid,
+                                        precision)
+    if items.device.type != "cuda":
+        raise ValueError(f"no window kernel for device {items.device}")
+    return _window_candidates_cuda(queries, items, window, n_valid, precision,
+                                   queries_major=True)
 
 
 def _window_max(scores: torch.Tensor, window: int):
@@ -281,13 +316,57 @@ def window_candidates_i8(q_i8: torch.Tensor, items_i8: torch.Tensor,
                                       n_valid)
 
 
+def _select_qm(cand_vals: torch.Tensor, cand_args: torch.Tensor, k: int,
+               window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over (Q, n_cand) window maxima → (Q, k) values and
+    global positions (window id · W + position in the window)."""
+    vals, sel = fast_topk(cand_vals, k)
+    idx = sel * window + torch.gather(cand_args, 1, sel).long()
+    return vals, idx
+
+
 def _select(cand_vals: torch.Tensor, cand_args: torch.Tensor, k: int,
             window: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k over (n_cand, Q) window maxima → (Q, k) values and
-    global positions (window id · W + position in the window)."""
-    vals, sel = fast_topk(cand_vals.T, k)
-    idx = sel * window + torch.gather(cand_args.T, 1, sel).long()
-    return vals, idx
+    """:func:`_select_qm` over items-major (n_cand, Q) window maxima."""
+    return _select_qm(cand_vals.T, cand_args.T, k, window)
+
+
+def mips_topk_window(
+    queries: torch.Tensor,
+    item_embs: torch.Tensor,
+    k: int,
+    block_items: int = 16384,
+    window: int = 128,
+    precision: str = "default",
+    n_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Queries-major window-segment MIPS top-k (``pallas_mips.
+    mips_topk_window``) → (values (Q, k) f32, positions (Q, k) int64),
+    sorted descending. The same windows, maxima and recall model as
+    :func:`mips_topk_window_im`; the kernel stores (Q, n_cand). The kernel
+    on the card, its twin on the CPU. ``block_items`` only keeps the JAX
+    guard."""
+    n_valid = _check_window_args(item_embs.shape[0], k, block_items, window,
+                                 n_valid)
+    cv, ca = window_candidates_qm(queries, item_embs, window, n_valid, precision)
+    return _select_qm(cv, ca, k, window)
+
+
+def mips_topk_window_ref(
+    queries: torch.Tensor,
+    item_embs: torch.Tensor,
+    k: int,
+    block_items: int = 16384,
+    window: int = 128,
+    precision: str = "default",
+    n_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of :func:`mips_topk_window` on any device."""
+    n_valid = _check_window_args(item_embs.shape[0], k, block_items, window,
+                                 n_valid)
+    cv, ca = window_candidates_qm_ref(queries, item_embs, window, n_valid,
+                                      precision)
+    return _select_qm(cv, ca, k, window)
 
 
 def mips_topk_window_im(

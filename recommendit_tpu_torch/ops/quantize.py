@@ -32,6 +32,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
 _M32 = 0xFFFFFFFF
 _INV127 = float(np.float32(1.0) / np.float32(127.0))   # XLA's folded 1/127
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -71,14 +73,15 @@ def threefry2x32(k1: int, k2: int, x0: torch.Tensor, x1: torch.Tensor):
 
 
 def threefry_uniform(seed: int, n: int, offset: int = 0,
-                     device="cpu") -> torch.Tensor:
+                     device=DEFAULT_DEVICE) -> torch.Tensor:
     """Elements ``offset … offset + n − 1`` of the flat f32 array
     ``jax.random.uniform(jax.random.PRNGKey(seed), shape)`` for any shape
     with at least ``offset + n`` elements: the counter is the flat index
     (high word, low word), the bits are the xor of threefry's two outputs,
     and the top 23 bits become the mantissa of a float in [1, 2), minus 1."""
     k1, k2 = _key_words(seed)
-    i = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
+    i = torch.arange(offset, offset + n, dtype=torch.int64,
+                     device=resolve_device(device))
     b0, b1 = threefry2x32(k1, k2, i >> 32, i & _M32)
     return ((b0 ^ b1) >> 9).to(torch.float32) * (1.0 / (1 << 23))
 

@@ -24,13 +24,14 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from recommendit_tpu.config import Settings, settings as default_settings
-from recommendit_tpu.utils.latency import LatencyTracker
+from recommendit_tpu_torch.config import Settings, settings as default_settings
 from recommendit_tpu_torch.features.schema import assemble_packed, pad_packed_width
 from recommendit_tpu_torch.features.store import FeatureStore
 from recommendit_tpu_torch.models import MIPSIndex, TwoTower, load_ranker
 from recommendit_tpu_torch.ops.seen import SeenSet, seen_mask
 from recommendit_tpu_torch.ops.topk import fast_topk
+from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from recommendit_tpu_torch.utils.latency import LatencyTracker
 
 logger = logging.getLogger(__name__)
 
@@ -127,14 +128,15 @@ class RecommendationPipeline:
                  ranker_path: Optional[str] = None,
                  features_dir: Optional[str] = None,
                  top_k_candidates: Optional[int] = None,
-                 cfg: Optional[Settings] = None, device="cpu"):
+                 cfg: Optional[Settings] = None,
+                 device=DEFAULT_DEVICE):
         self.cfg = cfg or default_settings
         self.model_path = model_path or self.cfg.EMBEDDING_MODEL_PATH
         self.index_path = index_path or self.cfg.INDEX_PATH
         self.ranker_path = ranker_path or self.cfg.RANKER_MODEL_PATH
         self.features_dir = features_dir
         self.top_k_candidates = top_k_candidates or self.cfg.TOP_K_CANDIDATES
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         self.model: Optional[TwoTower] = None
         self.index: Optional[MIPSIndex] = None

@@ -13,11 +13,12 @@ from typing import Optional
 
 import numpy as np
 
-from recommendit_tpu.config import Settings, settings as default_settings
+from recommendit_tpu_torch.config import Settings, settings as default_settings
 from recommendit_tpu_torch.data.movielens import MovieLensData
 from recommendit_tpu_torch.models.retrieval import MIPSIndex
 from recommendit_tpu_torch.models.two_tower import TwoTower
 from recommendit_tpu_torch.training.train_embeddings import build_genre_table
+from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -29,12 +30,13 @@ _ROADMAP_HOST = ("building from pre-streamed embeddings waits for the "
 class IndexBuilder:
     def __init__(self, data: MovieLensData, cfg: Optional[Settings] = None,
                  model_path: Optional[str] = None,
-                 index_output_path: Optional[str] = None, device="cpu"):
+                 index_output_path: Optional[str] = None,
+                 device=DEFAULT_DEVICE):
         self.cfg = cfg or default_settings
         self.data = data
         self.model_path = model_path or self.cfg.EMBEDDING_MODEL_PATH
         self.index_output_path = index_output_path or self.cfg.INDEX_PATH
-        self.device = device
+        self.device = resolve_device(device)
 
     def build(self, model: Optional[TwoTower] = None,
               embeddings: Optional[np.ndarray] = None,

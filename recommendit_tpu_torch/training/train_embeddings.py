@@ -49,7 +49,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from recommendit_tpu.config import Settings, settings as default_settings
+from recommendit_tpu_torch.config import Settings, settings as default_settings
 from recommendit_tpu_torch.data.movielens import MovieLensData
 from recommendit_tpu_torch.models.two_tower import (
     PARAM_NAMES,
@@ -58,6 +58,7 @@ from recommendit_tpu_torch.models.two_tower import (
     item_tower,
     user_tower,
 )
+from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from recommendit_tpu_torch.ops.bpr import (
     in_batch_bpr_loss,
     in_batch_softmax_loss,
@@ -182,7 +183,8 @@ class EmbeddingTrainer:
     def __init__(self, data: MovieLensData, cfg: Optional[Settings] = None,
                  loss_mode: Optional[str] = None,
                  model_output_path: Optional[str] = None,
-                 ckpt_dir: Optional[str] = None, device="cpu"):
+                 ckpt_dir: Optional[str] = None,
+                 device=DEFAULT_DEVICE):
         if ckpt_dir:
             raise NotImplementedError(_ROADMAP_CKPT)
         self.cfg = cfg or default_settings
@@ -194,7 +196,7 @@ class EmbeddingTrainer:
         self.model_output_path = (
             self.cfg.EMBEDDING_MODEL_PATH if model_output_path is None
             else model_output_path)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.history: List[Dict] = []
 
         self.n_users = data.n_users
@@ -242,7 +244,8 @@ class EmbeddingTrainer:
         if init_params is None:
             params = fresh_params(torch.Generator().manual_seed(cfg.SEED),
                                   self.n_users, self.n_items,
-                                  cfg.EMBEDDING_DIM, cfg.HIDDEN_DIM)
+                                  cfg.EMBEDDING_DIM, cfg.HIDDEN_DIM,
+                                  device="cpu")   # drawn on the host, moved below
         else:
             want = (self.n_users, self.n_items, cfg.EMBEDDING_DIM, cfg.HIDDEN_DIM)
             got = (init_params.n_users, init_params.n_items,

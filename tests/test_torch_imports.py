@@ -14,6 +14,10 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 MODULES = [
     "recommendit_tpu_torch",
+    "recommendit_tpu_torch.config",
+    "recommendit_tpu_torch.utils",
+    "recommendit_tpu_torch.utils.device",
+    "recommendit_tpu_torch.utils.latency",
     "recommendit_tpu_torch.features.schema",
     "recommendit_tpu_torch.features.store",
     "recommendit_tpu_torch.ops.topk",
@@ -21,6 +25,10 @@ MODULES = [
     "recommendit_tpu_torch.ops._build",
     "recommendit_tpu_torch.ops.mips_window",
     "recommendit_tpu_torch.ops.quantize",
+    "recommendit_tpu_torch.ops",
+    "recommendit_tpu_torch.ops.gather",
+    "recommendit_tpu_torch.ops.mips_fold",
+    "recommendit_tpu_torch.scripts.kernel_probe",
     "recommendit_tpu_torch.models",
     "recommendit_tpu_torch.models.two_tower",
     "recommendit_tpu_torch.models.retrieval",
@@ -36,11 +44,9 @@ MODULES = [
     "chip_smoke",
 ]
 _BLOCK = 'import sys\nsys.modules["jax"] = None\nsys.modules["pandas"] = None\n'
-# what the port may load from the JAX package: config and utils.latency
-_ALLOWED_JAX_PKG = {
-    "recommendit_tpu", "recommendit_tpu.config", "recommendit_tpu.utils",
-    "recommendit_tpu.utils.latency", "recommendit_tpu.utils.logging",
-}
+# what the port may load from the JAX package: nothing (it keeps copies of
+# the framework-free modules it needs)
+_ALLOWED_JAX_PKG = set()
 
 
 def _run(code: str, cwd=ROOT, timeout=300):
@@ -88,6 +94,20 @@ def test_port_sources_never_import_jax():
             s = line.strip()
             assert not (s.startswith("import jax") or s.startswith("from jax")), (
                 f"{path}: {s}")
+
+
+def test_port_sources_never_import_the_jax_package():
+    paths = [ROOT / "chip_smoke.py",
+             *(ROOT / "recommendit_tpu_torch").rglob("*.py")]
+    for path in paths:
+        if "build" in path.relative_to(ROOT).parts:   # build outputs
+            continue
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            for prefix in ("import recommendit_tpu", "from recommendit_tpu"):
+                if s.startswith(prefix):
+                    rest = s[len(prefix):]
+                    assert rest.startswith("_torch"), f"{path}: {s}"
 
 
 def test_trains_without_jax_or_pandas(tmp_path):

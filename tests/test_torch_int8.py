@@ -67,17 +67,17 @@ def assert_same_topk(t, j, atol=1e-6):
 def test_threefry_uniform_equals_jax(seed, shape):
     want = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), shape,
                                          jnp.float32)).ravel()
-    got = qz.threefry_uniform(seed, want.size)
+    got = qz.threefry_uniform(seed, want.size, device="cpu")
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
     if want.size > 10:
-        np.testing.assert_array_equal(qz.threefry_uniform(seed, 7, 3).numpy(),
+        np.testing.assert_array_equal(qz.threefry_uniform(seed, 7, 3, device="cpu").numpy(),
                                       want[3:10])
 
 
 def test_threefry_rejects_seeds_past_int32():
     with pytest.raises(ValueError, match="int32"):
-        qz.threefry_uniform(2 ** 31, 4)
+        qz.threefry_uniform(2 ** 31, 4, device="cpu")
 
 
 @pytest.mark.parametrize("stochastic", [True, False])
@@ -280,7 +280,7 @@ def test_int8_index_equals_jax(tmp_path, mode, with_bias):
     embs, ids, bias, queries = _catalog()
     bias = bias if with_bias else None
     ji = JaxIndex(16, block_size=1024, mode=mode, dtype="int8", quant_seed=9)
-    ti = MIPSIndex(16, block_size=1024, mode=mode, dtype="int8", quant_seed=9)
+    ti = MIPSIndex(16, block_size=1024, mode=mode, dtype="int8", quant_seed=9, device="cpu")
     ji.build(embs, ids, bias=bias)
     ti.build(embs, ids, bias=bias)
     ji.save(str(tmp_path / "j.npz"))
@@ -303,7 +303,7 @@ def test_int8_index_equals_jax(tmp_path, mode, with_bias):
         assert recall >= 0.95
     else:
         assert_same_topk((tv, tid), (jv, jid))
-    loaded = MIPSIndex.load(str(tmp_path / "j.npz"))
+    loaded = MIPSIndex.load(str(tmp_path / "j.npz"), device="cpu")
     assert loaded.quant_seed == 9 and loaded.has_bias == with_bias
     lv, lid = loaded.batch_search(queries, 200)
     np.testing.assert_array_equal(lid, tid)
@@ -312,7 +312,7 @@ def test_int8_index_equals_jax(tmp_path, mode, with_bias):
 
 def test_int8_index_refuses_verified_mode():
     with pytest.raises(ValueError, match="not available for the int8"):
-        MIPSIndex(16, mode="verified", dtype="int8")
+        MIPSIndex(16, mode="verified", dtype="int8", device="cpu")
 
 
 def test_int8_index_load_checks_widths(tmp_path):
@@ -324,7 +324,7 @@ def test_int8_index_load_checks_widths(tmp_path):
     meta["embedding_dim"] = 15
     (tmp_path / "j.npz.meta.json").write_text(json.dumps(meta))
     with pytest.raises(ValueError, match="do not fit"):
-        MIPSIndex.load(str(tmp_path / "j.npz"))
+        MIPSIndex.load(str(tmp_path / "j.npz"), device="cpu")
 
 
 def test_index_builder_int8_equals_jax(tmp_path):
@@ -345,11 +345,11 @@ def test_index_builder_int8_equals_jax(tmp_path):
     params = jax_init(jax.random.PRNGKey(0), 60, 90, 16, 32)
     params["item_bias"] = jnp.asarray(_rows(1, 91, 3)[0])
     jm = TwoTowerModel(60, 90, 16, 32, params=params)
-    tm = from_jax_params({k: np.asarray(v) for k, v in params.items()})
+    tm = from_jax_params({k: np.asarray(v) for k, v in params.items()}, device="cpu")
     JaxBuilder(jax_synth(**size), cfg,
                index_output_path=str(tmp_path / "j.npz")).build(model=jm)
     built = IndexBuilder(make_synthetic_movielens(**size), cfg,
-                         index_output_path=str(tmp_path / "t.npz")).build(model=tm)
+                         index_output_path=str(tmp_path / "t.npz"), device="cpu").build(model=tm)
     (ja, jmeta), (ta, tmeta) = _files(tmp_path / "j.npz"), _files(tmp_path / "t.npz")
     assert tmeta == jmeta and tmeta["quant_seed"] == 5 and built.quant_seed == 5
     assert sorted(ta) == sorted(ja) == ["bias", "embeddings_i8", "item_ids", "scales"]

@@ -1,5 +1,6 @@
-"""The CUDA kernels (window MIPS over f32/bf16 and over int8, in-batch BPR
-forward and backward, int8 quantize) against their plain PyTorch twins.
+"""The CUDA kernels (window MIPS over f32/bf16 items- and queries-major and
+over int8, fold MIPS, in-batch BPR forward and backward, int8 quantize, row
+gather) against their plain PyTorch twins.
 
 The ``cuda`` tests need an NVIDIA GPU and nvcc and skip without them. On
 the card run ``python -m pytest tests/test_torch_kernels.py -m cuda
@@ -13,12 +14,18 @@ maximum within the same 1e-4. BPR: the loss within 1e-5 relative, du and dv
 within 1e-4 of the twin's largest entry (f32 sums of up to B·D terms in
 another order). The int8 window kernel and the quantize kernel are held to
 their twins bit for bit: integer sums are exact in any order, and the
-epilogues are the same single f32 operations.
+epilogues are the same single f32 operations. The queries-major window
+kernel runs kernel 1's arithmetic, so it equals kernel 1's output
+transposed bit for bit. The fold kernel: values within 1e-4 of the twin,
+and on integer-valued inputs (exact sums, ties everywhere) values and rows
+equal to the twin's. The gather copies bytes: equal.
 """
 import pytest
 import torch
 
 from recommendit_tpu_torch.ops import bpr
+from recommendit_tpu_torch.ops import gather
+from recommendit_tpu_torch.ops import mips_fold as mf
 from recommendit_tpu_torch.ops import mips_window as mw
 from recommendit_tpu_torch.ops import quantize as qz
 from recommendit_tpu_torch.ops.topk import mm_operands, quantize_queries
@@ -304,3 +311,122 @@ def test_quantize_kernel_rejects_bad_arguments(cuda_device):
         qz.quantize_int8_hash(x.double(), 0)
     with pytest.raises(ValueError, match="int32"):
         qz.quantize_int8_hash(x, 2 ** 31)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [1, 8, 64, 128, 512])
+@pytest.mark.parametrize("n,n_valid", [(4096, 4096), (5000, 4801)])
+def test_queries_major_kernel_is_kernel_1_transposed(cuda_device, dtype, window,
+                                                     n, n_valid):
+    q, items = _corpus(n, 136, dtype, cuda_device, seed=window)
+    before = mw.LAUNCHES["window_mips_qm"]
+    kv, ka = mw.window_candidates_qm(q, items, window, n_valid)
+    torch.cuda.synchronize()
+    assert mw.LAUNCHES["window_mips_qm"] == before + 1
+    iv, ia = mw.window_candidates(q, items, window, n_valid)
+    assert kv.shape == (100, -(-n // window)) and ka.dtype == torch.int32
+    assert torch.equal(kv, iv.T) and torch.equal(ka, ia.T)
+    rv, _ = mw.window_candidates_qm_ref(q, items, window, n_valid)
+    torch.testing.assert_close(kv, rv, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_mips_topk_window_matches_twin(cuda_device):
+    """JAX's defaults (block 16384, W=128) over a padded bf16 corpus."""
+    q, items = _corpus(262_144, 136, torch.bfloat16, cuda_device, seed=6)
+    v, i = mw.mips_topk_window(q, items, 500, n_valid=260_000)
+    rv, ri = mw.mips_topk_window_ref(q, items, 500, n_valid=260_000)
+    torch.testing.assert_close(v, rv, atol=1e-4, rtol=0)
+    assert int(i.max()) < 260_000
+    overlap = sum(len(set(a) & set(b)) for a, b in zip(i.tolist(), ri.tolist()))
+    assert overlap / i.numel() >= 0.99
+
+
+# (N, D, block_items, reduction): bins narrower than a 64-row tile, exactly
+# one tile, wider (several bin tiles), a bias pad, a tiny block, R = 1
+FOLD_CASES = [(4096, 136, 2048, 64), (5000, 136, 2048, 32), (9000, 24, 2048, 8),
+              (301, 4, 16, 4), (3000, 16, 1024, 1), (70_000, 129, 2048, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FOLD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_fold_kernel_matches_twin(cuda_device, dtype, case):
+    n, d, block, r = case
+    q, items = _corpus(n, d, dtype, cuda_device, seed=n + r)
+    before = mf.LAUNCHES["fold_mips"]
+    kv, ki = mf.fold_candidates(q, items, block, r)
+    torch.cuda.synchronize()
+    assert mf.LAUNCHES["fold_mips"] == before + 1
+    rv, ri = mf.fold_candidates_ref(q, items, block, r)
+    assert kv.shape == rv.shape and ki.dtype == torch.int32
+    torch.testing.assert_close(kv, rv, atol=1e-4, rtol=0)
+    assert (ki == ri).float().mean() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FOLD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_fold_kernel_keeps_the_tournament_ties(cuda_device, dtype, case):
+    n, d, block, r = case
+    g = torch.Generator().manual_seed(n)
+    q = torch.randint(-1, 2, (70, d), generator=g).float().to(cuda_device)
+    items = torch.randint(-1, 2, (n, d), generator=g).float().to(dtype).to(cuda_device)
+    kv, ki = mf.fold_candidates(q, items, block, r)
+    rv, ri = mf.fold_candidates_ref(q, items, block, r)
+    assert torch.equal(kv, rv) and torch.equal(ki, ri)
+
+
+@pytest.mark.cuda
+def test_fold_topk_matches_twin(cuda_device):
+    q, items = _corpus(100_000, 136, torch.bfloat16, cuda_device, seed=8)
+    v, i = mf.mips_topk_fused(q, items, 500, 2048, 64)
+    rv, ri = mf.mips_topk_fused_ref(q, items, 500, 2048, 64)
+    torch.testing.assert_close(v, rv, atol=1e-4, rtol=0)
+    overlap = sum(len(set(a) & set(b)) for a, b in zip(i.tolist(), ri.tolist()))
+    assert overlap / i.numel() >= 0.99
+
+
+@pytest.mark.cuda
+def test_fold_kernel_rejects_bad_arguments(cuda_device):
+    q, items = _corpus(1024, 16, torch.float32, cuda_device)
+    with pytest.raises(TypeError):
+        mf.fold_candidates(q, items.half(), 256, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        mf.fold_candidates(q[:, :8], items[:, :8], 256, 4)
+    with pytest.raises(ValueError, match="power-of-two"):
+        mf.fold_candidates(q, items, 384, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8,
+                                   torch.float64])
+@pytest.mark.parametrize("d", [1, 3, 23, 64, 129])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64, torch.int16])
+def test_gather_kernel_matches_twin(cuda_device, dtype, d, idx_dtype):
+    g = torch.Generator().manual_seed(d)
+    table = (100 * torch.randn(5000, d, generator=g)).to(dtype).to(cuda_device)
+    idx = torch.randint(-50, 5050, (37, 16), generator=g).to(idx_dtype).to(cuda_device)
+    before = gather.LAUNCHES["gather_rows"]
+    got = gather.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES["gather_rows"] == before + 1
+    assert got.shape == (37, 16, d)
+    assert torch.equal(got, gather.gather_rows_ref(table, idx))
+
+
+@pytest.mark.cuda
+def test_gather_kernel_odd_offsets_and_shapes(cuda_device):
+    """A table view that starts off a 16-byte boundary takes the narrower
+    copies; a 0-d index and an empty one."""
+    base = torch.arange(6000 * 8, dtype=torch.float32, device=cuda_device)
+    table = base[1:1 + 5000 * 8].view(5000, 8)          # 4-byte aligned only
+    idx = torch.tensor([[0, 4999], [7, 10 ** 9]], device=cuda_device)
+    assert torch.equal(gather.gather_rows(table, idx), gather.gather_rows_ref(table, idx))
+    assert torch.equal(gather.gather_rows(table, idx[0, 1]), table[4999])
+    before = gather.LAUNCHES["gather_rows"]
+    empty = gather.gather_rows(table, idx[:0])
+    assert empty.shape == (0, 2, 8) and gather.LAUNCHES["gather_rows"] == before
+    with pytest.raises(ValueError, match="contiguous"):
+        gather.gather_rows(table.T.contiguous().T, idx)

@@ -5,6 +5,11 @@ The JAX side runs the Pallas kernel in interpret mode, as
 ``tests/test_pallas_mips.py`` does. Ids must be equal after
 ``canonical_tie_order``; values within 1e-5 (f32 sums in another order).
 """
+import json
+import subprocess
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +21,7 @@ from recommendit_tpu.ops.seen import SeenSet as JaxSeenSet, seen_mask_jnp
 from recommendit_tpu_torch.ops import mips_window as mw
 from recommendit_tpu_torch.ops import topk
 from recommendit_tpu_torch.ops.seen import SeenSet, seen_mask
+from recommendit_tpu_torch.scripts import kernel_probe
 
 
 def _data(q, n, d, seed, dtype=np.float32, normalize=False):
@@ -130,6 +136,68 @@ def test_guards_match_jax(kwargs, match):
         mw.mips_topk_window_im_ref(torch.as_tensor(qs), torch.as_tensor(items),
                                    args["k"], args["block_items"],
                                    args["window"], "default", args["n_valid"])
+
+
+# queries-major window kernel (JAX _window_kernel / mips_topk_window):
+# (Q, N, D, k, window, block_items, n_valid, precision, corpus dtype)
+QM_CASES = [
+    (8, 5000, 32, 30, 128, 16384, None, "default", "float32"),
+    (8, 4096, 24, 100, 8, 1024, 3500, "default", "float32"),
+    (6, 3001, 16, 20, 128, 1024, None, "highest", "bfloat16"),
+    (5, 4096, 16, 60, 8, 4096, 4001, "highest", "float32"),
+    (8, 4096, 32, 100, 8, 1024, None, "default", "bfloat16"),
+    (4, 8192, 16, 40, 128, 16384, 8000, "highest", "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", QM_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_queries_major_window_matches_jax(case):
+    q, n, d, k, w, blk, n_valid, prec, dtype = case
+    qs, items = _data(q, n, d, seed=n + w + d, normalize=True)
+    j_items = jnp.asarray(items, jnp.dtype(dtype))
+    j = jpm.mips_topk_window(jnp.asarray(qs), j_items, k, blk, w, True, prec,
+                             n_valid)
+    t_items = torch.tensor(np.asarray(j_items, np.float32)).to(getattr(torch, dtype))
+    t = mw.mips_topk_window_ref(torch.as_tensor(qs), t_items, k, blk, w, prec,
+                                n_valid)
+    assert_same_topk(t, j)
+    cpu = mw.mips_topk_window(torch.as_tensor(qs), t_items, k, blk, w, prec,
+                              n_valid)
+    assert torch.equal(cpu[0], t[0]) and torch.equal(cpu[1], t[1])
+
+
+def test_queries_major_candidates_are_items_major_transposed():
+    """The two layouts hold the same maxima and positions (the on-card
+    form is chip_smoke.py's kernel 2 phase)."""
+    qs, items = _data(5, 3001, 16, seed=9)
+    items[17] = items[16]          # a tie inside a window
+    for w in (4, 64, 128):
+        qv, qa = mw.window_candidates_qm(torch.as_tensor(qs),
+                                         torch.as_tensor(items), w, 2990)
+        iv, ia = mw.window_candidates_ref(torch.as_tensor(qs),
+                                          torch.as_tensor(items), w, 2990)
+        assert qv.shape == (5, -(-3001 // w))
+        assert torch.equal(qv, iv.T) and torch.equal(qa, ia.T)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(k=600, n_valid=500), "exceeds corpus size"),
+    (dict(k=10, block_items=1000, window=128), "multiple of window"),
+    (dict(k=200, window=32), "valid candidate count"),
+    (dict(k=10, n_valid=0), "out of range"),
+])
+def test_queries_major_guards_match_jax(kwargs, match):
+    qs, items = _data(4, 1024, 16, seed=0)
+    args = dict(k=10, block_items=1024, window=8, n_valid=None)
+    args.update(kwargs)
+    with pytest.raises(ValueError, match=match):
+        jpm.mips_topk_window(jnp.asarray(qs), jnp.asarray(items), args["k"],
+                             args["block_items"], args["window"], True,
+                             "default", args["n_valid"])
+    with pytest.raises(ValueError, match=match):
+        mw.mips_topk_window(torch.as_tensor(qs), torch.as_tensor(items),
+                            args["k"], args["block_items"], args["window"],
+                            "default", args["n_valid"])
 
 
 def _jax_window_rule(n, k=500):
@@ -263,3 +331,53 @@ def test_seen_mask_empty_set():
     m = seen_mask(*ts.device_arrays("cpu"), ts.search_steps,
                   torch.tensor([[1]]), torch.tensor([[1, 2, 3]]))
     assert not m.any()
+
+
+# the keys of scripts/pallas_probe.py's JSON line
+JAX_PROBE_KEYS = ("variant", "platform", "n", "d", "q", "k", "block", "window",
+                  "precision", "compile_s", "batch_ms", "qps", "ok_vals",
+                  "max_val_err", "ok_top1", "recall_at_k")
+
+
+def test_probe_keys_are_the_jax_probe_keys():
+    src = (Path(__file__).resolve().parent.parent / "scripts"
+           / "pallas_probe.py").read_text()
+    assert all(f'"{key}":' in src for key in JAX_PROBE_KEYS)
+
+
+@pytest.mark.parametrize("variant", kernel_probe.VARIANTS)
+def test_probe_runs_each_variant_on_the_cpu(variant, capsys):
+    code = kernel_probe.main(["--variant", variant, "--n", "4096", "--d", "16",
+                              "--q", "8", "--k", "20", "--iters", "2",
+                              "--device", "cpu"])
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert code == 0
+    assert set(JAX_PROBE_KEYS) <= set(rec)
+    assert rec["variant"] == variant and rec["platform"] == "cpu"
+    assert rec["ok_vals"] and rec["ok_top1"] and rec["recall_at_k"] > 0.5
+
+
+def test_probe_reports_a_wrong_result_with_exit_code_2(monkeypatch, capsys):
+    real = mw.mips_topk_window_im
+
+    def off_by_one(*args, **kwargs):
+        v, i = real(*args, **kwargs)
+        return v + 1.0, i
+    monkeypatch.setattr(mw, "mips_topk_window_im", off_by_one)
+    code = kernel_probe.main(["--variant", "window_im", "--n", "4096", "--d",
+                              "16", "--q", "8", "--k", "20", "--iters", "1",
+                              "--device", "cpu"])
+    assert code == 2
+    assert not json.loads(capsys.readouterr().out)["ok_vals"]
+
+
+def test_probe_on_the_card_without_one_fails():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    proc = subprocess.run(
+        [sys.executable, "-m", "recommendit_tpu_torch.scripts.kernel_probe",
+         "--variant", "fold", "--n", "4096"],
+        capture_output=True, text=True, timeout=120,
+        cwd=Path(__file__).resolve().parent.parent)
+    assert proc.returncode != 0 and proc.stdout == ""
+    assert "needs an NVIDIA GPU" in proc.stderr

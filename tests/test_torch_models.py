@@ -33,7 +33,7 @@ def towers(tmp_path_factory):
     rng = np.random.default_rng(0)
     jm.params["item_bias"] = jnp.asarray(rng.normal(size=301), jnp.float32)
     jm.save(str(path))
-    return jm, TwoTower.load(str(path)), path
+    return jm, TwoTower.load(str(path), device="cpu"), path
 
 
 def test_user_tower_matches(towers):
@@ -71,13 +71,13 @@ def test_from_numpy_checks_shapes(towers):
     params = {k: np.asarray(v) for k, v in jm.params.items()}
     params["user_w1"] = params["user_w1"][:, :5]
     with pytest.raises(ValueError, match="user_w1"):
-        TwoTower.from_numpy(params, 50, 300, 16, 32)
+        TwoTower.from_numpy(params, 50, 300, 16, 32, device="cpu")
 
 
 def test_missing_item_bias_loads_as_zeros(towers):
     jm, _, _ = towers
     params = {k: np.asarray(v) for k, v in jm.params.items() if k != "item_bias"}
-    tm = TwoTower.from_numpy(params, 50, 300, 16, 32)
+    tm = TwoTower.from_numpy(params, 50, 300, 16, 32, device="cpu")
     assert not tm.item_bias.any()
 
 
@@ -95,7 +95,7 @@ def rankers(tmp_path_factory):
         jr._trained = True
         path = tmp / f"ranker_{qn}.npz"
         jr.save(str(path))
-        out[qn] = (jr, load_ranker(str(path)), path)
+        out[qn] = (jr, load_ranker(str(path), device="cpu"), path)
     return out
 
 
@@ -141,7 +141,7 @@ def test_gbdt_ranker_raises(tmp_path):
     p = tmp_path / "gbdt.npz"
     (tmp_path / "gbdt.npz.meta.json").write_text(json.dumps({"n_trees": 3}))
     with pytest.raises(NotImplementedError, match="GBDT"):
-        load_ranker(str(p))
+        load_ranker(str(p), device="cpu")
 
 
 def _catalog(n=3000, d=16, seed=7):
@@ -158,7 +158,7 @@ def test_index_matches_jax(tmp_path, mode, with_bias):
     ji = JaxIndex(16, block_size=1024, mode=mode)
     ji.build(embs, ids, bias=bias if with_bias else None)
     ji.save(str(tmp_path / "i.npz"))
-    ti = MIPSIndex.load(str(tmp_path / "i.npz"))
+    ti = MIPSIndex.load(str(tmp_path / "i.npz"), device="cpu")
     assert ti.n_total == 3000 and ti.has_bias == with_bias
     assert ti._embs.shape == ((3072 if mode == "fused" else 3000),
                               24 if with_bias else 16)
@@ -174,8 +174,8 @@ def test_index_matches_jax(tmp_path, mode, with_bias):
 def test_approx_index_recall(tmp_path):
     embs, ids, bias, queries = _catalog(20_000, 32, seed=8)
     queries = np.random.default_rng(9).normal(size=(40, 32)).astype(np.float32)
-    exact = MIPSIndex(32, mode="exact")
-    approx = MIPSIndex(32, mode="approx", dtype="bfloat16")
+    exact = MIPSIndex(32, mode="exact", device="cpu")
+    approx = MIPSIndex(32, mode="approx", dtype="bfloat16", device="cpu")
     for idx in (exact, approx):
         idx.build(embs, ids, bias=bias)
     _, e = exact.batch_search(queries, 300)
@@ -187,7 +187,7 @@ def test_approx_index_recall(tmp_path):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_index_npz_round_trip(tmp_path, dtype):
     embs, ids, bias, _ = _catalog()
-    ti = MIPSIndex(16, block_size=1024, mode="fused", dtype=dtype)
+    ti = MIPSIndex(16, block_size=1024, mode="fused", dtype=dtype, device="cpu")
     ti.build(embs, ids, bias=bias)
     ti.save(str(tmp_path / "i.npz"))
     back = JaxIndex.load(str(tmp_path / "i.npz"))
@@ -198,7 +198,7 @@ def test_index_npz_round_trip(tmp_path, dtype):
         np.testing.assert_array_equal(data["bias"], bias)
     # the file holds normalised rows; load normalises again (as JAX does),
     # which moves f32 rows by rounding only and bf16 rows by at most 1 ulp
-    again = MIPSIndex.load(str(tmp_path / "i.npz"))
+    again = MIPSIndex.load(str(tmp_path / "i.npz"), device="cpu")
     tol = 1e-6 if dtype == "float32" else 2 ** -8
     torch.testing.assert_close(again._embs.float(), ti._embs.float(),
                                atol=tol, rtol=0)
@@ -206,7 +206,7 @@ def test_index_npz_round_trip(tmp_path, dtype):
 
 def test_search_single_query(tmp_path):
     embs, ids, bias, queries = _catalog()
-    ti = MIPSIndex(16, mode="exact")
+    ti = MIPSIndex(16, mode="exact", device="cpu")
     ti.build(embs, ids, bias=bias)
     s, i = ti.search(queries[0], 10)
     bs, bi = ti.batch_search(queries[:1], 10)
@@ -218,11 +218,11 @@ def test_search_single_query(tmp_path):
                                     dict(mode="verified")])
 def test_unported_index_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MIPSIndex(16, **kwargs)
+        MIPSIndex(16, **kwargs, device="cpu")
 
 
 def test_index_rejects_bad_shapes():
-    ti = MIPSIndex(16)
+    ti = MIPSIndex(16, device="cpu")
     with pytest.raises(ValueError, match="embeddings must be"):
         ti.build(np.zeros((4, 8), np.float32), np.arange(4))
     with pytest.raises(RuntimeError, match="not built"):

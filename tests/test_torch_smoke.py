@@ -65,7 +65,7 @@ def test_kernel_phase_on_the_twin(small_artifacts):
     assert rec["window_max_abs_err"] == 0.0
     assert rec["id_overlap_vs_twin"] == 1.0
     assert rec["recall_vs_exact"] >= rec["bin_model_recall"] - 0.02
-    assert rec["d"] == 24
+    assert (rec["d"], rec["d_func"]) == (24, 17)   # 16 + bias, padded to 8
 
 
 def test_serve_phase_checks_pass(small_artifacts):
@@ -76,7 +76,7 @@ def test_serve_phase_checks_pass(small_artifacts):
     assert out["retrieval_score_abs_err"] <= 1e-3
     assert out["batch_vs_single_top_k_agreement"] == 1.0
     assert out["launches"] == {"window_mips": 0,   # the CPU runs the twins
-                               "window_mips_i8": 0}
+                               "window_mips_qm": 0, "window_mips_i8": 0}
 
 
 def test_artifacts_include_the_int8_index(small_artifacts):
@@ -118,7 +118,8 @@ def test_int8_kernel_phase_on_the_twin(small_artifacts):
     assert rec["window_max_equal"] and rec["window_arg_equal"]
     assert rec["topk_ids_equal"] and rec["topk_values_equal"]
     assert rec["recall_vs_int8_exact"] >= rec["bin_model_recall"] - 0.02
-    assert rec["d"] == 32 and rec["dtype"] == "torch.int8"
+    assert (rec["d"], rec["d_func"]) == (32, 17)
+    assert rec["dtype"] == "torch.int8"
 
 
 def test_int8_serve_phase_checks_pass(small_artifacts):
@@ -128,7 +129,8 @@ def test_int8_serve_phase_checks_pass(small_artifacts):
     assert out["index_dtype"] == "int8" and out["batch_users"] == 600
     assert out["retrieval_score_abs_err"] <= 1e-3
     assert out["batch_vs_single_top_k_agreement"] == 1.0
-    assert out["launches"] == {"window_mips": 0, "window_mips_i8": 0}
+    assert out["launches"] == {"window_mips": 0, "window_mips_qm": 0,
+                               "window_mips_i8": 0}
 
 
 def test_capacity_phase_on_the_twin():
@@ -194,6 +196,59 @@ def test_train_phase_counts_every_launch(trained, monkeypatch):
     with pytest.raises(AssertionError, match="launches"):
         chip_smoke.train_phase(view, "cpu", 0, tmp, epochs=4, dim=16,
                                hidden=32, batch=256)
+
+
+def test_qm_window_phase_on_the_twin(small_artifacts):
+    paths, _ = small_artifacts
+    recs = chip_smoke.qm_window_phase(paths, "cpu", 0, qs=(16, 64), k=40,
+                                      window=8, default_window=64,
+                                      block=1024, timer=_host_ms)
+    assert [(r["q"], r["window"]) for r in recs] == [(16, 8), (64, 8), (64, 64)]
+    for rec in recs:
+        assert rec["window_max_abs_err"] == 0.0
+        assert rec["equals_items_major_transposed"]
+        assert rec["id_overlap_vs_twin"] == 1.0
+        assert (rec["d"], rec["d_func"]) == (24, 17)
+    assert "kernel_ms" in recs[-1] and "kernel_ms" not in recs[0]
+
+
+def test_fold_phase_on_the_twin(small_artifacts):
+    paths, _ = small_artifacts
+    rec = chip_smoke.fold_phase(paths, "cpu", 0, n_q=32, k=50, block=1024,
+                                reduction=16, timer=_host_ms, min_recall=0.9,
+                                tie_cases=((301, 4, 3, 16, 4),))
+    assert rec["max_abs_err"] == 0.0 and rec["ids_equal_share"] == 1.0
+    assert rec["ties_equal"] == [True, True]
+    assert (rec["n"], rec["d"], rec["n_cand"]) == (5000, 24, 5 * 64)
+    assert rec["d_func"] == 17
+    assert rec["recall_vs_exact"] >= rec["bin_model_recall"] - 0.05
+
+
+def test_gather_phase_on_the_twin(small_artifacts):
+    paths, _ = small_artifacts
+    rec = chip_smoke.gather_phase(paths, "cpu", 0, shape=(40, 30), timer=_host_ms)
+    assert rec["equal"] and all(rec["variants_equal"].values())
+    assert rec["table"] == [5001, 64] and rec["launches"] == {"gather_rows": 0}
+    assert 1200 * 256 < rec["bytes"] <= 2 * 1200 * 256 + 1200 * 8
+
+
+def test_probe_phase_runs_every_variant():
+    recs, launches = chip_smoke.probe_phase(
+        "cpu", ("--n", "4096", "--d", "16", "--q", "8", "--k", "20",
+                "--iters", "2"))
+    assert [r["variant"] for r in recs] == ["window", "window_im",
+                                            "window_im_int8", "fold"]
+    assert all(r["ok_vals"] and r["ok_top1"] for r in recs)
+    assert not any(launches.values())      # the twins on the CPU
+
+
+def test_bounds():
+    assert chip_smoke.bound(3.35e9) == pytest.approx((1.0, "bytes"))
+    assert chip_smoke.bound(1.0, 989e9, "bf16") == pytest.approx((1.0, "operations"))
+    # the function's 129 columns count, not the 136 the device rows are padded to
+    rec = {"q": 1024, "n": 1_000_000, "d": 136, "d_func": 129, "window": 64}
+    ms, by = chip_smoke.window_bound(rec, 2, 4, "bf16")
+    assert by == "operations" and ms == pytest.approx(2 * 1024 * 1e6 * 129 / 989e9)
 
 
 def test_overlap_counts_shared_ids():

@@ -24,7 +24,7 @@ def carried():
     params["item_bias"] = jnp.asarray(
         np.random.default_rng(0).normal(size=N_ITEMS + 1), jnp.float32)
     np_params = {k: np.asarray(v) for k, v in params.items()}
-    model = ttt.from_jax_params(np_params)
+    model = ttt.from_jax_params(np_params, device="cpu")
     return params, model
 
 
@@ -161,7 +161,7 @@ def test_dropout_replays_from_the_generator_state():
 
 
 def test_init_params_follow_the_jax_initialisers():
-    p = ttt.init_params(torch.Generator().manual_seed(0), 300, 400, 64, 128)
+    p = ttt.init_params(torch.Generator().manual_seed(0), 300, 400, 64, 128, device="cpu")
     want = jtt.init_params(jax.random.PRNGKey(0), 300, 400, 64, 128)
     for k, v in want.items():
         assert tuple(p[k].shape) == v.shape and p[k].dtype == torch.float32

@@ -56,7 +56,7 @@ def _cfg(**kw):
 def _carried_init(trainer, seed):
     params = jax_init(jax.random.PRNGKey(seed), trainer.n_users,
                       trainer.n_items, DIM, HIDDEN)
-    return from_jax_params({k: np.asarray(v) for k, v in params.items()})
+    return from_jax_params({k: np.asarray(v) for k, v in params.items()}, device="cpu")
 
 
 def _train_both(data, mode, epochs=2, **cfg_kw):
@@ -64,7 +64,7 @@ def _train_both(data, mode, epochs=2, **cfg_kw):
     cfg = _cfg(**cfg_kw)
     jt = jte.EmbeddingTrainer(jd, cfg, loss_mode=mode, model_output_path="")
     jm = jt.train(epochs=epochs)
-    tt = EmbeddingTrainer(td, cfg, loss_mode=mode, model_output_path="")
+    tt = EmbeddingTrainer(td, cfg, loss_mode=mode, model_output_path="", device="cpu")
     tm = tt.train(epochs=epochs, init_params=_carried_init(jt, cfg.SEED))
     return jt, jm, tt, tm
 
@@ -102,7 +102,7 @@ def test_dropout_losses_lie_in_the_seed_band(data):
     assert abs(np.mean(port_final) - np.mean(jax_final)) <= band
     assert np.max(np.abs(np.subtract(port_final, jax_final))) <= 2 * band
     off = EmbeddingTrainer(data[1], _cfg(SEED=0), loss_mode="in_batch",
-                           model_output_path="")
+                           model_output_path="", device="cpu")
     off.train(epochs=2, init_params=_carried_init(off, 0))
     assert off.history[-1]["loss"] != port_final[0]
 
@@ -111,7 +111,7 @@ def test_helpers_equal_jax_bit_for_bit(data):
     jd, td = data
     jt = jte.EmbeddingTrainer(jd, _cfg(), loss_mode="softmax",
                               model_output_path="")
-    tt = EmbeddingTrainer(td, _cfg(), loss_mode="softmax", model_output_path="")
+    tt = EmbeddingTrainer(td, _cfg(), loss_mode="softmax", model_output_path="", device="cpu")
     np.testing.assert_array_equal(tt.pos_users, jt.pos_users)
     np.testing.assert_array_equal(tt.pos_items, jt.pos_items)
     np.testing.assert_array_equal(tt.genre_table, jt.genre_table)
@@ -128,7 +128,7 @@ def test_helpers_equal_jax_bit_for_bit(data):
 def test_epoch_batches_equal_jax(data, mode):
     jd, td = data
     jt = jte.EmbeddingTrainer(jd, _cfg(), loss_mode=mode, model_output_path="")
-    tt = EmbeddingTrainer(td, _cfg(), loss_mode=mode, model_output_path="")
+    tt = EmbeddingTrainer(td, _cfg(), loss_mode=mode, model_output_path="", device="cpu")
     jr, tr = np.random.default_rng(9), np.random.default_rng(9)
     for _ in range(2):
         for a, b in zip(tt._epoch_batches(tr, 100), jt._epoch_batches(jr, 100)):
@@ -174,9 +174,9 @@ def test_index_builder_saves_the_jax_index(data, mode, tmp_path):
         params["item_bias"] = jnp.asarray(
             jte.warm_start_item_bias(jt.pos_items, jt.n_items))
     jm = TwoTowerModel(jt.n_users, jt.n_items, DIM, HIDDEN, params=params)
-    tm = from_jax_params({k: np.asarray(v) for k, v in params.items()})
+    tm = from_jax_params({k: np.asarray(v) for k, v in params.items()}, device="cpu")
     JaxIndexBuilder(jd, cfg, index_output_path=str(tmp_path / "j.npz")).build(model=jm)
-    index = IndexBuilder(td, cfg, index_output_path=str(tmp_path / "t.npz")).build(model=tm)
+    index = IndexBuilder(td, cfg, index_output_path=str(tmp_path / "t.npz"), device="cpu").build(model=tm)
     with np.load(tmp_path / "j.npz") as want, np.load(tmp_path / "t.npz") as got:
         assert sorted(got.files) == sorted(want.files)
         np.testing.assert_array_equal(got["item_ids"], want["item_ids"])
@@ -192,32 +192,32 @@ def test_index_builder_saves_the_jax_index(data, mode, tmp_path):
 def test_trained_model_saves_in_the_jax_format(data, tmp_path):
     path = str(tmp_path / "tt.npz")
     tt = EmbeddingTrainer(data[1], _cfg(), loss_mode="in_batch",
-                          model_output_path=path)
+                          model_output_path=path, device="cpu")
     tm = tt.train(epochs=1)
     back = TwoTowerModel.load(path)
     for name, v in back.params.items():
         np.testing.assert_array_equal(np.asarray(v), getattr(tm, name).detach().numpy())
     built = IndexBuilder(data[1], _cfg(), model_path=path,
-                         index_output_path=str(tmp_path / "i.npz")).build()
+                         index_output_path=str(tmp_path / "i.npz"), device="cpu").build()
     assert built.n_total == tt.n_items
 
 
 def test_unported_options_raise(data, tmp_path):
     td = data[1]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EmbeddingTrainer(td, _cfg(), ckpt_dir=str(tmp_path))
-    tt = EmbeddingTrainer(td, _cfg(), model_output_path="")
+        EmbeddingTrainer(td, _cfg(), ckpt_dir=str(tmp_path), device="cpu")
+    tt = EmbeddingTrainer(td, _cfg(), model_output_path="", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.train(epochs=1, resume_from=str(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IndexBuilder(td, _cfg()).build(embeddings=np.zeros((3, DIM), np.float32))
+        IndexBuilder(td, _cfg(), device="cpu").build(embeddings=np.zeros((3, DIM), np.float32))
 
 
 def test_bad_arguments_raise(data):
     td = data[1]
     with pytest.raises(ValueError, match="loss mode"):
-        EmbeddingTrainer(td, _cfg(), loss_mode="listwise")
-    tt = EmbeddingTrainer(td, _cfg(EMBEDDING_DIM=8), model_output_path="")
+        EmbeddingTrainer(td, _cfg(), loss_mode="listwise", device="cpu")
+    tt = EmbeddingTrainer(td, _cfg(EMBEDDING_DIM=8), model_output_path="", device="cpu")
     with pytest.raises(ValueError, match="init_params sizes"):
         tt.train(epochs=1, init_params=_carried_init(tt, 0))
 
