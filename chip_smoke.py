@@ -36,12 +36,17 @@ Phases (each failure raises, so the exit code is not 0):
    build + save the fused bf16 index and, from the same embeddings and
    bias, the fused int8 index (quant seed ``--seed``);
 3. kernel phase: at Q in {256, 1024} over the 1M x 129 (136 padded) bf16
-   corpus, W=64, k=500, the kernel against its plain twin — window maxima
-   within 1e-3, top-500 id overlap >= 0.99, recall@500 >= 0.98 against the
-   exact top-500 of the same scores — and both times (CUDA events);
+   corpus, W=64, k=500, the kernel (its tensor-core body, ``tc_route``)
+   against its plain twin — window maxima within 1e-3, top-500 id overlap
+   >= 0.99, recall@500 >= 0.98 against the exact top-500 of the same
+   scores — and both times (CUDA events), the share of the bound reached,
+   and ``gemm_only_ms``: the product alone as cuBLAS bf16 matmuls into f32
+   (a yardstick the port never calls);
 4. serve phase: ``batch_recommend`` for 2,048 users at batch 1,024 (the
    kernel route: one launch per batch) and 20 single requests (the scan
-   route: none), with the launch counts read around exactly that run;
+   route: none), with the launch counts read around exactly that run; then
+   ``torch.profiler`` over 10 ``serve_batch`` calls of 1,024 users: device
+   time per call by kernel group, host clock, the device's idle share;
 5. quantize phase: at 1M x 129, the catalog's augmented f32 rows, the
    quantize kernel against its twin (int8 values and scales equal), and
    the times of both and of the build quantizer (threefry);
@@ -57,6 +62,9 @@ Phases (each failure raises, so the exit code is not 0):
    1e-3, top-500 id overlap >= 0.99) and against the items-major kernel
    (maxima and positions equal to its transpose); then Q=1024 at W=128, its
    default, timed with its twin;
+   then the router's two routes (``mips_topk_fused_route``: the dense scan
+   and the window kernel) timed at Q in {1, 16, 64, ..., 1024} beside the
+   route the router takes (its constants unchanged);
 9. fold phase: ``mips_topk_fused`` at Q=1024 over the valid rows, block
    2048, R=64: candidates within 1e-4 (relative to the largest) of the
    twin, recall@500 >= 0.98 against the exact top-500 of the same f32-query
@@ -87,6 +95,8 @@ Phases (each failure raises, so the exit code is not 0):
    above a random ranking's.
 
 Usage, from the repository root: ``python3 chip_smoke.py [--seed N]``.
+After the build it prints ptxas's registers, spills and shared memory of
+the window kernels.
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (each
 kernel's launches on its path, error against its twin, time, twin's time,
 bound and, where one PyTorch call computes the same function, that call's
@@ -96,7 +106,9 @@ GPU.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -135,6 +147,9 @@ GATHER_REPLACES = "recommendit_tpu/ops/gather.py:27"
 LIBRARIES = ("window_mips", "bpr", "window_mips_i8", "quantize_i8",
              "fold_mips", "gather_rows")
 
+# the router's two routes (mips_topk_fused_auto) timed at these batch sizes
+ROUTER_QS = (1, 16, 64, 128, 256, 384, 512, 1024)
+
 # the kernels no serve or train path runs
 QM_WINDOW = 128                   # mips_topk_window's default window
 QM_BLOCK = 16384                  # ... and block
@@ -161,6 +176,26 @@ TRAIN_EPOCHS = 2
 TRAIN_SPLIT = 0.9
 BPR_SHAPES = ((1024, TRAIN_DIM), (1000, TRAIN_DIM))
 INDEX_USERS, RECALL_K = 1024, 20
+
+
+def ptxas_summary(log: str):
+    """Registers, spill bytes and static shared memory of each kernel in a
+    ``ptxas -v`` report, by kernel and template arguments."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '_Z\w*?\d+([a-z_]+kernel)I(\w*?)EEv", line)
+        if m:
+            targs = m.group(2)
+            kinds = (["bf16"] if targs.startswith("13__nv_bfloat16")
+                     else ["f32"] if targs.startswith("f") else [])
+            kinds += re.findall(r"L[ib](\d+)E", targs)
+            name = f"{m.group(1)}<{','.join(kinds)}>"
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[name]["spill_stores"], out[name]["spill_loads"] = map(int, m.groups())
+        elif name and (m := re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)):
+            out[name]["registers"], out[name]["static_smem"] = map(int, m.groups())
+    return out
 
 
 def card_line() -> str:
@@ -289,6 +324,18 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def gemm_only(q: torch.Tensor, corpus: torch.Tensor, chunk: int = 256):
+    """The product alone, a yardstick the port never calls: (chunk, D) x
+    (D, N) in the corpus dtype into f32 scores (one cuBLAS call per chunk on
+    the card; f32 on the CPU, which has no such call), no window max."""
+    qc = q.to(corpus.dtype)
+    for s in range(0, qc.shape[0], chunk):
+        if corpus.is_cuda:
+            torch.mm(qc[s:s + chunk], corpus.T, torch.float32)
+        else:
+            qc[s:s + chunk].float() @ corpus.T.float()
+
+
 def kernel_phase(paths, device, seed: int, qs=KERNEL_QS, k=TOP_K_CANDIDATES,
                  window=WINDOW, timer=cuda_ms, min_recall=0.98):
     """The kernel against its twin on the index's own corpus and user-tower
@@ -327,11 +374,15 @@ def kernel_phase(paths, device, seed: int, qs=KERNEL_QS, k=TOP_K_CANDIDATES,
             "recall_vs_exact_f32_queries": _overlap(i, fi),
             "bin_model_recall": 1 - (k - 1) * window / (2 * n_valid),
             "args_equal_share": float((ka == ra).float().mean()),
+            "tc_route": mw.window_body(corpus.dtype, "default",
+                                       int(corpus.shape[1])) == "tensor_cores",
         }
         del kv, ka, rv, ra, ei, fi
         reps = 20 if n_q <= 256 else 10
         rec["kernel_ms"] = timer(
             lambda: mw.window_candidates(q, corpus, window, n_valid), reps)
+        rec["bound_share"] = window_bound(rec, 2, 4, "bf16")[0] / rec["kernel_ms"]
+        rec["gemm_only_ms"] = timer(lambda: gemm_only(q, corpus), reps)
         rec["twin_ms"] = timer(
             lambda: mw.window_candidates_ref(q, corpus, window, n_valid), 3)
         rec["kernel_topk_ms"] = timer(
@@ -341,6 +392,8 @@ def kernel_phase(paths, device, seed: int, qs=KERNEL_QS, k=TOP_K_CANDIDATES,
             lambda: mw.mips_topk_window_im_ref(q, corpus, k, INDEX_BLOCK,
                                                window, n_valid=n_valid), 3)
         print(json.dumps({"kernel_check": rec}), flush=True)
+        if corpus.dtype == torch.bfloat16 and not rec["tc_route"]:
+            raise AssertionError(f"the bf16 corpus missed the tensor cores: {rec}")
         if err > 1e-3:
             raise AssertionError(f"window maxima differ by {err} (> 1e-3)")
         if rec["topk_value_abs_err"] > 1e-3:
@@ -353,18 +406,10 @@ def kernel_phase(paths, device, seed: int, qs=KERNEL_QS, k=TOP_K_CANDIDATES,
     return out
 
 
-def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
-                batch: int = BATCH, n_requests: int = N_REQUESTS,
-                k: int = REQUEST_K, dtype: str = "bfloat16"):
-    """Load the port's pipeline over the fused index of ``dtype`` and drive
-    its main path: batch_recommend at ``batch`` and ``n_requests`` single
-    requests. Checks what comes out and the launch counts of exactly that
-    run — on the card one launch of the dtype's window kernel per batch,
-    none for the single requests (the scan route) and none of the other
-    kernel — and returns the measurements and the counts."""
+def load_pipeline(paths, data, device, dtype: str = "bfloat16",
+                  k: int = REQUEST_K):
+    """The port's pipeline over the fused index of ``dtype``, loaded."""
     from recommendit_tpu_torch.config import Settings
-    from recommendit_tpu_torch.ops import mips_window as mw
-    from recommendit_tpu_torch.ops.topk import quantize_queries
     from recommendit_tpu_torch.serving.recommender import RecommendationPipeline
 
     cfg = Settings(EMBEDDING_DIM=DIM, HIDDEN_DIM=HIDDEN, INDEX_MODE="fused",
@@ -374,10 +419,26 @@ def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
                    STAGE_RECAL_EVERY=0)
     files = {key: paths[key] for key in ("model_path", "ranker_path",
                                          "features_dir")}
-    t0 = time.perf_counter()
     pipe = RecommendationPipeline(cfg=cfg, device=device,
                                   index_path=paths[INDEX_PATHS[dtype]], **files)
     pipe.load(data)
+    return pipe
+
+
+def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
+                batch: int = BATCH, n_requests: int = N_REQUESTS,
+                k: int = REQUEST_K, dtype: str = "bfloat16"):
+    """Load the port's pipeline over the fused index of ``dtype`` and drive
+    its main path: batch_recommend at ``batch`` and ``n_requests`` single
+    requests. Checks what comes out and the launch counts of exactly that
+    run — on the card one launch of the dtype's window kernel per batch,
+    none for the single requests (the scan route) and none of the other
+    kernel — and returns the measurements and the counts."""
+    from recommendit_tpu_torch.ops import mips_window as mw
+    from recommendit_tpu_torch.ops.topk import quantize_queries
+
+    t0 = time.perf_counter()
+    pipe = load_pipeline(paths, data, device, dtype, k)
     load_s = time.perf_counter() - t0
     n_users, n_items = pipe._n_users, pipe.index.n_total
     rng = np.random.default_rng(7)
@@ -641,6 +702,107 @@ def qm_window_phase(paths, device, seed: int, qs=KERNEL_QS, k=TOP_K_CANDIDATES,
             raise AssertionError(f"top-{k} id overlap with the twin < 0.99: {rec}")
         out.append(rec)
     return out
+
+
+def router_phase(paths, device, seed: int, qs=ROUTER_QS, k=TOP_K_CANDIDATES,
+                 block=INDEX_BLOCK, timer=cuda_ms):
+    """Both routes of ``mips_topk_fused_auto`` over the saved bf16 corpus,
+    each run as the router runs it (``mips_topk_fused_route``), timed at
+    every batch size in ``qs``, beside the route the router takes there
+    (its constants are the TPU's and stay so: the kernel route is the
+    approximate answer). Returns (records, the smallest Q from which the
+    kernel route is the faster at every larger measured Q, or None)."""
+    from recommendit_tpu_torch.models import MIPSIndex, TwoTower
+    from recommendit_tpu_torch.ops import mips_window as mw
+
+    model = TwoTower.load(paths["model_path"], device=device)
+    index = MIPSIndex.load(paths["index_path"], device=device)
+    corpus, n_valid = index._embs, index.n_total
+    window = mw.fused_window(n_valid, k)
+    rng = np.random.default_rng(seed + 9)
+    out = []
+    for n_q in qs:
+        uids = torch.as_tensor(rng.integers(1, model.n_users + 1, n_q),
+                               device=device)
+        q = index._augment(model.user_tower(uids))
+        rec = {"q": n_q, "n": n_valid, "window": window, "k": k,
+               "router_takes": mw.fused_route(n_q, n_valid, k)[0]}
+        for route, w in (("scan", 0), ("kernel", window)):
+            rec[f"{route}_ms"] = timer(lambda: mw.mips_topk_fused_route(
+                route, w, q, corpus, k, block, "default", n_valid), 10)
+        out.append(rec)
+    crossover = None
+    for rec in reversed(out):
+        if rec["kernel_ms"] >= rec["scan_ms"]:
+            break
+        crossover = rec["q"]
+    print(json.dumps({"router_check": out, "kernel_faster_from_q": crossover}),
+          flush=True)
+    return out, crossover
+
+
+KERNEL_GROUPS = (("window_tc_kernel", "window kernel"), ("window_mips", "window kernel"),
+                 ("gemm", "cuBLAS GEMMs"), ("topk", "top-k"), ("sort", "top-k"),
+                 ("CatArray", "cat"), ("gather", "gathers and indexing"),
+                 ("index", "gathers and indexing"), ("reduce_kernel", "reductions"))
+
+
+def _kernel_group(name: str) -> str:
+    """The part of a serve batch a device kernel belongs to, by its name."""
+    return next((g for key, g in KERNEL_GROUPS if key in name), "elementwise")
+
+
+def _short_kernel_name(name: str) -> str:
+    """A device kernel's name without its template arguments, with the
+    functor of an elementwise kernel kept (``elementwise_kernel:add``)."""
+    base = re.sub(r"^void |at::native::|\(anonymous namespace\)::", "", name)
+    base = re.split(r"[<(]", base, maxsplit=1)[0]
+    op = re.search(r"CUDAFunctor_(\w+?)<|binary_internal::(\w+?)Functor|launch_(\w+?)_scalar"
+                   r"|(direct_copy)_kernel|(\w+?)_kernel_cuda", name)
+    return f"{base}:{next(g for g in op.groups() if g)}" if op and "elementwise" in base else base
+
+
+def profile_phase(paths, data, device, n_calls: int = 10, batch: int = BATCH,
+                  top: int = 12):
+    """``torch.profiler`` over ``n_calls`` bf16 ``serve_batch`` calls of
+    ``batch`` users after a warm one: device time per call by kernel group
+    and by kernel (the ``top`` largest), all device kernels, the host clock
+    per call and the share of it the device is idle."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe = load_pipeline(paths, data, device)
+    rng = np.random.default_rng(11)
+    users = rng.integers(1, pipe._n_users + 1, batch).tolist()
+    pipe.serve_batch(users)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            pipe.serve_batch(users)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / n_calls
+    kernels, groups, launches = {}, {}, 0
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", 0.0)
+        if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            ms = dev_us / 1e3 / n_calls
+            name = _short_kernel_name(evt.key)
+            kernels[name] = kernels.get(name, 0.0) + ms
+            group = _kernel_group(evt.key)
+            groups[group] = groups.get(group, 0.0) + ms
+            launches += evt.count
+    device_ms = sum(kernels.values())
+    rec = {"batch": batch, "calls": n_calls, "host_ms_per_call": host_ms,
+           "device_ms_per_call": device_ms,
+           "device_idle_share": 1 - device_ms / host_ms,
+           "kernel_launches_per_call": launches / n_calls,
+           "groups_ms_per_call": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+           "kernels_ms_per_call": dict(sorted(kernels.items(),
+                                              key=lambda kv: -kv[1])[:top])}
+    print(json.dumps({"serve_profile": rec}), flush=True)
+    if device_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return rec
 
 
 def _tie_inputs(n, d, n_q, dtype, device, seed):
@@ -1072,6 +1234,14 @@ def main(argv=None) -> int:
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "nvcc_s": {n: _build.build_seconds[n] for n in LIBRARIES}}),
           flush=True)
+    stages = ctypes.c_int(0)
+    d_dev = -(-(DIM + 1) // 8) * 8           # the bias column, padded to 8
+    smem = _build.load_library("window_mips").window_mips_bf16_smem(
+        d_dev, ctypes.byref(stages))
+    print(json.dumps({"ptxas_window_mips": ptxas_summary(
+        _build.ptxas_logs.get("window_mips", "")), "window_tc_smem": {
+            "d": d_dev, "dynamic_bytes": smem, "stages": stages.value}}),
+          flush=True)
 
     t0 = time.perf_counter()
     paths, data = make_artifacts(workdir, args.seed, device)
@@ -1081,6 +1251,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     serve = serve_phase(paths, data, device)
     print(json.dumps({"serve": serve, "card": card}), flush=True)
+    torch.cuda.empty_cache()
+    profile_phase(paths, data, device)
     torch.cuda.empty_cache()
 
     quant = quantize_phase(paths, device, args.seed)
@@ -1092,6 +1264,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     checks_qm = qm_window_phase(paths, device, args.seed)
+    torch.cuda.empty_cache()
+    router_phase(paths, device, args.seed)
     torch.cuda.empty_cache()
     fold = fold_phase(paths, device, args.seed)
     torch.cuda.empty_cache()

@@ -24,13 +24,14 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _locks_guard = threading.Lock()
 _locks: Dict[str, threading.Lock] = {}   # one per library: builds run in parallel
 _libs: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}
+ptxas_logs: Dict[str, str] = {}   # ptxas -v's report of each loaded library
 
 
 def _nvcc() -> str:
@@ -51,7 +52,9 @@ def _nvcc() -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """The compiled ``csrc/<name>.cu`` as a ``ctypes.CDLL``, built on the
     first call in this process if no library for this source exists yet.
-    The seconds spent building are kept in ``build_seconds[name]``.
+    The seconds spent building are kept in ``build_seconds[name]``, and
+    ptxas's report (registers, shared memory, spills per kernel), saved
+    beside the library when it was built, in ``ptxas_logs[name]``.
     Different libraries build concurrently when called from several
     threads."""
     with _locks_guard:
@@ -81,11 +84,14 @@ def load_library(name: str) -> ctypes.CDLL:
                     raise RuntimeError(
                         f"nvcc failed for {src.name}:\n{proc.stdout}{proc.stderr}"
                     )
+                out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
                 os.replace(tmp, out)
             finally:
                 if os.path.exists(tmp):
                     os.unlink(tmp)
         build_seconds[name] = time.perf_counter() - t0
+        report = out.with_suffix(".ptxas.txt")
+        ptxas_logs[name] = report.read_text() if report.exists() else ""
         lib = ctypes.CDLL(str(out))
         _libs[name] = lib
         return lib

@@ -6,8 +6,10 @@ index serves through:
 * :func:`window_candidates` — per window of ``window`` consecutive corpus
   rows, the max score and its first-occurrence position, items-major
   (n_cand, Q). On a CUDA tensor it launches ``csrc/window_mips.cu`` (the
-  port of the Pallas ``_window_kernel_im``); on a CPU tensor it runs the
-  plain twin :func:`window_candidates_ref`.
+  port of the Pallas ``_window_kernel_im``): its tensor-core body for a
+  bf16 corpus at "default" precision, its CUDA-core body otherwise
+  (:func:`window_body`); on a CPU tensor it runs the plain twin
+  :func:`window_candidates_ref`.
 * :func:`mips_topk_window_im` — the candidates plus the exact top-k over
   the window maxima (outside the kernel, as in JAX).
   :func:`mips_topk_window_im_ref` is its plain twin on any device.
@@ -53,6 +55,7 @@ _KERNEL_MIN_Q = 384      # batches below this take the dense scan ...
 _SCAN_MIN_N = 65536      # ... on corpora larger than this
 _TARGET_CAND = 16384     # window maxima the tail top-k should see
 
+_TC_MAX_DIM = 192        # widest row the tensor-core body's query tile holds
 _MASKED = -3e38
 _REF_QUERY_CHUNK = 256   # bounds the twin's live (Q, N) score slab
 _REF_SCORE_BUDGET = 1 << 27   # score elements per int8 twin chunk (512 MB)
@@ -118,11 +121,24 @@ def window_candidates_ref(queries: torch.Tensor, items: torch.Tensor,
     return vals.T.contiguous(), args.T.contiguous()
 
 
+def window_body(dtype: torch.dtype, precision: str, d: int) -> str:
+    """The body of ``csrc/window_mips.cu`` that serves a ``d``-column corpus
+    of ``dtype`` at ``precision``: "tensor_cores" (TMA + wgmma) for bf16 at
+    "default" — the queries are rounded to bf16, so the bf16 × bf16
+    products are exact and sum in f32 — while the 256-query tile fits in
+    shared memory (d ≤ 192); "cuda_cores" (f32 FMAs) for f32 queries
+    ("highest") or an f32 corpus, and for wider bf16 rows."""
+    if dtype == torch.bfloat16 and precision == "default" and d <= _TC_MAX_DIM:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def _window_candidates_cuda(queries: torch.Tensor, items: torch.Tensor,
                             window: int, n_valid: int, precision: str,
                             queries_major: bool = False):
     """Launch ``csrc/window_mips.cu`` on the current stream, items-major
-    (n_cand, Q) or queries-major (Q, n_cand)."""
+    (n_cand, Q) or queries-major (Q, n_cand), through the entry of the body
+    :func:`window_body` picks."""
     from recommendit_tpu_torch.ops._build import load_library
 
     if items.dtype not in (torch.float32, torch.bfloat16):
@@ -139,17 +155,25 @@ def _window_candidates_cuda(queries: torch.Tensor, items: torch.Tensor,
         raise ValueError(f"feature dim {d} must be a multiple of 8 (pad the corpus)")
     if window & (window - 1):
         raise ValueError(f"window={window} must be a power of two")
-    if queries.shape[0] == 0 or queries.shape[0] >= 2 ** 31 or n * d >= 2 ** 62:
+    if queries.shape[0] == 0 or queries.shape[0] >= 2 ** 31 or n >= 2 ** 31:
         raise ValueError("unsupported query or corpus size")
 
+    q = round_queries(queries, items.dtype, precision)
     lib = load_library("window_mips")
-    fn = lib.window_mips_qm_launch if queries_major else lib.window_mips_launch
+    if window_body(items.dtype, precision, d) == "tensor_cores":
+        if items.data_ptr() % 16:
+            raise ValueError("corpus must start 16-byte aligned")
+        q = q.to(torch.bfloat16)     # exact: already rounded to bf16
+        fn = lib.window_mips_bf16_qm_launch if queries_major else lib.window_mips_bf16_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        extra = ()
+    else:
+        fn = lib.window_mips_qm_launch if queries_major else lib.window_mips_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + \
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        extra = (int(items.dtype == torch.bfloat16),)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    q = round_queries(queries, items.dtype, precision).contiguous()
+    q = q.contiguous()
     n_q = q.shape[0]
     n_cand = -(-n // window)
     shape = (n_q, n_cand) if queries_major else (n_cand, n_q)
@@ -157,8 +181,7 @@ def _window_candidates_cuda(queries: torch.Tensor, items: torch.Tensor,
     args = torch.empty(shape, dtype=torch.int32, device=items.device)
     with torch.cuda.device(items.device):
         stream = torch.cuda.current_stream(items.device).cuda_stream
-        rc = fn(q.data_ptr(), items.data_ptr(),
-                int(items.dtype == torch.bfloat16), vals.data_ptr(),
+        rc = fn(q.data_ptr(), items.data_ptr(), *extra, vals.data_ptr(),
                 args.data_ptr(), n_q, n, d, n_valid, window, stream)
     name = "window_mips_qm" if queries_major else "window_mips"
     if rc != 0:
@@ -496,6 +519,25 @@ def mips_topk_fused_auto(
     the int8 window kernel."""
     n = item_embs.shape[0] if n_valid is None else n_valid
     route, window = fused_route(queries.shape[0], n, k)
+    return mips_topk_fused_route(route, window, queries, item_embs, k,
+                                 block_items, precision, n_valid, scales)
+
+
+def mips_topk_fused_route(
+    route: str,
+    window: int,
+    queries: torch.Tensor,
+    item_embs: torch.Tensor,
+    k: int,
+    block_items: int = 4096,
+    precision: str = "default",
+    n_valid: Optional[int] = None,
+    scales: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One route of :func:`mips_topk_fused_auto` (``route`` and ``window``
+    as :func:`fused_route` gives them), run as the router runs it — so the
+    routes can be timed against each other at any batch size."""
+    n = item_embs.shape[0] if n_valid is None else n_valid
     if route != "kernel":
         if k > n:
             raise ValueError(f"k={k} exceeds corpus size {n}")

@@ -10,8 +10,10 @@ imports jax, which the card's machine does not have.
 Tolerances: window maxima within 1e-4 absolute — both sides sum the same
 f32 products (bf16 x bf16-rounded products are exact in f32) in different
 orders; positions must name a row whose twin score equals the kernel's
-maximum within the same 1e-4. BPR: the loss within 1e-5 relative, du and dv
-within 1e-4 of the twin's largest entry (f32 sums of up to B·D terms in
+maximum within the same 1e-4; on integer-valued bf16 inputs (exact sums,
+ties everywhere) the maxima and first-occurrence positions of the
+tensor-core body equal the twin's. BPR: the loss within 1e-5 relative, du
+and dv within 1e-4 of the twin's largest entry (f32 sums of up to B·D terms in
 another order). The int8 window kernel and the quantize kernel are held to
 their twins bit for bit: integer sums are exact in any order, and the
 epilogues are the same single f32 operations. The queries-major window
@@ -28,7 +30,7 @@ from recommendit_tpu_torch.ops import gather
 from recommendit_tpu_torch.ops import mips_fold as mf
 from recommendit_tpu_torch.ops import mips_window as mw
 from recommendit_tpu_torch.ops import quantize as qz
-from recommendit_tpu_torch.ops.topk import mm_operands, quantize_queries
+from recommendit_tpu_torch.ops.topk import mm_operands, quantize_queries, score_matrix
 
 
 @pytest.fixture
@@ -115,6 +117,132 @@ def test_highest_precision_keeps_f32_queries(cuda_device):
     torch.testing.assert_close(kv, rv, atol=1e-4, rtol=0)
     dv, _ = mw.window_candidates_ref(q, items, 8, precision="default")
     assert not torch.equal(rv, dv)
+
+
+@pytest.mark.parametrize("dtype,precision,d,body", [
+    (torch.bfloat16, "default", 136, "tensor_cores"),   # the serve corpus
+    (torch.bfloat16, "default", 16, "tensor_cores"),
+    (torch.bfloat16, "default", 192, "tensor_cores"),   # the widest query tile
+    (torch.bfloat16, "default", 200, "cuda_cores"),
+    (torch.bfloat16, "highest", 136, "cuda_cores"),     # f32 queries
+    (torch.float32, "default", 136, "cuda_cores"),
+    (torch.float32, "highest", 136, "cuda_cores"),
+])
+def test_window_body_follows_dtype_and_precision(dtype, precision, d, body):
+    assert mw.window_body(dtype, precision, d) == body
+
+
+def test_bf16_cpu_tensor_takes_the_twin():
+    q, items = _corpus(700, 136, torch.bfloat16, "cpu")
+    before = dict(mw.LAUNCHES)
+    for major in (mw.window_candidates, mw.window_candidates_qm):
+        got = major(q, items, 64, 650)
+        ref = (mw.window_candidates_ref if major is mw.window_candidates
+               else mw.window_candidates_qm_ref)
+        want = ref(q, items, 64, 650)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert mw.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n_q,route", [(8, "scan"), (400, "kernel")])
+def test_fused_auto_runs_the_route_it_picks(n_q, route):
+    """``mips_topk_fused_auto`` is ``mips_topk_fused_route`` on the route
+    ``fused_route`` picks: the scan for a small batch over a corpus above
+    65,536 rows, the window kernel (its twin here) for a large one."""
+    _, items = _corpus(70_000, 16, torch.bfloat16, "cpu")
+    q = _queries(n_q, 16, "cpu", seed=n_q)
+    picked, window = mw.fused_route(n_q, items.shape[0], 50)
+    assert picked == route
+    got = mw.mips_topk_fused_auto(q, items, 50)
+    want = mw.mips_topk_fused_route(route, window, q, items, 50)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _queries(n_q, d, device, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(n_q, d, generator=g).to(device)
+
+
+def _check_against_twin(q, items, window, n_valid, kv, ka):
+    """The window checks of ``test_kernel_matches_twin`` at "default"
+    precision, with the chosen rows' twin scores read from one score
+    matrix."""
+    rv, ra = mw.window_candidates_ref(q, items, window, n_valid)
+    assert kv.shape == rv.shape == (-(-items.shape[0] // window), q.shape[0])
+    assert ka.dtype == torch.int32
+    torch.testing.assert_close(kv, rv, atol=1e-4, rtol=0)
+    scores = score_matrix(q, items, "default")                  # (Q, N)
+    rows = (torch.arange(kv.shape[0], device=items.device)[:, None] * window
+            + ka.long()).clamp(max=items.shape[0] - 1)
+    picked = scores.gather(1, rows.T).T
+    real = kv > -1e38
+    assert (picked[real] - kv[real]).abs().max() <= 1e-4
+    assert (ka == ra).float().mean() >= 0.999
+    assert (ka[~real] == 0).all()          # fully masked windows: first row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 136, 144])
+@pytest.mark.parametrize("n_q", [1, 100, 257, 1024])
+@pytest.mark.parametrize("window", [1, 8, 64, 128, 512])
+@pytest.mark.parametrize("n,n_valid", [(4096, 4096), (5000, 4801)])
+def test_tensor_core_body_matches_twin(cuda_device, d, n_q, window, n, n_valid):
+    """bf16 at "default": the K tail (d=136 is not a multiple of 16), query
+    counts off the 256-query tile, n_valid inside a 128-row tile."""
+    assert mw.window_body(torch.bfloat16, "default", d) == "tensor_cores"
+    _, items = _corpus(n, d, torch.bfloat16, cuda_device, seed=d + window)
+    q = _queries(n_q, d, cuda_device, seed=n_q)
+    before = mw.LAUNCHES["window_mips"]
+    kv, ka = mw.window_candidates(q, items, window, n_valid)
+    torch.cuda.synchronize()
+    assert mw.LAUNCHES["window_mips"] == before + 1
+    _check_against_twin(q, items, window, n_valid, kv, ka)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [2 ** i for i in range(10)])
+def test_tensor_core_body_every_window(cuda_device, window):
+    """Every power of two from 1 to 512, both layouts: the twin's maxima,
+    and the queries-major launch equal to the items-major one transposed."""
+    _, items = _corpus(5000, 136, torch.bfloat16, cuda_device, seed=window)
+    q = _queries(257, 136, cuda_device, seed=window)
+    kv, ka = mw.window_candidates(q, items, window, 4801)
+    _check_against_twin(q, items, window, 4801, kv, ka)
+    qv, qa = mw.window_candidates_qm(q, items, window, 4801)
+    assert torch.equal(qv, kv.T) and torch.equal(qa, ka.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 4, 8, 64, 128, 512])
+def test_tensor_core_body_keeps_the_first_of_ties(cuda_device, window):
+    """Integer-valued bf16 rows and queries in {-1, 0, 1}: every sum is
+    exact in any order, windows are full of ties, and the kernel's maxima
+    and first-occurrence positions equal the twin's in both layouts."""
+    g = torch.Generator().manual_seed(window)
+    q = torch.randint(-1, 2, (300, 136), generator=g).float().to(cuda_device)
+    items = torch.randint(-1, 2, (5000, 136), generator=g).to(torch.bfloat16)
+    items = items.to(cuda_device)
+    kv, ka = mw.window_candidates(q, items, window, 4801)
+    rv, ra = mw.window_candidates_ref(q, items, window, 4801)
+    assert torch.equal(kv, rv) and torch.equal(ka, ra)
+    qv, qa = mw.window_candidates_qm(q, items, window, 4801)
+    assert torch.equal(qv, rv.T) and torch.equal(qa, ra.T)
+
+
+@pytest.mark.cuda
+def test_wide_bf16_rows_take_the_cuda_core_body(cuda_device):
+    q, items = _corpus(3000, 200, torch.bfloat16, cuda_device, seed=9)
+    assert mw.window_body(items.dtype, "default", 200) == "cuda_cores"
+    kv, ka = mw.window_candidates(q, items, 64, 2900)
+    _check_against_twin(q, items, 64, 2900, kv, ka)
+
+
+@pytest.mark.cuda
+def test_tensor_core_body_rejects_a_misaligned_corpus(cuda_device):
+    _, items = _corpus(1025, 136, torch.bfloat16, cuda_device)
+    shifted = items.view(-1)[1:1 + 1024 * 136].view(1024, 136)   # 2-byte offset
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mw.window_candidates(torch.zeros(8, 136, device=cuda_device), shifted, 8)
 
 
 @pytest.mark.cuda

@@ -66,6 +66,55 @@ def test_kernel_phase_on_the_twin(small_artifacts):
     assert rec["id_overlap_vs_twin"] == 1.0
     assert rec["recall_vs_exact"] >= rec["bin_model_recall"] - 0.02
     assert (rec["d"], rec["d_func"]) == (24, 17)   # 16 + bias, padded to 8
+    assert rec["tc_route"]                 # bf16 at "default" on the card
+    assert rec["gemm_only_ms"] > 0 and rec["bound_share"] > 0
+
+
+def test_router_phase_times_both_routes(small_artifacts):
+    paths, _ = small_artifacts
+    recs, crossover = chip_smoke.router_phase(paths, "cpu", 0, qs=(8, 64),
+                                              k=40, block=1024, timer=_host_ms)
+    assert [r["q"] for r in recs] == [8, 64]
+    for r in recs:
+        assert r["scan_ms"] > 0 and r["kernel_ms"] > 0
+        assert r["router_takes"] == "kernel" and r["window"] == 8
+    assert crossover in (None, 8, 64)
+
+
+def test_ptxas_summary_reads_each_kernel():
+    log = """\
+ptxas info    : Compiling entry function '_ZN2tc16window_tc_kernelILi6ELb0EEEv14CUtensorMap_stS1_PfPiNS_5ShapeE' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 80 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__2bd83553_14_window_mips_cu_e380ed1d18window_mips_kernelI13__nv_bfloat16Lb1EEEvPKfPKT_PfPiiiiiix' for 'sm_90a'
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 20480 bytes smem
+"""
+    assert chip_smoke.ptxas_summary(log) == {
+        "window_tc_kernel<6,0>": {"spill_stores": 0, "spill_loads": 0,
+                                  "registers": 168, "static_smem": 80},
+        "window_mips_kernel<bf16,1>": {"spill_stores": 4, "spill_loads": 12,
+                                       "registers": 64, "static_smem": 20480},
+    }
+
+
+@pytest.mark.parametrize("name,short,group", [
+    ("void tc::window_tc_kernel<6, false>(CUtensorMap_st, CUtensorMap_st, "
+     "float*, int*, tc::Shape)", "tc::window_tc_kernel", "window kernel"),
+    ("void at::native::elementwise_kernel<128, 2, at::native::gpu_kernel_impl_"
+     "nocast<at::native::CUDAFunctor_add<float> >(at::TensorIteratorBase&)",
+     "elementwise_kernel:add", "elementwise"),
+    ("void at::native::mbtopk::gatherTopK<float, unsigned int, 2>(x)",
+     "mbtopk::gatherTopK", "top-k"),
+    ("sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize64x64x8_cublas",
+     "sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize64x64x8_cublas", "cuBLAS GEMMs"),
+    ("void at::native::(anonymous namespace)::CatArrayBatchedCopy<at::native::"
+     "(anonymous namespace)::OpaqueType<4u>, unsigned int, 3, 64, 64>(x)",
+     "CatArrayBatchedCopy", "cat"),
+])
+def test_profile_names_and_groups(name, short, group):
+    assert chip_smoke._short_kernel_name(name) == short
+    assert chip_smoke._kernel_group(name) == group
 
 
 def test_serve_phase_checks_pass(small_artifacts):
