@@ -83,12 +83,19 @@ Phases (each failure raises, so the exit code is not 0):
    equal to the twin's and recall@500 >= 0.98 against int8-exact;
 13. BPR kernel phase: at B=1024 and a ragged B=1000, D=64 f32, the forward
    and backward kernels against their twins — the loss within 1e-5
-   relative, du and dv within 1e-4 of the twin's largest entry — and all
-   four times (CUDA events);
+   relative, du and dv within 1e-4 of the twin's largest entry, a second
+   call equal bit for bit — all four times by CUDA events and, since by
+   events a call of these wrappers is bound by its host side, by
+   ``torch.profiler`` (the kernels' own device time, which the kernels
+   line reports), ``gemm_only_ms`` (``u @ v.T`` in full f32: a yardstick
+   the port never calls), the bounds (f32, and 3xTF32 at the TF32 peak)
+   and the bpr library's ptxas registers and spills;
 14. train phase: the synthetic data, its 0.9 temporal train view, 2 epochs
    of in-batch BPR (the loss finite, falling, below ln 2; one forward and
    one backward kernel launch per step, counted around exactly that run),
-   then 1 epoch of the default softmax loss (no BPR launch);
+   then 1 epoch of the default softmax loss (no BPR launch); then
+   ``torch.profiler`` over a 67-step in-batch epoch with the kernels and
+   with the twins: device µs per step by kernel group, host ms per step;
 15. index phase: ``IndexBuilder`` on the in-batch model (exact f32 index),
    ``batch_search`` for 1,024 users with held-out positives: valid ids,
    and Recall@20 of the held-out 10 % positives (train items filtered)
@@ -98,10 +105,10 @@ Usage, from the repository root: ``python3 chip_smoke.py [--seed N]``.
 After the build it prints ptxas's registers, spills and shared memory of
 the window kernels.
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (each
-kernel's launches on its path, error against its twin, time, twin's time,
-bound and, where one PyTorch call computes the same function, that call's
-time) and, last, ``{"ok": true, "device": {...}}``. Exits non-zero without a
-GPU.
+kernel's launches on its path, error against its twin, time, twin's time
+— by CUDA events, for the BPR kernels by ``torch.profiler`` —, bound and,
+where one PyTorch call computes the same function, that call's time) and,
+last, ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
 """
 from __future__ import annotations
 
@@ -160,7 +167,8 @@ PROBE_ARGS = ("--n", "1000000", "--d", "128", "--q", "1024", "--k", "500",
 
 # the H100 SXM's published peaks (dense), for the bounds
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
+                  "tf32": 495e12}
 INDEX_PATHS = {"bfloat16": "index_path", "int8": "index_i8_path"}
 SERVE_KERNELS = {"bfloat16": "window_mips", "int8": "window_mips_i8"}
 
@@ -175,6 +183,7 @@ TRAIN_DIM, TRAIN_HIDDEN, TRAIN_BATCH, TRAIN_DROPOUT = 64, 128, 1024, 0.2
 TRAIN_EPOCHS = 2
 TRAIN_SPLIT = 0.9
 BPR_SHAPES = ((1024, TRAIN_DIM), (1000, TRAIN_DIM))
+PROFILE_STEPS = 67                # steps of the profiled training epochs
 INDEX_USERS, RECALL_K = 1024, 20
 
 
@@ -183,18 +192,19 @@ def ptxas_summary(log: str):
     ``ptxas -v`` report, by kernel and template arguments."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"entry function '_Z\w*?\d+([a-z_]+kernel)I(\w*?)EEv", line)
+        m = re.search(r"entry function '_Z\w*?\d+([a-z_]+kernel)(?:I(\w*?)EEv)?", line)
         if m:
-            targs = m.group(2)
+            targs = m.group(2) or ""
             kinds = (["bf16"] if targs.startswith("13__nv_bfloat16")
                      else ["f32"] if targs.startswith("f") else [])
             kinds += re.findall(r"L[ib](\d+)E", targs)
-            name = f"{m.group(1)}<{','.join(kinds)}>"
+            name = f"{m.group(1)}<{','.join(kinds)}>" if targs else m.group(1)
             out[name] = {}
         elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             out[name]["spill_stores"], out[name]["spill_loads"] = map(int, m.groups())
-        elif name and (m := re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)):
-            out[name]["registers"], out[name]["static_smem"] = map(int, m.groups())
+        elif name and (m := re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)):
+            out[name]["registers"] = int(m.group(1))
+            out[name]["static_smem"] = int(m.group(2) or 0)
     return out
 
 
@@ -322,6 +332,34 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_events(prof):
+    """(name, device µs, launches) of each device kernel a
+    ``torch.profiler`` run recorded."""
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", 0.0)
+        if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            yield evt.key, dev_us, evt.count
+
+
+def device_kernel_ms(fn, reps: int):
+    """Device time per call of ``fn()`` in ms, by kernel name (its template
+    arguments dropped): the kernels' own time under ``torch.profiler`` over
+    ``reps`` calls after a warm one, launch gaps and host time left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for key, dev_us, _ in device_events(prof):
+        name = _short_kernel_name(key)
+        out[name] = out.get(name, 0.0) + dev_us / 1e3 / reps
+    return out
 
 
 def gemm_only(q: torch.Tensor, corpus: torch.Tensor, chunk: int = 256):
@@ -457,7 +495,8 @@ def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
     if int(ids.min()) < 1 or int(ids.max()) > n_items:
         raise AssertionError("item id out of range")
     # each returned retrieval score is the tower query times the item's
-    # row; over int8, (q_i8 · e_i8) · s_item · s_q
+    # row, the query rounded to the corpus dtype except on the small-corpus
+    # exact route; over int8, (q_i8 · e_i8) · s_item · s_q
     pos = torch.searchsorted(pipe.index._ids_dev, ids)
     q = pipe.index._augment(pipe.model.user_tower(
         torch.as_tensor(users[:batch], device=device)))
@@ -467,7 +506,9 @@ def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
         dot = (rows.float() * q8.float()[:, None, :]).sum(-1)
         want = dot * pipe.index._scales[pos] * q_scale[:, None]
     else:
-        want = (rows.float() * q.to(rows.dtype).float()[:, None, :]).sum(-1)
+        if mw.fused_route(batch, n_items, TOP_K_CANDIDATES)[0] != "exact":
+            q = q.to(rows.dtype)
+        want = (rows.float() * q.float()[:, None, :]).sum(-1)
     rerr = float((want - rvals).abs().max())
     if rerr > 1e-3:
         raise AssertionError(f"retrieval scores disagree with the corpus: {rerr}")
@@ -782,15 +823,13 @@ def profile_phase(paths, data, device, n_calls: int = 10, batch: int = BATCH,
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / n_calls
     kernels, groups, launches = {}, {}, 0
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", 0.0)
-        if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            ms = dev_us / 1e3 / n_calls
-            name = _short_kernel_name(evt.key)
-            kernels[name] = kernels.get(name, 0.0) + ms
-            group = _kernel_group(evt.key)
-            groups[group] = groups.get(group, 0.0) + ms
-            launches += evt.count
+    for key, dev_us, count in device_events(prof):
+        ms = dev_us / 1e3 / n_calls
+        name = _short_kernel_name(key)
+        kernels[name] = kernels.get(name, 0.0) + ms
+        group = _kernel_group(key)
+        groups[group] = groups.get(group, 0.0) + ms
+        launches += count
     device_ms = sum(kernels.values())
     rec = {"batch": batch, "calls": n_calls, "host_ms_per_call": host_ms,
            "device_ms_per_call": device_ms,
@@ -1028,11 +1067,31 @@ def capacity_phase(device, seed: int, n_rows: int = CAPACITY_ROWS,
     return rec
 
 
+def bpr_bounds(b: int, d: int):
+    """{"fwd": (bound_ms, bound_by), "bwd": ...} of the BPR kernels at (B,
+    D) f32, counting only the products (forward: the B×B scores; backward:
+    those, W·V and Wᵀ·U) at the f32 peak; with ``_3xtf32`` beside them: the
+    same products three times (the 3xTF32 split) at the TF32 peak."""
+    out = {}
+    for name, n_bytes, ops in (("fwd", 2 * b * d * 4 + 4, 2.0 * b * b * d),
+                               ("bwd", 4 * b * d * 4 + 4, 6.0 * b * b * d)):
+        out[name] = bound(n_bytes, ops, "f32")
+        out[f"{name}_3xtf32"] = bound(n_bytes, 3 * ops, "tf32")
+    return out
+
+
 def bpr_kernel_phase(device, seed: int, shapes=BPR_SHAPES, timer=cuda_ms):
     """The BPR forward and backward (kernels on the card) against their
-    twins on seeded unit rows. Returns one record per (B, D)."""
-    from recommendit_tpu_torch.ops import bpr
+    twins on seeded unit rows, a second call equal to the first bit for
+    bit; the times of both and of ``u @ v.T`` alone (``gemm_only_ms``, full
+    f32), the bounds and the bpr library's ptxas report. Returns one record
+    per (B, D)."""
+    from recommendit_tpu_torch.ops import _build, bpr
+    from recommendit_tpu_torch.ops.topk import full_f32_matmul
 
+    if torch.device(device).type == "cuda":
+        print(json.dumps({"ptxas_bpr": ptxas_summary(
+            _build.ptxas_logs.get("bpr", ""))}), flush=True)
     gen = torch.Generator().manual_seed(seed + 2)
     out = []
     for b, d in shapes:
@@ -1043,6 +1102,7 @@ def bpr_kernel_phase(device, seed: int, shapes=BPR_SHAPES, timer=cuda_ms):
         ref = bpr.in_batch_bpr_loss_ref(u, v)
         du, dv = bpr.bpr_backward(u, v, g)
         rdu, rdv = bpr._bpr_bwd_ref(u, v, g)
+        again = (bpr.bpr_forward(u, v), *bpr.bpr_backward(u, v, g))
         rec = {
             "b": b, "d": d, "loss": float(loss), "twin_loss": float(ref),
             "loss_rel_err": abs(float(loss) - float(ref)) / abs(float(ref)),
@@ -1050,16 +1110,43 @@ def bpr_kernel_phase(device, seed: int, shapes=BPR_SHAPES, timer=cuda_ms):
             "dv_err": float((dv - rdv).abs().max() / rdv.abs().max()),
             "grad_max_abs_err": float(max((du - rdu).abs().max(),
                                           (dv - rdv).abs().max())),
+            "repeat_bit_identical": all(torch.equal(x, y) for x, y in
+                                        zip((loss, du, dv), again)),
         }
         rec["fwd_ms"] = timer(lambda: bpr.bpr_forward(u, v), 50)
         rec["twin_fwd_ms"] = timer(lambda: bpr.in_batch_bpr_loss_ref(u, v), 50)
         rec["bwd_ms"] = timer(lambda: bpr.bpr_backward(u, v, g), 50)
         rec["twin_bwd_ms"] = timer(lambda: bpr._bpr_bwd_ref(u, v, g), 50)
+        with full_f32_matmul():
+            rec["gemm_only_ms"] = timer(lambda: u @ v.T, 50)
+        for name, (ms, by) in bpr_bounds(b, d).items():
+            rec[f"bound_{name}_ms"] = ms
+            rec[f"bound_{name}_by"] = by
+        if torch.device(device).type == "cuda":
+            # by events a call is bound by its host side; the device's own time
+            calls = {"fwd": lambda: bpr.bpr_forward(u, v),
+                     "bwd": lambda: bpr.bpr_backward(u, v, g),
+                     "twin_fwd": lambda: bpr.in_batch_bpr_loss_ref(u, v),
+                     "twin_bwd": lambda: bpr._bpr_bwd_ref(u, v, g)}
+            for name, fn in calls.items():
+                kernels = device_kernel_ms(fn, 50)
+                if not name.startswith("twin"):   # the wrapper's loss mean is no part
+                    kernels = {k: ms for k, ms in kernels.items() if "bpr_" in k}
+                rec[f"{name}_device_ms"] = sum(kernels.values())
+                rec[f"{name}_device_kernels_ms"] = kernels
+            with full_f32_matmul():
+                rec["gemm_only_device_ms"] = sum(device_kernel_ms(lambda: u @ v.T, 50).values())
+            rec["fwd_device_bound_share"] = rec["bound_fwd_ms"] / rec["fwd_device_ms"]
+            rec["bwd_device_bound_share"] = rec["bound_bwd_ms"] / rec["bwd_device_ms"]
+        rec["fwd_bound_share"] = rec["bound_fwd_ms"] / rec["fwd_ms"]
+        rec["bwd_bound_share"] = rec["bound_bwd_ms"] / rec["bwd_ms"]
         print(json.dumps({"bpr_check": rec}), flush=True)
         if not rec["loss_rel_err"] <= 1e-5:
             raise AssertionError(f"BPR loss differs from the twin: {rec}")
         if not max(rec["du_err"], rec["dv_err"]) <= 1e-4:
             raise AssertionError(f"BPR gradients differ from the twin: {rec}")
+        if not rec["repeat_bit_identical"]:
+            raise AssertionError(f"BPR kernels differ between two calls: {rec}")
         out.append(rec)
     return out
 
@@ -1156,6 +1243,75 @@ def train_phase(view, device, seed: int, workdir: Path, epochs: int = TRAIN_EPOC
     if rec["softmax_launches"] != launches:
         raise AssertionError("the softmax epoch launched a BPR kernel")
     return model, rec
+
+
+TRAIN_KERNEL_GROUPS = (("bpr_", "BPR kernels"), ("foreach", "clipping and optimizer"),
+                       ("multi_tensor", "clipping and optimizer"), ("gemm", "GEMMs"),
+                       ("reduce_kernel", "reductions"), ("index", "gathers and index backward"),
+                       ("gather", "gathers and index backward"),
+                       ("scatter", "gathers and index backward"))
+
+
+def _train_kernel_group(name: str) -> str:
+    """The part of a training step a device kernel belongs to, by its name."""
+    return next((g for key, g in TRAIN_KERNEL_GROUPS if key in name), "elementwise")
+
+
+def profile_view(view, steps: int, batch: int):
+    """The earliest temporal slice of ``view`` whose positives (rating >= 4)
+    fill about ``steps`` batches of ``batch``."""
+    n_pos = int((view.rating >= 4).sum())
+    return view.train_view(min(1.0, (steps + 0.5) * batch / n_pos))
+
+
+def train_profile_phase(view, device, seed: int, steps: int = PROFILE_STEPS,
+                        dim: int = TRAIN_DIM, hidden: int = TRAIN_HIDDEN,
+                        batch: int = TRAIN_BATCH):
+    """``torch.profiler`` over one in-batch BPR epoch of about ``steps``
+    steps (``profile_view``), once with the kernels and once with the twins
+    (``USE_PALLAS`` off): device µs per step by kernel group and in all, the
+    host clock per step and the share of it the device is idle. The epoch's
+    close (the loss read-back, the catalog embedding of the returned model)
+    is inside the window. On the card only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from recommendit_tpu_torch.training import EmbeddingTrainer
+
+    small = profile_view(view, steps, batch)
+    rec = {}
+    for mode, use_kernel in (("kernels", True), ("twins", False)):
+        cfg = _train_cfg(seed, "in_batch", dim, hidden, batch)
+        cfg = cfg.replace(USE_PALLAS=use_kernel)
+        trainer = EmbeddingTrainer(small, cfg, model_output_path="", device=device)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.train(epochs=1)
+            torch.cuda.synchronize()
+        hist = trainer.history[0]
+        n = hist["steps"]
+        groups, bpr_kernels, launches = {}, {}, 0
+        for key, dev_us, count in device_events(prof):
+            group = _train_kernel_group(key)
+            groups[group] = groups.get(group, 0.0) + dev_us / n
+            if group == "BPR kernels":
+                name = _short_kernel_name(key)
+                bpr_kernels[name] = bpr_kernels.get(name, 0.0) + dev_us / n
+            launches += count
+        device_us = sum(groups.values())
+        host_ms = 1e3 * hist["seconds"] / n
+        rec[mode] = {"steps": n, "device_us_per_step": device_us,
+                     "host_ms_per_step": host_ms,
+                     "device_idle_share": 1 - device_us / 1e3 / host_ms,
+                     "kernel_launches_per_step": launches / n,
+                     "groups_us_per_step": dict(sorted(groups.items(),
+                                                       key=lambda kv: -kv[1])),
+                     "bpr_us_per_step": bpr_kernels}
+        if device_us <= 0:
+            raise AssertionError(f"the profiler saw no device time: {rec}")
+    print(json.dumps({"train_profile": rec}), flush=True)
+    if "BPR kernels" not in rec["kernels"]["groups_us_per_step"]:
+        raise AssertionError(f"the profiled epoch ran no BPR kernel: {rec}")
+    return rec
 
 
 def index_phase(model, data, view, device, seed: int, workdir: Path,
@@ -1290,6 +1446,7 @@ def main(argv=None) -> int:
         flush=True)
     model, train = train_phase(view, device, args.seed, workdir)
     print(json.dumps({"train": train, "card": card}), flush=True)
+    train_profile_phase(view, device, args.seed)
     index = index_phase(model, data, view, device, args.seed, workdir)
     print(json.dumps({"index": index}), flush=True)
 
@@ -1332,18 +1489,16 @@ def main(argv=None) -> int:
         "name": "bpr_fwd", "source": BPR_SOURCE, "replaces": BPR_REPLACES["bpr_fwd"],
         "launches": train["launches"]["bpr_fwd"],
         "max_abs_err": max(abs(c["loss"] - c["twin_loss"]) for c in bpr_checks),
-        "ms": main_b["fwd_ms"], "plain_ms": main_b["twin_fwd_ms"],
+        "ms": main_b["fwd_device_ms"], "plain_ms": main_b["twin_fwd_device_ms"],
         # the (B, B) score matrix; the softplus per pair is not counted
-        "bound": bound(2 * b * d * 4 + 4, 2.0 * b * b * d, "f32"),
-        "library_ms": None,
+        "bound": bpr_bounds(b, d)["fwd"], "library_ms": None,
     }, {
         "name": "bpr_bwd", "source": BPR_SOURCE, "replaces": BPR_REPLACES["bpr_bwd"],
         "launches": train["launches"]["bpr_bwd"],
         "max_abs_err": max(c["grad_max_abs_err"] for c in bpr_checks),
-        "ms": main_b["bwd_ms"], "plain_ms": main_b["twin_bwd_ms"],
-        # the scores again, then du = G V and dv = G^T U
-        "bound": bound(4 * b * d * 4 + 4, 6.0 * b * b * d, "f32"),
-        "library_ms": None,
+        "ms": main_b["bwd_device_ms"], "plain_ms": main_b["twin_bwd_device_ms"],
+        # the scores, then du = G V and dv = G^T U
+        "bound": bpr_bounds(b, d)["bwd"], "library_ms": None,
     }, {
         "name": "quantize_i8", "source": QUANT_SOURCE, "replaces": QUANT_REPLACES,
         "launches": quant["launches"]["quantize_i8"],

@@ -9,8 +9,10 @@ Counterpart of ``recommendit_tpu/ops/bpr.py``:
 * :class:`InBatchBPR` — the counterpart of the custom VJP
   ``in_batch_bpr_pallas``. On CUDA tensors its forward launches
   ``csrc/bpr.cu``'s forward (the port of ``_bpr_row_loss_kernel``) and its
-  backward the two backward passes (the port of ``_bpr_bwd_kernel``); on CPU
-  tensors it runs the two twins; any other device raises.
+  backward the backward kernel (the port of ``_bpr_bwd_kernel``), each a
+  tile launch on the tensor cores (3xTF32) and a finishing launch over
+  partials in a scratch the wrapper allocates; on CPU tensors it runs the
+  two twins; any other device raises.
 * :func:`in_batch_bpr_loss` — the dispatcher.
 
 Math: with s = U Vᵀ, the loss is Σ_{i≠j} softplus(s_ij − s_ii) / (B(B−1)),
@@ -29,10 +31,10 @@ from torch.autograd.function import once_differentiable
 from recommendit_tpu_torch.ops.topk import full_f32_matmul
 
 # Kernel launches since the last reset, by kernel name. Only the CUDA
-# wrappers add to it, once per launch of each kernel.
+# wrappers add to it, once per wrapper call (each makes two CUDA launches).
 LAUNCHES = {"bpr_fwd": 0, "bpr_bwd": 0}
 
-_MAX_DIM = 256   # csrc/bpr.cu keeps up to four 64-wide feature groups
+_MAX_DIM = 256   # csrc/bpr.cu stages two 64-row tiles of up to 256 columns
 
 
 def pairwise_bpr_loss(user_emb: torch.Tensor, pos_item_emb: torch.Tensor,
@@ -112,16 +114,24 @@ def _lib():
     from recommendit_tpu_torch.ops._build import load_library
 
     lib = load_library("bpr")
+    lib.bpr_scratch_floats.restype = ctypes.c_longlong
+    lib.bpr_scratch_floats.argtypes = [ctypes.c_int] * 3
     lib.bpr_forward_launch.restype = ctypes.c_int
-    lib.bpr_forward_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+    lib.bpr_forward_launch.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.bpr_backward_launch.restype = ctypes.c_int
-    lib.bpr_backward_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+    lib.bpr_backward_launch.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return lib
+
+
+def _scratch(lib, b: int, d: int, backward: bool, device) -> torch.Tensor:
+    """The kernels' partial sums: (slices, B) row sums, and for the
+    backward (slices, B, D) of W V and of Wᵀ U (``bpr_scratch_floats``)."""
+    n = lib.bpr_scratch_floats(b, d, int(backward))
+    if n < 0:
+        raise ValueError(f"no BPR kernel for a ({b}, {d}) batch")
+    return torch.empty(n, dtype=torch.float32, device=device)
 
 
 def bpr_forward_cuda(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -131,10 +141,12 @@ def bpr_forward_cuda(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     lib = _lib()
     b, d = u.shape
     row_loss = torch.empty(b, dtype=torch.float32, device=u.device)
+    scratch = _scratch(lib, b, d, False, u.device)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         rc = lib.bpr_forward_launch(u.data_ptr(), v.data_ptr(),
-                                    row_loss.data_ptr(), b, d, stream)
+                                    row_loss.data_ptr(), scratch.data_ptr(),
+                                    b, d, stream)
     if rc != 0:
         raise RuntimeError(f"bpr forward launch failed: CUDA error {rc}")
     LAUNCHES["bpr_fwd"] += 1
@@ -142,20 +154,19 @@ def bpr_forward_cuda(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def bpr_backward_cuda(u: torch.Tensor, v: torch.Tensor, g: torch.Tensor):
-    """Launch the two backward passes on the current stream → (du, dv)."""
+    """Launch the backward kernel on the current stream → (du, dv)."""
     g = g.reshape(1).contiguous()
     _check_kernel_args(u, v, g)
     lib = _lib()
     b, d = u.shape
     du = torch.empty_like(u)
     dv = torch.empty_like(v)
-    scratch = torch.empty((2, b), dtype=torch.float32, device=u.device)
+    scratch = _scratch(lib, b, d, True, u.device)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         rc = lib.bpr_backward_launch(
             u.data_ptr(), v.data_ptr(), g.data_ptr(), du.data_ptr(),
-            dv.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(), b, d,
-            stream)
+            dv.data_ptr(), scratch.data_ptr(), b, d, stream)
     if rc != 0:
         raise RuntimeError(f"bpr backward launch failed: CUDA error {rc}")
     LAUNCHES["bpr_bwd"] += 1

@@ -43,6 +43,7 @@ from recommendit_tpu_torch.ops.topk import (
     INT8_ROW_ALIGN,
     fast_topk,
     int8_dot,
+    mips_topk,
     mips_topk_int8,
     quantize_queries,
     round_queries,
@@ -121,6 +122,13 @@ def window_candidates_ref(queries: torch.Tensor, items: torch.Tensor,
     return vals.T.contiguous(), args.T.contiguous()
 
 
+def pad_columns(x: torch.Tensor, align: int) -> torch.Tensor:
+    """``x`` with zero columns appended up to a multiple of ``align`` (``x``
+    itself when it is one already). Zero columns change no score."""
+    pad = -x.shape[1] % align
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
 def window_body(dtype: torch.dtype, precision: str, d: int) -> str:
     """The body of ``csrc/window_mips.cu`` that serves a ``d``-column corpus
     of ``dtype`` at ``precision``: "tensor_cores" (TMA + wgmma) for bf16 at
@@ -150,9 +158,9 @@ def _window_candidates_cuda(queries: torch.Tensor, items: torch.Tensor,
             f"shape mismatch: queries {tuple(queries.shape)}, corpus {tuple(items.shape)}")
     if not items.is_contiguous():
         raise ValueError("corpus must be contiguous")
+    # the kernel reads 8 columns at a time: other widths are zero-padded
+    queries, items = pad_columns(queries, 8), pad_columns(items, 8)
     n, d = items.shape
-    if d % 8:
-        raise ValueError(f"feature dim {d} must be a multiple of 8 (pad the corpus)")
     if window & (window - 1):
         raise ValueError(f"window={window} must be a power of two")
     if queries.shape[0] == 0 or queries.shape[0] >= 2 ** 31 or n >= 2 ** 31:
@@ -288,11 +296,14 @@ def _window_candidates_i8_cuda(q_i8: torch.Tensor, items_i8: torch.Tensor,
         raise ValueError("queries, corpus and scales must be on the same device")
     if not (items_i8.is_contiguous() and item_scales.is_contiguous()):
         raise ValueError("corpus and scales must be contiguous")
-    n, d = items_i8.shape
-    if d % INT8_ROW_ALIGN or d > INT8_MAX_DIM:
+    if items_i8.shape[1] > INT8_MAX_DIM:
         raise ValueError(
-            f"feature dim {d} must be a multiple of {INT8_ROW_ALIGN} and at "
-            f"most {INT8_MAX_DIM} (pad the corpus)")
+            f"feature dim {items_i8.shape[1]} must be at most {INT8_MAX_DIM}")
+    # the kernel reads rows INT8_ROW_ALIGN bytes at a time: other widths are
+    # zero-padded
+    q_i8 = pad_columns(q_i8, INT8_ROW_ALIGN)
+    items_i8 = pad_columns(items_i8, INT8_ROW_ALIGN)
+    n, d = items_i8.shape
     if window & (window - 1):
         raise ValueError(f"window={window} must be a power of two")
     if q_i8.shape[0] == 0 or q_i8.shape[0] >= 2 ** 31 or n >= 2 ** 31:
@@ -513,10 +524,11 @@ def mips_topk_fused_auto(
     """Production entry for the fused index: small batches over large
     corpora and small corpora take a dense scan (matmul + exact top-k over
     the valid rows), everything else the window kernel. ``precision``
-    applies on every route of an f32/bf16 corpus (the JAX scan route drops
-    it). With ``scales`` the corpus is int8 and the same routes take the
-    int8 engines: ``mips_topk_int8`` (scan: "approx", tiny: "exact") and
-    the int8 window kernel."""
+    applies on the scan and kernel routes of an f32/bf16 corpus (the JAX
+    scan route drops it); the small-corpus exact route scores at "highest",
+    as JAX's does. With ``scales`` the corpus is int8 and the same routes
+    take the int8 engines: ``mips_topk_int8`` (scan: "approx", tiny:
+    "exact") and the int8 window kernel."""
     n = item_embs.shape[0] if n_valid is None else n_valid
     route, window = fused_route(queries.shape[0], n, k)
     return mips_topk_fused_route(route, window, queries, item_embs, k,
@@ -544,6 +556,8 @@ def mips_topk_fused_route(
         if scales is not None:
             mode = "approx" if route == "scan" else "exact"
             return mips_topk_int8(queries, item_embs[:n], scales[:n], k, mode)
+        if route == "exact":   # f32 queries at "highest", as in JAX
+            return mips_topk(queries, item_embs[:n], k, "exact")
         return fast_topk(score_matrix(queries, item_embs[:n], precision), k)
     bn = max(window, block_items - block_items % window)
     if scales is not None:

@@ -354,7 +354,12 @@ class RecommendationPipeline:
             return self._popularity_recommendations(k)
 
         t_dev = time.time()
-        ids, scores, retr = (t.cpu().numpy() for t in self.serve(user_id))
+        try:
+            ids, scores, retr = (t.cpu().numpy() for t in self.serve(user_id))
+        except Exception:
+            # QueueFullError is re-raised here once the micro-batcher is ported
+            logger.exception("Serve path failed for user %d", user_id)
+            return self._popularity_recommendations(k)
         device_ms = (time.time() - t_dev) * 1000
         frac = self._retrieval_fraction
         self.retrieval_latency.record(device_ms * frac)

@@ -14,7 +14,8 @@ maximum within the same 1e-4; on integer-valued bf16 inputs (exact sums,
 ties everywhere) the maxima and first-occurrence positions of the
 tensor-core body equal the twin's. BPR: the loss within 1e-5 relative, du
 and dv within 1e-4 of the twin's largest entry (f32 sums of up to B·D terms in
-another order). The int8 window kernel and the quantize kernel are held to
+another order; the kernels' products are 3xTF32, about f32's accuracy), and
+two calls on the same inputs equal bit for bit. The int8 window kernel and the quantize kernel are held to
 their twins bit for bit: integer sums are exact in any order, and the
 epilogues are the same single f32 operations. The queries-major window
 kernel runs kernel 1's arithmetic, so it equals kernel 1's output
@@ -250,12 +251,49 @@ def test_kernel_rejects_bad_arguments(cuda_device):
     q, items = _corpus(1024, 136, torch.float32, cuda_device)
     with pytest.raises(ValueError, match="power of two"):
         mw.window_candidates(q, items, 24)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        mw.window_candidates(q[:, :129], items[:, :129].contiguous(), 8)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        mw.window_candidates(q[:, :129], items, 8)
     with pytest.raises(ValueError, match="contiguous"):
         mw.window_candidates(q[:, :64], items[:, :64], 8)
     with pytest.raises(TypeError):
         mw.window_candidates(q, items.half(), 8)
+
+
+@pytest.mark.parametrize("dtype,align", [(torch.float32, 8), (torch.bfloat16, 8),
+                                         (torch.int8, 16)])
+def test_pad_columns_changes_no_score(dtype, align):
+    """The zero columns the CUDA wrappers append to widths the kernels do
+    not take: the width rounds up, the window maxima stay."""
+    g = torch.Generator().manual_seed(align)
+    q = torch.randint(-3, 4, (20, 100), generator=g).float()
+    items = torch.randint(-3, 4, (700, 100), generator=g).to(dtype)
+    pq, pit = mw.pad_columns(q, align), mw.pad_columns(items, align)
+    assert pit.shape == (700, -(-100 // align) * align) and pit.dtype == dtype
+    assert not pit[:, 100:].any() and mw.pad_columns(pit, align) is pit
+    if dtype == torch.int8:
+        s = torch.ones(700)
+        got = mw.window_candidates_i8(pq.to(torch.int8), pit, s, 8, 650)
+        want = mw.window_candidates_i8(q.to(torch.int8), items, s, 8, 650)
+    else:
+        got = mw.window_candidates(pq, pit, 8, 650)
+        want = mw.window_candidates(q, items, 8, 650)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_kernels_take_any_width(cuda_device, dtype):
+    """d=100, not a multiple of 8: the wrapper zero-pads queries and
+    corpus; both layouts and the top-k against the twins."""
+    q, items = _corpus(5000, 100, dtype, cuda_device, seed=100)
+    kv, ka = mw.window_candidates(q, items, 64, 4801)
+    _check_against_twin(q, items, 64, 4801, kv, ka)
+    qv, qa = mw.window_candidates_qm(q, items, 64, 4801)
+    assert torch.equal(qv, kv.T) and torch.equal(qa, ka.T)
+    v, i = mw.mips_topk_window_im(q, items, 50, 4096, 64, n_valid=4801)
+    rv, ri = mw.mips_topk_window_im_ref(q, items, 50, 4096, 64, n_valid=4801)
+    torch.testing.assert_close(v, rv, atol=1e-4, rtol=0)
+    assert int(i.max()) < 4801
 
 
 def _unit_pair(b, d, device, seed=0):
@@ -269,12 +307,9 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b", [2, 3, 20, 1000, 1024, 1100])
-@pytest.mark.parametrize("d", [8, 64, 128, 256])
-def test_bpr_kernels_match_twins(cuda_device, b, d):
-    u, v = _unit_pair(b, d, cuda_device, seed=b * d)
-    g = torch.tensor(1.3, device=cuda_device)
+def _check_bpr_against_twins(b, d, device):
+    u, v = _unit_pair(b, d, device, seed=b * d)
+    g = torch.tensor(1.3, device=device)
     before = dict(bpr.LAUNCHES)
     loss = bpr.bpr_forward(u, v)
     du, dv = bpr.bpr_backward(u, v, g)
@@ -284,6 +319,34 @@ def test_bpr_kernels_match_twins(cuda_device, b, d):
     rdu, rdv = bpr._bpr_bwd_ref(u, v, g)
     assert abs(float(loss) - float(ref)) <= 1e-5 * abs(float(ref))
     assert _rel(du, rdu) <= 1e-4 and _rel(dv, rdv) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [2, 3, 20, 1000, 1024, 1100])
+@pytest.mark.parametrize("d", [8, 64, 128, 256])
+def test_bpr_kernels_match_twins(cuda_device, b, d):
+    _check_bpr_against_twins(b, d, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [63, 65, 129, 1000])
+@pytest.mark.parametrize("d", [4, 12, 100])
+def test_bpr_kernels_partial_tiles(cuda_device, b, d):
+    """B off the 64-row tiles, d off the 8-column k-steps (a zero-filled
+    K tail)."""
+    _check_bpr_against_twins(b, d, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1024, 1100])
+def test_bpr_kernels_are_deterministic(cuda_device, b):
+    """No float atomics: two calls give bit-identical loss, du and dv
+    (B=1100 takes more tiles than blocks)."""
+    u, v = _unit_pair(b, 64, cuda_device, seed=11)
+    g = torch.tensor(0.7, device=cuda_device)
+    first = (bpr.bpr_forward(u, v), *bpr.bpr_backward(u, v, g))
+    second = (bpr.bpr_forward(u, v), *bpr.bpr_backward(u, v, g))
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
 
 
 @pytest.mark.cuda
@@ -350,7 +413,7 @@ def test_quantize_cpu_tensor_takes_the_twin():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 144])
+@pytest.mark.parametrize("d", [16, 100, 144])    # 100: zero-padded to 112
 @pytest.mark.parametrize("window", [1, 8, 64, 128, 512])
 @pytest.mark.parametrize("n,n_valid", [(4096, 4096), (5000, 4801)])
 def test_int8_kernel_matches_twin_bit_for_bit(cuda_device, d, window, n, n_valid):
@@ -404,8 +467,9 @@ def test_int8_kernel_rejects_bad_arguments(cuda_device):
     q8, e8, s = _int8_corpus(1024, 144, 1024, cuda_device)
     with pytest.raises(ValueError, match="power of two"):
         mw.window_candidates_i8(q8, e8, s, 24)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        mw.window_candidates_i8(q8[:, :136].contiguous(), e8[:, :136].contiguous(), s, 8)
+    with pytest.raises(ValueError, match="at most 1024"):
+        wide = torch.zeros((1024, 1040), dtype=torch.int8, device=cuda_device)
+        mw.window_candidates_i8(wide[:8], wide, s, 8)
     with pytest.raises(ValueError, match="contiguous"):
         mw.window_candidates_i8(q8[:, :64], e8[:, :64], s, 8)
     with pytest.raises(TypeError):

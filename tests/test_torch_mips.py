@@ -273,6 +273,22 @@ def test_precision_is_threaded():
         mw.mips_topk_fused_auto(q, it_bf, 100, 4096, "bf16")
 
 
+def test_exact_route_on_a_bf16_corpus_matches_jax():
+    """The small-corpus exact route over bf16 rows at "default" precision
+    scores the f32 queries unrounded (HIGHEST), as JAX's
+    ``mips_topk(..., "exact")`` does: values within f32 rounding, ids equal.
+    Rounding the queries to bf16 moves the values by up to ~4e-3."""
+    qs, items = _data(4, 700, 16, seed=19, normalize=True)
+    assert mw.fused_route(4, 700, 100)[0] == "exact"
+    j_items = jnp.asarray(items, jnp.bfloat16)
+    j = jpm.mips_topk_fused_auto(jnp.asarray(qs), j_items, 100, 4096, True,
+                                 "default")
+    t_items = torch.tensor(np.asarray(j_items, np.float32)).to(torch.bfloat16)
+    t = mw.mips_topk_fused_auto(torch.as_tensor(qs), t_items, 100, 4096,
+                                "default")
+    assert_same_topk(t, j)
+
+
 @pytest.mark.parametrize("n_valid", [None, 2900])
 def test_mips_topk_exact_matches_jax(n_valid):
     qs, items = _data(8, 3001, 24, seed=6)

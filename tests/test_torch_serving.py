@@ -185,6 +185,20 @@ class TestRequestParity:
         assert [r.item_id for r in tr] == [r.item_id for r in jr]
         assert [r.score for r in tr] == [r.score for r in jr]
 
+    def test_failed_serve_falls_back_to_popularity(self, served, monkeypatch):
+        """An exception from the serve call is logged and the request gets
+        the popularity list, in both pipelines."""
+        jp, tp, _, _ = served
+
+        def fail(*args):
+            raise RuntimeError("serve path down")
+        monkeypatch.setattr(jp, "_serve_fn", fail)
+        monkeypatch.setattr(tp, "serve", fail)
+        jr = jp.get_recommendations(7, k=15, use_cache=False)
+        tr = tp.get_recommendations(7, k=15, use_cache=False)
+        assert [r.item_id for r in tr] == [r.item_id for r in jr]
+        assert [r.item_id for r in tr] == tp._popularity_fallback[:15]
+
     def test_batch_recommend(self, served):
         jp, tp, _, _ = served
         users = [3, 9, 10_000, 55, 190]

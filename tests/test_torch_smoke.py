@@ -89,12 +89,17 @@ ptxas info    : Used 168 registers, used 1 barriers, 80 bytes smem, 400 bytes cm
 ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__2bd83553_14_window_mips_cu_e380ed1d18window_mips_kernelI13__nv_bfloat16Lb1EEEvPKfPKT_PfPiiiiiix' for 'sm_90a'
     8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 64 registers, used 1 barriers, 20480 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119bpr_bwd_tile_kernelEPKfS1_iiPfS2_S2_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 122 registers, used 1 barriers
 """
     assert chip_smoke.ptxas_summary(log) == {
         "window_tc_kernel<6,0>": {"spill_stores": 0, "spill_loads": 0,
                                   "registers": 168, "static_smem": 80},
         "window_mips_kernel<bf16,1>": {"spill_stores": 4, "spill_loads": 12,
                                        "registers": 64, "static_smem": 20480},
+        "bpr_bwd_tile_kernel": {"spill_stores": 0, "spill_loads": 0,
+                                "registers": 122, "static_smem": 0},
     }
 
 
@@ -199,6 +204,17 @@ def test_bpr_kernel_phase_on_the_twins():
     for r in recs:
         assert r["loss_rel_err"] == 0.0 and r["grad_max_abs_err"] == 0.0
         assert 0.6 < r["loss"] < 0.8          # ≈ ln 2 for random unit rows
+        assert r["repeat_bit_identical"] and r["gemm_only_ms"] > 0
+        assert r["bound_fwd_ms"] > 0 and r["bound_bwd_3xtf32_ms"] > 0
+
+
+def test_bpr_bounds():
+    """f32 products at 67 TFLOP/s; 3xTF32 three times as many at 495."""
+    b = chip_smoke.bpr_bounds(1024, 64)
+    assert b["fwd"] == pytest.approx((2 * 1024 ** 2 * 64 / 67e9, "operations"))
+    assert b["bwd"] == pytest.approx((6 * 1024 ** 2 * 64 / 67e9, "operations"))
+    assert b["bwd_3xtf32"] == pytest.approx((18 * 1024 ** 2 * 64 / 495e9,
+                                             "operations"))
 
 
 @pytest.fixture(scope="module")
@@ -228,6 +244,28 @@ def test_index_phase_checks_pass(trained):
     assert rec["users"] == 200 and rec["index_items"] == 400
     assert not rec["index_has_bias"]
     assert 0 < 1.2 * rec["random_recall@20"] < rec["recall@20"]
+
+
+def test_profile_view_fills_the_steps(trained):
+    _, view, _, _, _ = trained
+    small = chip_smoke.profile_view(view, 20, 256)
+    assert int((small.rating >= 4).sum()) // 256 == 20
+    assert small.n_users == view.n_users and small.n_items == view.n_items
+
+
+@pytest.mark.parametrize("name,group", [
+    ("bpr_bwd_tile_kernel(float const*, float const*, int, int, float*, float*, "
+     "float*)", "BPR kernels"),
+    ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<x>(y)",
+     "clipping and optimizer"),
+    ("sm90_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x8", "GEMMs"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::sigmoid>(x)",
+     "elementwise"),
+    ("void at::native::indexing_backward_kernel<float, 4>(x)",
+     "gathers and index backward"),
+])
+def test_train_profile_groups(name, group):
+    assert chip_smoke._train_kernel_group(name) == group
 
 
 def test_train_phase_counts_every_launch(trained, monkeypatch):
