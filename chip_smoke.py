@@ -51,12 +51,19 @@ Phases (each failure raises, so the exit code is not 0):
    quantize kernel against its twin (int8 values and scales equal), and
    the times of both and of the build quantizer (threefry);
 6. int8 kernel phase: at Q in {256, 1024} over the saved 1M x 129 (144
-   padded) int8 corpus, W=64, k=500, the int8 window kernel against its
-   twin — window maxima and positions equal, top-500 ids equal — recall@500
-   >= 0.98 against the exact top-500 of the same int8 scores and >= 0.95
-   against the exact top-500 of the unquantised f32 rows, and both times;
+   padded) int8 corpus, W=64, k=500, the int8 window kernel (its
+   tensor-core body, ``tc_route``) against its twin — window maxima and
+   positions equal, top-500 ids equal — recall@500 >= 0.98 against the
+   exact top-500 of the same int8 scores and >= 0.95 against the exact
+   top-500 of the unquantised f32 rows; the times of the kernel, the twin,
+   ``int8_gemm_only_ms`` (``torch._int_mm``, the int8 product alone: a
+   yardstick the port never calls) and the dp4a body through its own entry
+   (``dp4a_ms``, its output equal to the twin's too); ptxas's registers and
+   spills of the int8 library; then the dp4a body where the wrapper takes
+   it, rows of 400 columns, equal to the twin;
 7. int8 serve phase: the serve phase over the int8 index, with exactly one
-   int8 window launch per batch and none of the bf16 kernel;
+   int8 window launch per batch and none of the bf16 kernel; then the
+   profile of step 4 over 10 int8 batches (``serve_profile_int8``);
 8. queries-major window phase: at Q in {256, 1024} over the saved bf16
    corpus, W=64, the queries-major kernel against its twin (maxima within
    1e-3, top-500 id overlap >= 0.99) and against the items-major kernel
@@ -78,9 +85,10 @@ Phases (each failure raises, so the exit code is not 0):
    D=128, Q=1024, k=500, block 2048, W=64, bf16, each exiting 0, with the
    window and fold launch counts read around exactly that run;
 12. capacity phase: 30M x 128 random unit rows made and quantised on the
-   card in chunks, the int8 window kernel at Q=1024 and W=512 (windows
-   wider than a tile) timed, and on 64 queries its maxima and positions
-   equal to the twin's and recall@500 >= 0.98 against int8-exact;
+   card in chunks, the int8 window kernel (the tensor-core body) at Q=1024
+   and W=512 (windows wider than a tile) timed, and on 64 queries its
+   maxima and positions equal to the twin's and recall@500 >= 0.98 against
+   int8-exact;
 13. BPR kernel phase: at B=1024 and a ragged B=1000, D=64 f32, the forward
    and backward kernels against their twins — the loss within 1e-5
    relative, du and dv within 1e-4 of the twin's largest entry, a second
@@ -103,7 +111,7 @@ Phases (each failure raises, so the exit code is not 0):
 
 Usage, from the repository root: ``python3 chip_smoke.py [--seed N]``.
 After the build it prints ptxas's registers, spills and shared memory of
-the window kernels.
+the window kernels (the int8 ones in the int8 kernel phase).
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (each
 kernel's launches on its path, error against its twin, time, twin's time
 — by CUDA events, for the BPR kernels by ``torch.profiler`` —, bound and,
@@ -172,6 +180,10 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
 INDEX_PATHS = {"bfloat16": "index_path", "int8": "index_i8_path"}
 SERVE_KERNELS = {"bfloat16": "window_mips", "int8": "window_mips_i8"}
 
+# the int8 kernel's extra check: the dp4a body where the wrapper takes it
+# (rows past the tensor cores' 384 columns)
+WIDE_I8_DIM, WIDE_I8_ROWS = 400, 262_144
+
 # capacity: scripts/capacity_30m.py
 CAPACITY_ROWS, CAPACITY_DIM, CAPACITY_WINDOW = 30_000_000, 128, 512
 CAPACITY_Q, CAPACITY_CHECK_Q = 1024, 64
@@ -187,18 +199,32 @@ PROFILE_STEPS = 67                # steps of the profiled training epochs
 INDEX_USERS, RECALL_K = 1024, 20
 
 
+def _demangle(symbol: str):
+    """(the innermost name, its template arguments' mangled text or "") of
+    an Itanium-mangled kernel symbol: the names of a nested name are read
+    by their length prefixes."""
+    i, name = (3 if symbol.startswith("_ZN") else 2), ""
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while j < len(symbol) and symbol[j].isdigit():
+            j += 1
+        i, name = j + int(symbol[i:j]), symbol[j:j + int(symbol[i:j])]
+    m = re.match(r"I(\w*?)EEv", symbol[i:])
+    return name, m.group(1) if m else ""
+
+
 def ptxas_summary(log: str):
     """Registers, spill bytes and static shared memory of each kernel in a
     ``ptxas -v`` report, by kernel and template arguments."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"entry function '_Z\w*?\d+([a-z_]+kernel)(?:I(\w*?)EEv)?", line)
+        m = re.search(r"entry function '(_Z\w+)'", line)
         if m:
-            targs = m.group(2) or ""
+            base, targs = _demangle(m.group(1))
             kinds = (["bf16"] if targs.startswith("13__nv_bfloat16")
                      else ["f32"] if targs.startswith("f") else [])
             kinds += re.findall(r"L[ib](\d+)E", targs)
-            name = f"{m.group(1)}<{','.join(kinds)}>" if targs else m.group(1)
+            name = f"{base}<{','.join(kinds)}>" if targs else base
             out[name] = {}
         elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             out[name]["spill_stores"], out[name]["spill_loads"] = map(int, m.groups())
@@ -360,6 +386,14 @@ def device_kernel_ms(fn, reps: int):
         name = _short_kernel_name(key)
         out[name] = out.get(name, 0.0) + dev_us / 1e3 / reps
     return out
+
+
+def gemm_only_i8(q8: torch.Tensor, corpus: torch.Tensor, chunk: int = 256):
+    """The int8 product alone, a yardstick the port never calls: (chunk, D)
+    x (D, N) int8 into int32 sums, one ``torch._int_mm`` per chunk; no
+    scale, no window max."""
+    for s in range(0, q8.shape[0], chunk):
+        torch._int_mm(q8[s:s + chunk], corpus.T)
 
 
 def gemm_only(q: torch.Tensor, corpus: torch.Tensor, chunk: int = 256):
@@ -613,13 +647,22 @@ def quantize_phase(paths, device, seed: int, timer=cuda_ms):
 
 def int8_kernel_phase(paths, device, seed: int, qs=KERNEL_QS,
                       k=TOP_K_CANDIDATES, window=WINDOW, timer=cuda_ms,
-                      min_recall=0.98, min_f32_recall=0.95):
+                      min_recall=0.98, min_f32_recall=0.95,
+                      wide_dim=WIDE_I8_DIM, wide_rows=WIDE_I8_ROWS):
     """The int8 window kernel against its twin on the saved int8 index and
     user-tower queries: window maxima and positions equal, the top-k ids
     equal after ``canonical_tie_order``; recall@k against the exact top-k
     of the same int8 scores (``min_recall``) and of the unquantised f32
-    rows (``min_f32_recall``). Returns one record per batch size."""
+    rows (``min_f32_recall``); the body the wrapper launched (``tc_route``:
+    the tensor cores, on the card; the twin launches none) and the times of
+    the kernel, the twin and the int8 product alone (``int8_gemm_only_ms``).
+    On the card also the dp4a body through its own entry (equal to the twin,
+    and timed). Then, once, the dp4a body where the wrapper takes it, at
+    ``wide_dim`` columns (the saved rows and queries widened with random
+    int8 columns, ``wide_rows`` rows), equal to the twin. Returns (one
+    record per batch size, the wide check)."""
     from recommendit_tpu_torch.models import MIPSIndex, TwoTower
+    from recommendit_tpu_torch.ops import _build
     from recommendit_tpu_torch.ops import mips_window as mw
     from recommendit_tpu_torch.ops.topk import (
         canonical_tie_order,
@@ -634,6 +677,15 @@ def int8_kernel_phase(paths, device, seed: int, qs=KERNEL_QS,
     corpus, scales, n_valid = index._embs, index._scales, index.n_total
     rows_f32 = torch.as_tensor(np.load(paths["catalog_path"]), device=device)
     width = rows_f32.shape[1]
+    d = int(corpus.shape[1])
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        stages = ctypes.c_int(0)
+        smem = _build.load_library("window_mips_i8").window_mips_i8_tc_smem(
+            d, ctypes.byref(stages))
+        print(json.dumps({"ptxas_window_mips_i8": ptxas_summary(
+            _build.ptxas_logs.get("window_mips_i8", "")), "window_i8_tc_smem": {
+                "d": d, "dynamic_bytes": smem, "stages": stages.value}}), flush=True)
     rng = np.random.default_rng(seed + 1)
     out = []
     for n_q in qs:
@@ -641,7 +693,9 @@ def int8_kernel_phase(paths, device, seed: int, qs=KERNEL_QS,
                                device=device)
         q = index._augment(model.user_tower(uids))
         q8, _ = quantize_queries(q)
+        mw.LAST_BODY["window_mips_i8"] = None
         kv, ka = mw.window_candidates_i8(q8, corpus, scales, window, n_valid)
+        body = mw.LAST_BODY["window_mips_i8"]
         rv, ra = mw.window_candidates_i8_ref(q8, corpus, scales, window, n_valid)
         args = (q, corpus, scales, k, INDEX_BLOCK, window, n_valid)
         v, i = mw.mips_topk_window_im_int8(*args)
@@ -661,12 +715,24 @@ def int8_kernel_phase(paths, device, seed: int, qs=KERNEL_QS,
             "recall_vs_int8_exact": _overlap(i, ei),
             "recall_vs_f32_exact": _overlap(i, fi),
             "bin_model_recall": 1 - (k - 1) * window / (2 * n_valid),
+            "body": body,
+            "tc_route": body == "tensor_cores",
         }
-        del kv, ka, rv, ra, ei, fi
         reps = 20 if n_q <= 256 else 10
+        if on_card:
+            dv, da = mw._window_candidates_i8_cuda(q8, corpus, scales, window,
+                                                   n_valid, body="cuda_cores")
+            rec["dp4a_equal"] = bool(torch.equal(dv, rv) and torch.equal(da, ra))
+            del dv, da
+            rec["dp4a_ms"] = timer(lambda: mw._window_candidates_i8_cuda(
+                q8, corpus, scales, window, n_valid, body="cuda_cores"), reps)
+        del kv, ka, rv, ra, ei, fi
         rec["kernel_ms"] = timer(
             lambda: mw.window_candidates_i8(q8, corpus, scales, window, n_valid),
             reps)
+        rec["bound_share"] = (window_bound(rec, 1, 1, "int8", scales=True)[0]
+                              / rec["kernel_ms"])
+        rec["int8_gemm_only_ms"] = timer(lambda: gemm_only_i8(q8, corpus), reps)
         rec["twin_ms"] = timer(
             lambda: mw.window_candidates_i8_ref(q8, corpus, scales, window,
                                                 n_valid), 3)
@@ -675,8 +741,12 @@ def int8_kernel_phase(paths, device, seed: int, qs=KERNEL_QS,
         rec["twin_topk_ms"] = timer(
             lambda: mw.mips_topk_window_im_int8_ref(*args), 3)
         print(json.dumps({"int8_kernel_check": rec}), flush=True)
+        if on_card and not rec["tc_route"]:
+            raise AssertionError(f"the int8 corpus missed the tensor cores: {rec}")
         if not (rec["window_max_equal"] and rec["window_arg_equal"]):
             raise AssertionError(f"int8 window maxima differ from the twin: {rec}")
+        if not rec.get("dp4a_equal", True):
+            raise AssertionError(f"the dp4a body differs from the twin: {rec}")
         if not (rec["topk_ids_equal"] and rec["topk_values_equal"]):
             raise AssertionError(f"int8 top-{k} differs from the twin: {rec}")
         if rec["recall_vs_int8_exact"] < min_recall:
@@ -684,7 +754,25 @@ def int8_kernel_phase(paths, device, seed: int, qs=KERNEL_QS,
         if rec["recall_vs_f32_exact"] < min_f32_recall:
             raise AssertionError(f"recall@{k} vs f32-exact < {min_f32_recall}: {rec}")
         out.append(rec)
-    return out
+
+    # the dp4a body where the wrapper takes it: rows wider than the
+    # tensor-core limit
+    gen = torch.Generator().manual_seed(seed + 10)
+    n_w = min(wide_rows, corpus.shape[0])
+    extra = torch.randint(-127, 128, (n_w + q8.shape[0], wide_dim - d),
+                          generator=gen, dtype=torch.int8).to(device)
+    wq = torch.cat([q8, extra[n_w:]], 1)
+    wc = torch.cat([corpus[:n_w], extra[:n_w]], 1)
+    mw.LAST_BODY["window_mips_i8"] = None
+    wv, wa = mw.window_candidates_i8(wq, wc, scales[:n_w], window)
+    tv, ta = mw.window_candidates_i8_ref(wq, wc, scales[:n_w], window)
+    wide = {"q": wq.shape[0], "n": n_w, "d": wide_dim, "window": window,
+            "body": mw.LAST_BODY["window_mips_i8"],
+            "equal": bool(torch.equal(wv, tv) and torch.equal(wa, ta))}
+    print(json.dumps({"int8_wide_check": wide}), flush=True)
+    if (on_card and wide["body"] != "cuda_cores") or not wide["equal"]:
+        raise AssertionError(f"the dp4a body at width {wide_dim}: {wide}")
+    return out, wide
 
 
 def qm_window_phase(paths, device, seed: int, qs=KERNEL_QS, k=TOP_K_CANDIDATES,
@@ -804,14 +892,16 @@ def _short_kernel_name(name: str) -> str:
 
 
 def profile_phase(paths, data, device, n_calls: int = 10, batch: int = BATCH,
-                  top: int = 12):
-    """``torch.profiler`` over ``n_calls`` bf16 ``serve_batch`` calls of
-    ``batch`` users after a warm one: device time per call by kernel group
-    and by kernel (the ``top`` largest), all device kernels, the host clock
-    per call and the share of it the device is idle."""
+                  top: int = 12, dtype: str = "bfloat16"):
+    """``torch.profiler`` over ``n_calls`` ``serve_batch`` calls of
+    ``batch`` users over the fused index of ``dtype``, after a warm one:
+    device time per call by kernel group and by kernel (the ``top``
+    largest), all device kernels, the host clock per call and the share of
+    it the device is idle. Printed as ``serve_profile`` (bf16) or
+    ``serve_profile_int8``."""
     from torch.profiler import ProfilerActivity, profile
 
-    pipe = load_pipeline(paths, data, device)
+    pipe = load_pipeline(paths, data, device, dtype)
     rng = np.random.default_rng(11)
     users = rng.integers(1, pipe._n_users + 1, batch).tolist()
     pipe.serve_batch(users)
@@ -831,14 +921,16 @@ def profile_phase(paths, data, device, n_calls: int = 10, batch: int = BATCH,
         groups[group] = groups.get(group, 0.0) + ms
         launches += count
     device_ms = sum(kernels.values())
-    rec = {"batch": batch, "calls": n_calls, "host_ms_per_call": host_ms,
+    rec = {"index_dtype": dtype, "batch": batch, "calls": n_calls,
+           "host_ms_per_call": host_ms,
            "device_ms_per_call": device_ms,
            "device_idle_share": 1 - device_ms / host_ms,
            "kernel_launches_per_call": launches / n_calls,
            "groups_ms_per_call": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
            "kernels_ms_per_call": dict(sorted(kernels.items(),
                                               key=lambda kv: -kv[1])[:top])}
-    print(json.dumps({"serve_profile": rec}), flush=True)
+    key = "serve_profile_int8" if dtype == "int8" else "serve_profile"
+    print(json.dumps({key: rec}), flush=True)
     if device_ms <= 0:
         raise AssertionError("the profiler saw no device time")
     return rec
@@ -1015,7 +1107,8 @@ def capacity_phase(device, seed: int, n_rows: int = CAPACITY_ROWS,
     threefry counter offset by each chunk's first row), padded with scale-0
     rows to a ``block`` multiple; the int8 window kernel timed at ``n_q``
     queries; on ``n_check`` of them its maxima and positions equal to the
-    twin's (row-chunked) and recall@k against int8-exact."""
+    twin's (row-chunked), the body it launched (``body``: the tensor cores,
+    on the card) and recall@k against int8-exact."""
     from recommendit_tpu_torch.ops import mips_window as mw
     from recommendit_tpu_torch.ops.quantize import quantize_int8
     from recommendit_tpu_torch.ops.topk import mips_topk_int8, quantize_queries
@@ -1037,7 +1130,9 @@ def capacity_phase(device, seed: int, n_rows: int = CAPACITY_ROWS,
 
     q = torch.randn((n_q, dim), generator=gen, device=device)
     q8, _ = quantize_queries(q[:n_check])
+    mw.LAST_BODY["window_mips_i8"] = None
     kv, ka = mw.window_candidates_i8(q8, corpus, scales, window, n_rows)
+    body = mw.LAST_BODY["window_mips_i8"]
     rv, ra = mw.window_candidates_i8_ref(q8, corpus, scales, window, n_rows)
     _, i = mw.mips_topk_window_im_int8(q[:n_check], corpus, scales, k, block,
                                        window, n_rows)
@@ -1050,6 +1145,7 @@ def capacity_phase(device, seed: int, n_rows: int = CAPACITY_ROWS,
         "window_arg_equal": bool(torch.equal(ka, ra)),
         "recall_vs_int8_exact": _overlap(i, ei),
         "bin_model_recall": 1 - (k - 1) * window / (2 * n_rows),
+        "body": body,
     }
     del kv, ka, rv, ra, i, ei
     q8, _ = quantize_queries(q)
@@ -1060,6 +1156,8 @@ def capacity_phase(device, seed: int, n_rows: int = CAPACITY_ROWS,
                                             n_rows), 3)
     rec["queries_per_s"] = n_q / (rec["kernel_topk_ms"] / 1e3)
     print(json.dumps({"capacity_check": rec}), flush=True)
+    if torch.device(device).type == "cuda" and body != "tensor_cores":
+        raise AssertionError(f"the capacity corpus missed the tensor cores: {rec}")
     if not (rec["window_max_equal"] and rec["window_arg_equal"]):
         raise AssertionError(f"int8 window maxima differ from the twin: {rec}")
     if rec["recall_vs_int8_exact"] < min_recall:
@@ -1413,10 +1511,12 @@ def main(argv=None) -> int:
 
     quant = quantize_phase(paths, device, args.seed)
     torch.cuda.empty_cache()
-    checks_i8 = int8_kernel_phase(paths, device, args.seed)
+    checks_i8, _ = int8_kernel_phase(paths, device, args.seed)
     torch.cuda.empty_cache()
     serve_i8 = serve_phase(paths, data, device, dtype="int8")
     print(json.dumps({"serve_int8": serve_i8, "card": card}), flush=True)
+    torch.cuda.empty_cache()
+    profile_phase(paths, data, device, dtype="int8")
     torch.cuda.empty_cache()
 
     checks_qm = qm_window_phase(paths, device, args.seed)

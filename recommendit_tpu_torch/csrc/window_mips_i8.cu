@@ -6,7 +6,7 @@
 // Replaces the Pallas TPU kernel recommendit_tpu/ops/pallas_mips.py
 // ::_window_kernel_im_i8 (wrapper mips_topk_window_im_int8). Same contract:
 // the int8 x int8 products accumulate exactly in int32; the epilogue is, in
-// this order, float(acc) (exact: |acc| <= 127^2 * 1024 < 2^24), times the
+// this order, float(acc) (exact: |acc| <= 128^2 * 1024 = 2^24), times the
 // row's scale, then rows >= n_valid set to -3e38 -- the mask comes AFTER the
 // scale because padded rows carry scale 0 and -3e38 * 0 = -0 would beat every
 // negative real score. Argmax ties go to the earliest row; outputs are
@@ -14,18 +14,59 @@
 // a query's scores, is applied by the wrapper after the selection, and the
 // exact top-k over the window maxima runs outside the kernel, as in JAX.
 //
-// What bounds it on an H100: at the serve shape (Q=1024, N=1M, D=144 after
-// the zero pad of the 129-wide bias-augmented rows to a 16-byte multiple) one
-// call is 1.5e11 int8 MACs (2.9e11 operations) against 0.14 GB of int8
-// corpus -- about 1,000 MACs per byte, so it is compute-bound. This first version runs the products on
-// the CUDA cores with __dp4a (four int8 MACs into an int32 per instruction,
-// where the bf16 window_mips.cu does one f32 FMA): each block stages a 64-row
-// x 16-byte corpus slice and a 64-query slice in shared memory (one 16-byte
-// load per row per thread), each thread keeps a 4x4 register tile of int32
-// sums, and the dequantised 64x64 score tile goes to shared memory for the
-// per-window max/argmax. The (Q, N) score matrix never reaches device memory;
-// only (N/W, Q) values and positions do. Int8 tensor cores (mma / wgmma,
-// 1,979 dense TOPS) and TMA are later work.
+// What bounds it on an H100: at the serve shape (Q=1024 queries, N=1M rows,
+// 129 columns: the embedding and the bias, zero-padded to 144 on the card)
+// one call is 2*Q*N*129 = 2.6e11 int8 operations against 0.13 GB of corpus
+// and scales -- about 2,000 operations per byte, far above the card's ridge
+// point, so it is compute-bound: 0.1335 ms at the 1,979 TOPS dense int8
+// tensor-core peak. The (Q, N) score matrix never reaches device memory;
+// only the (N/W, Q) maxima and positions do.
+//
+// Two bodies:
+//
+// * Tensor cores (window_mips_i8_tc_launch, d <= 384): the template of
+//   window_tc.cuh, which window_mips.cu's bf16 body shares. What the dp4a
+//   body lacked, and what does it:
+//   1. four int8 MACs per instruction on the CUDA cores -> wgmma.mma_async
+//      m64n128k32 s8 x s8 -> s32, both operands K-major in shared memory
+//      (queries as A, corpus rows as B); a k32 step of int8 is 32 bytes, as
+//      a k16 step of bf16 is, so the descriptors and swizzles are the bf16
+//      body's;
+//   2. the corpus read once per 64-query tile -> 256 queries resident per
+//      block, a persistent grid, the blocks that share a corpus tile side
+//      by side (L2 serves the repeats);
+//   3. synchronous staging -> a producer warpgroup streams 128-row tiles by
+//      TMA into a ring of 4 stages (20 KB each at d = 144: one
+//      128-column box and one 32-column tail box whose columns 144-159 TMA
+//      fills with zeros) while two consumer warpgroups multiply;
+//   4. the item scales -> one 512-byte TMA box per tile on the stage's full
+//      barrier (rows past the corpus read scale 0, so no guard); each
+//      thread applies its 32 columns' scales to the int32 sums in its
+//      registers, in place, before it releases the stage;
+//   5. the score tile in shared memory -> the window max/argmax straight
+//      from the registers, as the bf16 body takes it (the mask only on
+//      tiles that reach past n_valid, wide windows carried across tiles).
+//   float(acc) is one cvt.rn.f32.s32 per score, exact at any width (|acc|
+//   <= 128^2 * 1024 = 2^24). The integer trick that avoids the conversion
+//   (the bits 0x4B400000 + acc, less 1.5 * 2^23: an integer add and an f32
+//   subtract) measured slower on the card (tools/window_i8_breakdown.py),
+//   likely because the conversion unit works beside the f32 and integer
+//   pipes the window max keeps busy, while the trick adds to them. The
+//   width limit is the query tile's:
+//   256 rows of at most 384 bytes, as for bf16. Left: the epilogue (the
+//   scale step, then the window max) takes more of the time than the
+//   products and the ring together, since it touches Q*N scores with a
+//   convert, a multiply, a compare and two selects each; the consumers
+//   multiply, then reduce, so the tensor cores wait during the reduction
+//   (the two warpgroups interleave only by the scheduler); every corpus
+//   tile is read from L2 by each block that shares it.
+// * CUDA cores (window_mips_i8_launch, d up to 1024; the wrapper takes it for
+//   d > 384):
+//   __dp4a, four int8 MACs into an int32 per instruction. Each block stages
+//   a 64-row x 16-byte corpus slice and a 64-query slice in shared memory
+//   (one 16-byte load per row per thread), each thread keeps a 4x4 register
+//   tile of int32 sums, and the dequantised 64x64 score tile goes to shared
+//   memory for the per-window max/argmax.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (recommendit_tpu_torch/ops/_build.py does this).
@@ -181,12 +222,16 @@ window_mips_i8_kernel(const int8_t* __restrict__ q,
 
 }  // namespace
 
-// C entry, bound with ctypes. q: (n_q, d) int8; items: (n_items, d) int8;
+#include "window_tc.cuh"
+
+// C entries, bound with ctypes. q: (n_q, d) int8; items: (n_items, d) int8;
 // scales: (n_items,) f32; vals/args: (n_cand, n_q) with
 // n_cand = ceil(n_items / window). All contiguous and 16-byte aligned, on the
-// device of `stream`; d a multiple of 16, at most 1024. Launches on `stream`,
-// allocates nothing, does not synchronise; returns cudaGetLastError() after
-// the launch (0 = launched).
+// device of `stream`; d a multiple of 16. Each launches on `stream`,
+// allocates nothing, does not synchronise, and returns cudaGetLastError()
+// after the launch (0 = launched).
+//
+// CUDA cores (dp4a): d at most 1024.
 extern "C" int window_mips_i8_launch(const int8_t* q, const int8_t* items,
                                      const float* scales, float* vals,
                                      int32_t* args, int n_q, int n_items, int d,
@@ -206,4 +251,22 @@ extern "C" int window_mips_i8_launch(const int8_t* q, const int8_t* items,
   window_mips_i8_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       q, items, scales, vals, args, n_q, n_items, d, n_valid, window, n_cand);
   return (int)cudaGetLastError();
+}
+
+// Tensor cores: d at most 384, window a power of two.
+extern "C" int window_mips_i8_tc_launch(const int8_t* q, const int8_t* items,
+                                        const float* scales, float* vals,
+                                        int32_t* args, int n_q, int n_items, int d,
+                                        int n_valid, int window, void* stream) {
+  return tc::launch<true, false>(q, items, scales, vals, args, n_q, n_items, d,
+                                 n_valid, window, stream);
+}
+
+// The tensor-core body's dynamic shared memory per block at width d (a
+// multiple of 16, at most 384), and its ring stages in *stages.
+extern "C" int window_mips_i8_tc_smem(int d, int* stages) {
+  tc::Shape s;
+  const int bytes = tc::smem_plan<true>(d, &s);
+  *stages = s.stages;
+  return bytes;
 }

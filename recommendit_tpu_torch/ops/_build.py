@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into ``build/lib<name>-<hash>.so`` at first use, then loaded with
-``ctypes``. The file name carries a hash of the source, so an edited kernel
-is rebuilt and a stale library is never loaded. Nothing is compiled when a
-module is imported: CPU-only installs never reach this code.
+``ctypes``. The file name carries a hash of the source, of every
+``csrc/*.cuh`` header (a source may include any of them) and of the flags,
+so an edited kernel or header is rebuilt and a stale library is never
+loaded. Nothing is compiled when a module is imported: CPU-only installs
+never reach this code.
 """
 from __future__ import annotations
 
@@ -49,6 +51,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def source_digest(name: str, csrc: Path = CSRC_DIR) -> str:
+    """The build key of ``<csrc>/<name>.cu``: a hash of its bytes, of each
+    ``*.cuh`` header beside it (by name, in name order) and of the nvcc
+    flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The compiled ``csrc/<name>.cu`` as a ``ctypes.CDLL``, built on the
     first call in this process if no library for this source exists yet.
@@ -64,10 +77,7 @@ def load_library(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = CSRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        out = BUILD_DIR / f"lib{name}-{digest}.so"
+        out = BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
         t0 = time.perf_counter()
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -20,10 +20,11 @@ index serves through:
   :func:`window_candidates_qm_ref` on the CPU.
 * :func:`window_candidates_i8` / :func:`mips_topk_window_im_int8` — the
   same over an int8 corpus with per-row scales: ``csrc/window_mips_i8.cu``
-  (the port of ``_window_kernel_im_i8``) on the card,
-  :func:`window_candidates_i8_ref` on the CPU. Window maxima of
-  (q_i8 · e_i8) · s_item, masked after the scale; the per-query scale
-  multiplies the values after the selection.
+  (the port of ``_window_kernel_im_i8``) on the card (its tensor-core body
+  for rows of up to 384 columns, its dp4a body for wider ones:
+  :func:`int8_window_body`), :func:`window_candidates_i8_ref` on the CPU.
+  Window maxima of (q_i8 · e_i8) · s_item, masked after the scale; the
+  per-query scale multiplies the values after the selection.
 * :func:`mips_topk_fused_auto` — the production router: same batch and
   window rules as the JAX function, over f32/bf16 or (with ``scales``)
   int8 corpora.
@@ -57,6 +58,7 @@ _SCAN_MIN_N = 65536      # ... on corpora larger than this
 _TARGET_CAND = 16384     # window maxima the tail top-k should see
 
 _TC_MAX_DIM = 192        # widest row the tensor-core body's query tile holds
+INT8_TC_MAX_DIM = 384    # ... and the int8 one: the same 384-byte rows
 _MASKED = -3e38
 _REF_QUERY_CHUNK = 256   # bounds the twin's live (Q, N) score slab
 _REF_SCORE_BUDGET = 1 << 27   # score elements per int8 twin chunk (512 MB)
@@ -64,6 +66,9 @@ _REF_SCORE_BUDGET = 1 << 27   # score elements per int8 twin chunk (512 MB)
 # Kernel launches since the last reset, by kernel name. Only the CUDA
 # wrappers add to it, once per launch.
 LAUNCHES = {"window_mips": 0, "window_mips_qm": 0, "window_mips_i8": 0}
+# The body of csrc/window_mips_i8.cu ("tensor_cores" or "cuda_cores") that
+# its last launch took; None until one. Only the CUDA wrapper sets it.
+LAST_BODY = {"window_mips_i8": None}
 
 
 def _check_window_args(n: int, k: int, block_items: int, window: int,
@@ -286,10 +291,23 @@ def _check_int8_operands(q_i8: torch.Tensor, items_i8: torch.Tensor,
         raise ValueError("item_scales length mismatch")
 
 
+def int8_window_body(d: int) -> str:
+    """The body of ``csrc/window_mips_i8.cu`` that serves ``d``-column int8
+    rows (zero-padded to ``INT8_ROW_ALIGN`` first): "tensor_cores" (TMA +
+    wgmma s8) while the 256-query tile fits in shared memory (d ≤ 384, the
+    bf16 body's 384 bytes a row); "cuda_cores" (dp4a) for wider rows, up to
+    ``INT8_MAX_DIM``."""
+    if d + (-d % INT8_ROW_ALIGN) <= INT8_TC_MAX_DIM:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def _window_candidates_i8_cuda(q_i8: torch.Tensor, items_i8: torch.Tensor,
                                item_scales: torch.Tensor, window: int,
-                               n_valid: int):
-    """Launch ``csrc/window_mips_i8.cu`` on the current stream."""
+                               n_valid: int, body: Optional[str] = None):
+    """Launch ``csrc/window_mips_i8.cu`` on the current stream, through the
+    entry of ``body``: by default the one :func:`int8_window_body` picks (the
+    other only to compare the two)."""
     from recommendit_tpu_torch.ops._build import load_library
 
     if not (q_i8.device == items_i8.device == item_scales.device):
@@ -313,12 +331,17 @@ def _window_candidates_i8_cuda(q_i8: torch.Tensor, items_i8: torch.Tensor,
         raise ValueError("queries and corpus must start 16-byte aligned")
 
     lib = load_library("window_mips_i8")
-    fn = lib.window_mips_i8_launch
+    body = body or int8_window_body(d)
+    if body == "tensor_cores":
+        fn = lib.window_mips_i8_tc_launch
+        if item_scales.data_ptr() % 16:
+            # TMA reads the scales from a 16-byte aligned start: a fresh copy
+            # (the caching allocator aligns every block) of n * 4 bytes
+            item_scales = item_scales.clone()
+    else:
+        fn = lib.window_mips_i8_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     n_q = q_i8.shape[0]
     n_cand = -(-n // window)
     vals = torch.empty((n_cand, n_q), dtype=torch.float32, device=items_i8.device)
@@ -331,6 +354,7 @@ def _window_candidates_i8_cuda(q_i8: torch.Tensor, items_i8: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"window_mips_i8 launch failed: CUDA error {rc}")
     LAUNCHES["window_mips_i8"] += 1
+    LAST_BODY["window_mips_i8"] = body
     return vals, args
 
 

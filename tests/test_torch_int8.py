@@ -225,6 +225,35 @@ def test_int8_window_twin_equals_pallas(window, n_valid, negative):
     assert torch.equal(cpu[0], got[0]) and torch.equal(cpu[1], got[1])
 
 
+@pytest.mark.parametrize("window", [64, 128])
+@pytest.mark.parametrize("case", ["random", "ties"])
+def test_int8_window_twin_equals_pallas_at_serve_width(window, case):
+    """The serve width: 128 embedding columns and the bias, zero-padded to
+    144 as the int8 fused index stores them, 2900 valid rows padded with
+    scale-0 rows to 3072. k is every valid window, so each window's maximum
+    and first position is compared. ``ties``: rows and queries in {-1, 0,
+    1} and one scale, so windows are full of equal scores."""
+    n_valid, n = 2900, 3072
+    if case == "random":
+        q, e8, s = _int8_corpus(n_valid, 129, window, n_pad=n - n_valid)
+    else:
+        rng = np.random.default_rng(window)
+        q = rng.integers(-1, 2, (8, 129)).astype(np.float32)
+        e8 = np.pad(rng.integers(-1, 2, (n_valid, 129)).astype(np.int8),
+                    ((0, n - n_valid), (0, 0)))
+        s = np.pad(np.full(n_valid, 0.25, np.float32), (0, n - n_valid))
+    q, e8 = np.pad(q, ((0, 0), (0, 15))), np.pad(e8, ((0, 0), (0, 15)))
+    k = -(-n_valid // window)
+    want = jpm.mips_topk_window_im_int8(jnp.asarray(q), jnp.asarray(e8),
+                                        jnp.asarray(s), k, 1024, window, True,
+                                        n_valid)
+    got = mw.mips_topk_window_im_int8_ref(
+        torch.as_tensor(q), torch.as_tensor(e8), torch.as_tensor(s), k, 1024,
+        window, n_valid)
+    assert_same_topk(got, want)
+    assert int(got[1].max()) < n_valid
+
+
 def test_int8_window_guards_match_jax():
     q, e8, s = _int8_corpus(1000, 16, 4, n_pad=24)
     args = (torch.as_tensor(q), torch.as_tensor(e8), torch.as_tensor(s))

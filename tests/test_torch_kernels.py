@@ -19,7 +19,9 @@ two calls on the same inputs equal bit for bit. The int8 window kernel and the q
 their twins bit for bit: integer sums are exact in any order, and the
 epilogues are the same single f32 operations. The queries-major window
 kernel runs kernel 1's arithmetic, so it equals kernel 1's output
-transposed bit for bit. The fold kernel: values within 1e-4 of the twin,
+transposed bit for bit. Both bodies of the int8 window kernel (tensor cores
+up to 384 columns, dp4a above) are held to the twin bit for bit. The fold
+kernel: values within 1e-4 of the twin,
 and on integer-valued inputs (exact sums, ties everywhere) values and rows
 equal to the twin's. The gather copies bytes: equal.
 """
@@ -403,6 +405,23 @@ def test_int8_cpu_tensor_takes_the_twin():
     assert mw.LAUNCHES == before
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+def test_int8_cpu_tensor_records_no_body(offset):
+    """The twin launches no body, so the record of the last launched one
+    stays as it was; scales that start at any element of their storage are
+    taken, as the kernel wrapper takes them."""
+    q8, e8, s = _int8_corpus(501, 16, 490, "cpu")
+    s = s[offset:offset + 500]
+    mw.LAST_BODY["window_mips_i8"] = "sentinel"
+    try:
+        got = mw.window_candidates_i8(q8, e8[:500], s, 8, 490)
+        assert mw.LAST_BODY["window_mips_i8"] == "sentinel"
+    finally:
+        mw.LAST_BODY["window_mips_i8"] = None
+    want = mw.window_candidates_i8_ref(q8, e8[:500], s.clone(), 8, 490)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_quantize_cpu_tensor_takes_the_twin():
     x = torch.randn(300, 129, generator=torch.Generator().manual_seed(1))
     before = dict(qz.LAUNCHES)
@@ -433,8 +452,9 @@ def test_int8_kernel_matches_twin_bit_for_bit(cuda_device, d, window, n, n_valid
 def test_int8_kernel_masks_after_the_scale(cuda_device, window):
     """Every real score negative, pad rows at scale 0: a pad row scores
     -3e38, never -0, so no window past ``n_valid`` holds a real maximum and
-    no valid window picks a pad row."""
+    no valid window picks a pad row. d = 144: the tensor-core body."""
     n, n_valid = 8192, 5001
+    assert mw.int8_window_body(144) == "tensor_cores"
     q8, e8, s = _int8_corpus(n, 144, n_valid, cuda_device, seed=3, negative=True)
     kv, ka = mw.window_candidates_i8(q8, e8, s, window, n_valid)
     rv, ra = mw.window_candidates_i8_ref(q8, e8, s, window, n_valid)
@@ -476,6 +496,143 @@ def test_int8_kernel_rejects_bad_arguments(cuda_device):
         mw.window_candidates_i8(q8.float(), e8, s, 8)
     with pytest.raises(ValueError, match="scales"):
         mw.window_candidates_i8(q8, e8, s[:-1], 8)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        mw.window_candidates_i8(q8[:, :128], e8, s, 8)
+    with pytest.raises(ValueError, match="scales must be contiguous"):
+        mw.window_candidates_i8(q8, e8, torch.stack([s, s], 1)[:, 0], 8)
+    # the tensor-core entry refuses rows past its limit: an error, never
+    # the dp4a body in its place
+    wide = torch.zeros((1024, 400), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mw._window_candidates_i8_cuda(wide[:8], wide, s, 8, 1024,
+                                      body="tensor_cores")
+
+
+@pytest.mark.parametrize("d,body", [
+    (144, "tensor_cores"),    # the serve corpus: 128 + the bias, padded
+    (129, "tensor_cores"),    # padded to 144 first
+    (16, "tensor_cores"),
+    (256, "tensor_cores"),
+    (384, "tensor_cores"),    # INT8_TC_MAX_DIM: the 384-byte query rows
+    (385, "cuda_cores"),      # one column above: padded to 400
+    (400, "cuda_cores"),
+    (1024, "cuda_cores"),     # INT8_MAX_DIM
+])
+def test_int8_window_body_follows_width(d, body):
+    assert mw.int8_window_body(d) == body
+
+
+def test_build_key_follows_every_header(tmp_path):
+    """A source's library name hashes the headers beside it: an edited
+    header rebuilds every library, other files change nothing."""
+    from recommendit_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = _build.source_digest("k", tmp_path)
+    assert len(first) == 16 and _build.source_digest("k", tmp_path) == first
+    (tmp_path / "notes.py").write_text("x = 1\n")
+    assert _build.source_digest("k", tmp_path) == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = _build.source_digest("k", tmp_path)
+    assert second != first
+    (tmp_path / "g.cuh").write_text("// one\n")
+    assert _build.source_digest("k", tmp_path) not in (first, second)
+    assert _build.source_digest("window_mips") != _build.source_digest("window_mips_i8")
+
+
+def _int8_queries(n_q, d, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    q8, _ = quantize_queries(torch.randn(n_q, d, generator=g))
+    return q8.to(device)
+
+
+def _check_int8_launch(q8, e8, s, window, n_valid):
+    """One counted launch through the wrapper, of the body its width picks,
+    bit for bit the twin's."""
+    before = mw.LAUNCHES["window_mips_i8"]
+    mw.LAST_BODY["window_mips_i8"] = None
+    kv, ka = mw.window_candidates_i8(q8, e8, s, window, n_valid)
+    torch.cuda.synchronize()
+    assert mw.LAUNCHES["window_mips_i8"] == before + 1
+    assert mw.LAST_BODY["window_mips_i8"] == mw.int8_window_body(e8.shape[1])
+    rv, ra = mw.window_candidates_i8_ref(q8, e8, s, window, n_valid)
+    assert kv.shape == rv.shape == (-(-e8.shape[0] // window), q8.shape[0])
+    assert ka.dtype == torch.int32
+    assert torch.equal(kv, rv) and torch.equal(ka, ra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 112, 128, 144, 384])
+@pytest.mark.parametrize("n_q", [1, 100, 257, 1024])
+@pytest.mark.parametrize("window", [1, 8, 64, 128, 512])
+@pytest.mark.parametrize("n,n_valid", [(4096, 4096), (5000, 4801)])
+def test_int8_tensor_core_body_matches_twin_bit_for_bit(cuda_device, d, n_q,
+                                                        window, n, n_valid):
+    """A K tail alone (16, 32), one 128-column box (112, 128), a box and a
+    tail (144, the serve width), three boxes (384, the limit); query counts off the
+    256-query tile; n_valid inside a 128-row tile."""
+    assert mw.int8_window_body(d) == "tensor_cores"
+    _, e8, s = _int8_corpus(n, d, n_valid, cuda_device, seed=d + window)
+    _check_int8_launch(_int8_queries(n_q, d, cuda_device, n_q), e8, s, window,
+                       n_valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [2 ** i for i in range(10)])
+def test_int8_tensor_core_body_every_window(cuda_device, window):
+    _, e8, s = _int8_corpus(5000, 144, 4801, cuda_device, seed=window)
+    _check_int8_launch(_int8_queries(257, 144, cuda_device, window), e8, s,
+                       window, 4801)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 4, 8, 64, 128, 512])
+def test_int8_tensor_core_body_keeps_the_first_of_ties(cuda_device, window):
+    """Rows and queries in {-1, 0, 1} and one scale for every valid row:
+    windows full of equal scores, the first-occurrence positions equal."""
+    g = torch.Generator().manual_seed(window)
+    q8 = torch.randint(-1, 2, (300, 144), generator=g).to(torch.int8)
+    e8 = torch.randint(-1, 2, (5000, 144), generator=g).to(torch.int8)
+    s = torch.full((5000,), 0.25)
+    s[4801:] = 0.0
+    _check_int8_launch(q8.to(cuda_device), e8.to(cuda_device), s.to(cuda_device),
+                       window, 4801)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [400, 1024])
+@pytest.mark.parametrize("window", [8, 512])
+def test_wide_int8_rows_take_the_dp4a_body(cuda_device, d, window):
+    assert mw.int8_window_body(d) == "cuda_cores"
+    _, e8, s = _int8_corpus(5000, d, 4801, cuda_device, seed=d)
+    _check_int8_launch(_int8_queries(100, d, cuda_device, d), e8, s, window, 4801)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["cuda_cores", "tensor_cores"])
+def test_int8_bodies_agree_at_the_serve_width(cuda_device, body):
+    """At the serve width the dp4a body (through its own entry, which the
+    wrapper takes only for wider rows) and the tensor-core body give the
+    twin's maxima and positions."""
+    q8, e8, s = _int8_corpus(20_000, 144, 19_001, cuda_device, seed=1)
+    kv, ka = mw._window_candidates_i8_cuda(q8, e8, s, 64, 19_001, body=body)
+    assert mw.LAST_BODY["window_mips_i8"] == body
+    rv, ra = mw.window_candidates_i8_ref(q8, e8, s, 64, 19_001)
+    assert torch.equal(kv, rv) and torch.equal(ka, ra)
+
+
+@pytest.mark.cuda
+def test_int8_tensor_core_body_rejects_misaligned_operands(cuda_device):
+    """A corpus that starts off a 16-byte boundary raises; scales that do
+    are copied to an aligned start, and the tensor cores give the twin's
+    output."""
+    q8, e8, s = _int8_corpus(1025, 144, 1025, cuda_device)
+    shifted = e8.view(-1)[1:1 + 1024 * 144].view(1024, 144)   # 1-byte offset
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mw.window_candidates_i8(q8, shifted, s[:1024], 8)
+    assert s[1:].data_ptr() % 16
+    _check_int8_launch(q8, e8[:1024], s[1:], 8, 1024)
 
 
 @pytest.mark.cuda

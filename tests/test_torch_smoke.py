@@ -92,6 +92,12 @@ ptxas info    : Used 64 registers, used 1 barriers, 20480 bytes smem
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119bpr_bwd_tile_kernelEPKfS1_iiPfS2_S2_' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 122 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN2tc16window_tc_kernelILi0ELb0ELb1EEEv14CUtensorMap_stS1_S1_S1_S1_PfPiNS_5ShapeE' for 'sm_90a'
+    24 bytes stack frame, 24 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 144 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__1f2e3d4c_17_window_mips_i8_cu_a1b2c3d421window_mips_i8_kernelEPKaS1_PKfPfPiiiiiix' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 57 registers, used 1 barriers, 18432 bytes smem
 """
     assert chip_smoke.ptxas_summary(log) == {
         "window_tc_kernel<6,0>": {"spill_stores": 0, "spill_loads": 0,
@@ -100,6 +106,10 @@ ptxas info    : Used 122 registers, used 1 barriers
                                        "registers": 64, "static_smem": 20480},
         "bpr_bwd_tile_kernel": {"spill_stores": 0, "spill_loads": 0,
                                 "registers": 122, "static_smem": 0},
+        "window_tc_kernel<0,0,1>": {"spill_stores": 24, "spill_loads": 24,
+                                    "registers": 168, "static_smem": 144},
+        "window_mips_i8_kernel": {"spill_stores": 0, "spill_loads": 0,
+                                  "registers": 57, "static_smem": 18432},
     }
 
 
@@ -166,14 +176,21 @@ def test_quantize_phase_fails_on_another_seed(small_artifacts):
 
 def test_int8_kernel_phase_on_the_twin(small_artifacts):
     paths, _ = small_artifacts
-    (rec,) = chip_smoke.int8_kernel_phase(paths, "cpu", 0, qs=(64,), k=100,
-                                          window=8, timer=_host_ms,
-                                          min_recall=0.9, min_f32_recall=0.8)
+    (rec,), wide = chip_smoke.int8_kernel_phase(
+        paths, "cpu", 0, qs=(64,), k=100, window=8, timer=_host_ms,
+        min_recall=0.9, min_f32_recall=0.8, wide_rows=3000)
     assert rec["window_max_equal"] and rec["window_arg_equal"]
     assert rec["topk_ids_equal"] and rec["topk_values_equal"]
     assert rec["recall_vs_int8_exact"] >= rec["bin_model_recall"] - 0.02
     assert (rec["d"], rec["d_func"]) == (32, 17)
     assert rec["dtype"] == "torch.int8"
+    # the body is the one launched: the twin on the CPU launches none
+    assert rec["body"] is None and rec["tc_route"] is False
+    assert rec["int8_gemm_only_ms"] > 0
+    assert rec["bound_share"] > 0
+    assert "dp4a_ms" not in rec                 # the C entries: on the card only
+    assert wide == {"q": 64, "n": 3000, "d": 400, "window": 8,
+                    "body": None, "equal": True}
 
 
 def test_int8_serve_phase_checks_pass(small_artifacts):
@@ -192,6 +209,7 @@ def test_capacity_phase_on_the_twin():
                                     n_q=64, n_check=16, k=100, chunk=7000,
                                     block=1024, timer=_host_ms, min_recall=0.9)
     assert rec["window_max_equal"] and rec["window_arg_equal"]
+    assert rec["body"] is None                  # the twin launched no body
     assert rec["corpus_bytes"] == 50_176 * 16 + 4 * 50_176
     assert rec["recall_vs_int8_exact"] >= rec["bin_model_recall"] - 0.02
     assert rec["queries_per_s"] > 0
@@ -336,6 +354,18 @@ def test_bounds():
     rec = {"q": 1024, "n": 1_000_000, "d": 136, "d_func": 129, "window": 64}
     ms, by = chip_smoke.window_bound(rec, 2, 4, "bf16")
     assert by == "operations" and ms == pytest.approx(2 * 1024 * 1e6 * 129 / 989e9)
+
+
+@pytest.mark.parametrize("n,d,window,want", [
+    (1_000_000, 129, 64, 2 * 1024 * 1e6 * 129 / 1979e9),      # int8 serve
+    (30_000_000, 128, 512, 2 * 1024 * 30e6 * 128 / 1979e9),   # capacity
+])
+def test_int8_window_bound(n, d, window, want):
+    """The int8 kernel's bound at Q=1024: its int8 operations at the int8
+    peak, above the bytes of the corpus and its scales."""
+    rec = {"q": 1024, "n": n, "d": d + (-d % 16), "d_func": d, "window": window}
+    ms, by = chip_smoke.window_bound(rec, 1, 1, "int8", scales=True)
+    assert by == "operations" and ms == pytest.approx(want)
 
 
 def test_overlap_counts_shared_ids():
