@@ -73,10 +73,20 @@ Phases (each failure raises, so the exit code is not 0):
    and the window kernel) timed at Q in {1, 16, 64, ..., 1024} beside the
    route the router takes (its constants unchanged);
 9. fold phase: ``mips_topk_fused`` at Q=1024 over the valid rows, block
-   2048, R=64: candidates within 1e-4 (relative to the largest) of the
-   twin, recall@500 >= 0.98 against the exact top-500 of the same f32-query
+   2048, R=64: the tensor-core body (``tc_route``: the f32 queries split
+   into three bf16 pieces by the split kernel, equal to its twin bit for
+   bit) with candidates within 1e-4 (relative to the largest) of the twin,
+   every checked score within 2e-6·Σ|q_k·x_k| of f64 (``f64_err``), also on
+   queries whose third piece moves each score by ~4e-6·Σ|q_k·x_k|
+   (``lo_case``), where the twin of the first two pieces alone must exceed
+   that limit (``two_piece_f64_err``: a kernel without the third piece would
+   fail); recall@500 >= 0.98 against the exact top-500 of the same f32-query
    scores; integer-valued inputs full of ties (f32 and bf16, bins narrower
-   and wider than a tile, a bias pad) equal to the twin; both times;
+   and wider than a tile, a bias pad, a bf16 case of the tensor-core body
+   with a block of one real row) equal to the twin, through the wrapper's
+   body and through the CUDA-core entry; the times of the kernel, its twin,
+   the CUDA-core body (``cuda_cores_ms``), the kernel at R=32 and the
+   split; ptxas's registers and spills of the fold library;
 10. gather phase: ``gather_rows`` of a (1024, 500) int64 index into the
    packed item table (1,000,001 x 64 f32) — the counted run — equal to the
    twin, and with out-of-range and int32 indices, a 23-wide f32 and a bf16
@@ -169,6 +179,10 @@ ROUTER_QS = (1, 16, 64, 128, 256, 384, 512, 1024)
 QM_WINDOW = 128                   # mips_topk_window's default window
 QM_BLOCK = 16384                  # ... and block
 FOLD_Q, FOLD_BLOCK, FOLD_R = 1024, 2048, 64
+FOLD_JAX_R = 32                   # mips_topk_fused's default reduction
+FOLD_F64_Q = 256                  # the fold's queries checked against f64
+FOLD_F64_LIMIT = 2e-6             # ... each score's error over its Σ|q_k·x_k|
+FOLD_LO_CASE = (65_536, 136, 256)  # (N, D, Q) of the lo-heavy inputs
 GATHER_SHAPE = (1024, 500)        # a batch of users x their candidates
 PROBE_ARGS = ("--n", "1000000", "--d", "128", "--q", "1024", "--k", "500",
               "--block", "2048", "--window", "64", "--dtype", "bfloat16")
@@ -945,22 +959,78 @@ def _tie_inputs(n, d, n_q, dtype, device, seed):
     return q.to(device), items.to(device)
 
 
+def lo_heavy_inputs(n, d, n_q, device, seed):
+    """f32 queries whose third bf16 piece (``lo`` of ``split_bf16x3``) is
+    near the largest the split allows, 2⁻¹⁸–2⁻¹⁷ of the element, and has the
+    sign of the row element it multiplies, while the terms' own signs are
+    random: in every score the lo products add up to ~4e-6·Σ|q_k·x_k| and
+    the partial sums stay small. Rows s_k·u with u > 0, unit, bf16."""
+    g = torch.Generator().manual_seed(seed)
+    s = torch.randint(0, 2, (d,), generator=g).float() * 2 - 1
+    u = torch.rand(n, d, generator=g) + 0.25
+    items = (s * u / u.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    hi = torch.randn(n_q, d, generator=g).to(torch.bfloat16).float()
+    ulp = torch.ldexp(torch.ones_like(hi), torch.frexp(hi).exponent - 8)
+    sign = torch.randint(0, 2, (n_q, d), generator=g).float() * 2 - 1
+    # mid just under half of hi's ulp, lo just under half of mid's
+    q = hi + sign * ulp * (2.0 ** -1 - 2.0 ** -8) + s * ulp * (2.0 ** -10 - 2.0 ** -16)
+    return q.to(device), items.to(device)
+
+
+def fold_f64_err(q, items, vals, ids, chunk: int = 16) -> float:
+    """The largest error of a fold's scores against f64, relative to each
+    score's Σ|q_k·x_k| (the scale of f32 rounding; C.22): every candidate
+    of a real row against the f64 dot product of its query and that row.
+    Candidates of pad rows (ids ≥ N) must hold ``pad_score`` exactly."""
+    from recommendit_tpu_torch.ops.mips_fold import pad_score
+
+    n = items.shape[0]
+    worst = 0.0
+    for s in range(0, q.shape[0], chunk):
+        i = ids[s:s + chunk].long()
+        v = vals[s:s + chunk]
+        real = i < n
+        if not bool((v[~real] == pad_score(items.dtype)).all()):
+            raise AssertionError("a bin of pad rows holds no pad score")
+        terms = q[s:s + chunk].double()[:, None, :] * items[i.clamp(max=n - 1)].double()
+        exact, mag = terms.sum(-1), terms.abs().sum(-1)
+        err = (v.double() - exact).abs()
+        err = torch.where(mag > 0, err / mag, err)[real]
+        if err.numel():
+            worst = max(worst, float(err.max()))
+    return worst
+
+
 # (N, D, Q, block, R): bins narrower than a 64-row tile (bn/R = 32) and
-# wider (256), both with a bias pad (N % bn != 0), and a tiny block
+# wider (256), both with a bias pad (N % bn != 0), a tiny block, and
+# N = 2·bn + 1 at the path's width (bf16: the tensor-core body, with a block
+# of one real row and tiles wholly past the corpus; a ragged query tile)
 TIE_CASES = ((5000, 8, 100, 256, 8), (9000, 12, 70, 2048, 8),
-             (301, 4, 3, 16, 4))
+             (301, 4, 3, 16, 4), (4097, 136, 129, 2048, 64))
 
 
 def fold_phase(paths, device, seed: int, n_q: int = FOLD_Q,
                k: int = TOP_K_CANDIDATES, block: int = FOLD_BLOCK,
                reduction: int = FOLD_R, timer=cuda_ms, min_recall=0.98,
-               tie_cases=TIE_CASES):
+               tie_cases=TIE_CASES, jax_reduction: int = FOLD_JAX_R,
+               f64_q: int = FOLD_F64_Q, lo_case=FOLD_LO_CASE):
     """Kernel 4 (the fold) through ``mips_topk_fused`` on the valid rows of
-    the saved bf16 corpus and user-tower queries: candidates within 1e-4 of
-    the twin relative to the largest, recall@k against the exact top-k of
-    the same f32-query scores; on integer-valued inputs full of ties the
-    candidates equal to the twin's (values and ids); both times."""
+    the saved bf16 corpus and user-tower queries: the body the wrapper
+    launched (``tc_route``: the tensor cores, on the card; the twin launches
+    none), candidates within 1e-4 of the twin relative to the largest; on
+    ``f64_q`` queries every score within ``FOLD_F64_LIMIT`` of f64
+    (:func:`fold_f64_err`), and so on the ``lo_case`` inputs
+    (:func:`lo_heavy_inputs`), where the control — the twin fed the first
+    two bf16 pieces alone, what a kernel without the third computes — must
+    read above the limit; recall@k against the exact top-k of the same
+    f32-query scores; the query
+    split equal to its twin; on integer-valued inputs full of ties the
+    candidates equal to the twin's (values and ids), on the card also
+    through the CUDA-core entry. The times of the kernel, the twin, the
+    CUDA-core body (``cuda_cores_ms``), the kernel at ``jax_reduction`` (JAX's
+    default R) and the split with its twin."""
     from recommendit_tpu_torch.models import MIPSIndex, TwoTower
+    from recommendit_tpu_torch.ops import _build
     from recommendit_tpu_torch.ops import mips_fold as mf
     from recommendit_tpu_torch.ops.topk import fast_topk, score_matrix
 
@@ -971,40 +1041,100 @@ def fold_phase(paths, device, seed: int, n_q: int = FOLD_Q,
     rng = np.random.default_rng(seed + 7)
     uids = torch.as_tensor(rng.integers(1, model.n_users + 1, n_q), device=device)
     q = index._augment(model.user_tower(uids))
+    on_card = torch.device(device).type == "cuda"
+    mf.LAST_BODY["fold_mips"] = None
     cv, ci = mf.fold_candidates(q, corpus, block, reduction)
+    body = mf.LAST_BODY["fold_mips"]
     rv, ri = mf.fold_candidates_ref(q, corpus, block, reduction)
     v, i = mf.mips_topk_fused(q, corpus, k, block, reduction)
     _, ei = fast_topk(score_matrix(q, corpus, "highest"), k)
     bn, out, n_blocks = mf.fold_shape(n, k, block, reduction)
+    split, split_twin = mf.split_queries(q), mf.split_bf16x3(q)
     rec = {
         "q": n_q, "n": n, "d": int(corpus.shape[1]), "d_func": index._width,
         "block": bn,
         "reduction": reduction, "k": k, "dtype": str(corpus.dtype),
         "n_cand": n_blocks * out,
+        "body": body, "tc_route": body == "tensor_cores",
         "max_abs_err": float((cv - rv).abs().max()),
         "rel_err": float((cv - rv).abs().max() / rv.abs().max()),
         "ids_equal_share": float((ci == ri).float().mean()),
         "recall_vs_exact": _overlap(i, ei),
         "bin_model_recall": 1 - (k - 1) * reduction / (2 * n),
+        "split_equal": bool(torch.equal(split.view(torch.int16),
+                                        split_twin.view(torch.int16))),
+        "split_max_abs_err": float((split.float() - split_twin.float()).abs().max()),
     }
-    del cv, ci, rv, ri, ei
-    ties = []
+
+    def two_pieces(queries, items):
+        """The control: the twin fed hi + mid, a kernel without lo."""
+        hi, mid, _ = mf.split_bf16x3(queries).float()
+        return mf.fold_candidates_ref(hi + mid, items, block, reduction)
+
+    nc = min(n_q, f64_q)
+    v2, i2 = two_pieces(q[:nc], corpus)
+    rec["f64_q"] = nc
+    rec["f64_err"] = fold_f64_err(q[:nc], corpus, cv[:nc], ci[:nc])
+    rec["two_piece_f64_err"] = fold_f64_err(q[:nc], corpus, v2, i2)
+    rec["two_piece_rel_err"] = float((v2 - rv[:nc]).abs().max() / rv.abs().max())
+    del cv, ci, rv, ri, ei, split, split_twin, v2, i2
+    lq, li = lo_heavy_inputs(*lo_case, device, seed + 9)
+    mf.LAST_BODY["fold_mips"] = None
+    lv, lid = mf.fold_candidates(lq, li, block, reduction)
+    rec["lo_case"] = {"n": lo_case[0], "d": lo_case[1], "q": lo_case[2],
+                      "body": mf.LAST_BODY["fold_mips"],
+                      "f64_err": fold_f64_err(lq, li, lv, lid),
+                      "two_piece_f64_err": fold_f64_err(lq, li, *two_pieces(lq, li))}
+    del lq, li, lv, lid
+    ties, ties_cc = [], []
     for j, (tn, td, tq, tb, tr) in enumerate(tie_cases):
         for dtype in (torch.float32, torch.bfloat16):
             tq_, ti_ = _tie_inputs(tn, td, tq, dtype, device, seed + j)
-            a = mf.fold_candidates(tq_, ti_, tb, tr)
             b = mf.fold_candidates_ref(tq_, ti_, tb, tr)
-            ties.append(bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])))
+            got = [mf.fold_candidates(tq_, ti_, tb, tr)]
+            if on_card:
+                got.append(mf._fold_candidates_cuda(tq_, ti_, tb, tr,
+                                                    body="cuda_cores"))
+            same = [bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+                    for a in got]
+            ties.append(same[0])
+            ties_cc += same[1:]
     rec["ties_equal"] = ties
+    if on_card:
+        rec["ties_equal_cuda_cores"] = ties_cc
+        rec["ptxas"] = ptxas_summary(_build.ptxas_logs.get("fold_mips", ""))
+        rec["cuda_cores_ms"] = timer(lambda: mf._fold_candidates_cuda(
+            q, corpus, block, reduction, body="cuda_cores"), 5)
     rec["kernel_ms"] = timer(
         lambda: mf.fold_candidates(q, corpus, block, reduction), 10)
+    mf.LAST_BODY["fold_mips"] = None
+    rec["jax_reduction"] = jax_reduction
+    rec["jax_reduction_kernel_ms"] = timer(
+        lambda: mf.fold_candidates(q, corpus, block, jax_reduction), 10)
+    rec["jax_reduction_body"] = mf.LAST_BODY["fold_mips"]
+    rec["split_ms"] = timer(lambda: mf.split_queries(q), 50)
+    rec["split_twin_ms"] = timer(lambda: mf.split_bf16x3(q), 50)
     rec["twin_ms"] = timer(
         lambda: mf.fold_candidates_ref(q, corpus, block, reduction), 3)
     rec["kernel_topk_ms"] = timer(
         lambda: mf.mips_topk_fused(q, corpus, k, block, reduction), 10)
+    rec["bound_ms"], rec["bound_by"], rec["bound_f32_ms"] = fold_bounds(rec)
     print(json.dumps({"fold_check": rec}), flush=True)
+    lo = rec["lo_case"]
+    if on_card and corpus.dtype == torch.bfloat16 and not (
+            rec["tc_route"] and rec["jax_reduction_body"] == "tensor_cores"
+            and lo["body"] == "tensor_cores"):
+        raise AssertionError(f"the bf16 corpus missed the tensor cores: {rec}")
+    if not rec["split_equal"]:
+        raise AssertionError(f"the query split differs from its twin: {rec}")
+    if not all(ties_cc):
+        raise AssertionError(f"the CUDA-core fold's ties differ from the twin: {rec}")
     if rec["rel_err"] > 1e-4:
         raise AssertionError(f"fold candidates differ from the twin: {rec}")
+    if max(rec["f64_err"], lo["f64_err"]) > FOLD_F64_LIMIT:
+        raise AssertionError(f"fold scores are not f32-grade: {rec}")
+    if lo["two_piece_f64_err"] <= FOLD_F64_LIMIT:
+        raise AssertionError(f"the f64 check cannot tell two pieces from three: {rec}")
     if rec["ids_equal_share"] < 0.999:
         raise AssertionError(f"fold rows differ from the twin's: {rec}")
     if not all(ties):
@@ -1256,6 +1386,19 @@ def bound(n_bytes: float, ops: float = 0.0, kind: str = "f32"):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fold_bounds(rec):
+    """(bound_ms, bound_by, bound_f32_ms) of a fold call: the valid bf16
+    corpus rows, the f32 queries and the (Q, n_cand) values and ids moved
+    once, against
+    the operations f32-grade scores take on the tensor cores — three bf16
+    passes of 2·Q·N·D — and, beside it, against 2·Q·N·D f32 operations at
+    the f32 rate (the CUDA-core body's bound). D is the function's width."""
+    q, n, d = rec["q"], rec["n"], rec["d_func"]
+    n_bytes = n * d * 2 + q * d * 4 + rec["n_cand"] * q * 8
+    return (*bound(n_bytes, 3 * 2.0 * q * n * d, "bf16"),
+            bound(n_bytes, 2.0 * q * n * d, "f32")[0])
 
 
 def window_bound(rec, corpus_bytes: int, query_bytes: int, kind: str,
@@ -1580,11 +1723,17 @@ def main(argv=None) -> int:
         "launches": probe_launches["fold_mips"],
         "max_abs_err": fold["max_abs_err"],
         "ms": fold["kernel_ms"], "plain_ms": fold["twin_ms"],
-        "bound": bound(fold["n"] * fold["d_func"] * 2
-                       + fold["q"] * fold["d_func"] * 4
-                       + fold["n_cand"] * fold["q"] * 8,
-                       2.0 * fold["q"] * fold["n"] * fold["d_func"], "f32"),
-        "library_ms": None,
+        # f32-grade scores on the tensor cores: three bf16 passes; the f32
+        # operations' bound (the CUDA-core body's) beside it
+        "bound": (fold["bound_ms"], fold["bound_by"]),
+        "bound_f32_ms": fold["bound_f32_ms"], "library_ms": None,
+    }, {
+        "name": "fold_split", "source": FOLD_SOURCE, "replaces": FOLD_REPLACES,
+        "launches": probe_launches["fold_split"],
+        "max_abs_err": fold["split_max_abs_err"],
+        "ms": fold["split_ms"], "plain_ms": fold["split_twin_ms"],
+        # the f32 queries read once, the three bf16 pieces written once
+        "bound": bound(fold["q"] * fold["d"] * (4 + 3 * 2)), "library_ms": None,
     }, {
         "name": "bpr_fwd", "source": BPR_SOURCE, "replaces": BPR_REPLACES["bpr_fwd"],
         "launches": train["launches"]["bpr_fwd"],

@@ -18,7 +18,10 @@ port keeps (ROADMAP C):
   candidates too (the ``k > n_cand`` guard counts them).
 
 * :func:`fold_candidates` — (Q, n_cand) bin values and int32 global row ids:
-  ``csrc/fold_mips.cu`` on the card, :func:`fold_candidates_ref` on the CPU.
+  ``csrc/fold_mips.cu`` on the card (its tensor-core body for a bf16 corpus
+  where :func:`fold_body` says so: the f32 queries split exactly into three
+  bf16 pieces, :func:`split_queries`; its CUDA-core body otherwise),
+  :func:`fold_candidates_ref` on the CPU.
 * :func:`mips_topk_fused` — the candidates plus the exact top-k;
   :func:`mips_topk_fused_ref` is its plain twin on any device.
 """
@@ -30,10 +33,26 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from recommendit_tpu_torch.ops.mips_window import pad_columns
 from recommendit_tpu_torch.ops.topk import fast_topk, full_f32_matmul
 
-# Kernel launches since the last reset. Only the CUDA wrapper adds to it.
-LAUNCHES = {"fold_mips": 0}
+# Kernel launches since the last reset, by kernel name. Only the CUDA
+# wrappers add to them, once per launch: "fold_mips" once per fold call,
+# whichever body runs; "fold_split" once per query split (the tensor-core
+# body's first step).
+LAUNCHES = {"fold_mips": 0, "fold_split": 0}
+# The body of csrc/fold_mips.cu ("tensor_cores" or "cuda_cores") that its
+# last launch took; None until one. Only the CUDA wrapper sets it.
+LAST_BODY = {"fold_mips": None}
+
+# The tensor-core body: bf16 rows of at most 144 columns (their three
+# resident query pieces leave room for two ring stages), blocks of at least
+# one 128-row tile, and bins that are a multiple of 8 columns and fit the
+# registers.
+FOLD_TC_MAX_DIM = 144
+_TC_MIN_BLOCK = 128
+_TC_OUTS = (8, 16, 32, 64)
+_ROW_ALIGN = 8     # the tensor-core body reads rows 16 bytes at a time
 
 _PAD = np.float32(-3e38)
 _REF_QUERY_CHUNK = 256   # bounds the twin's live (Q, N) score slab
@@ -102,9 +121,66 @@ def fold_candidates_ref(queries: torch.Tensor, items: torch.Tensor,
     return torch.cat(vals), torch.cat(ids)
 
 
+def fold_body(dtype: torch.dtype, d: int, bn: int, out: int) -> str:
+    """The body of ``csrc/fold_mips.cu`` that folds a ``d``-column corpus of
+    ``dtype`` in blocks of ``bn`` rows into ``out`` bins each:
+    "tensor_cores" (TMA + wgmma over the three bf16 pieces of the queries)
+    for bf16 rows of at most ``FOLD_TC_MAX_DIM`` columns (after zero-padding
+    to a multiple of 8), ``bn`` >= 128 and ``out`` in {8, 16, 32, 64};
+    "cuda_cores" (f32 FMAs) for an f32 corpus and every other shape."""
+    if (dtype == torch.bfloat16 and d + (-d % _ROW_ALIGN) <= FOLD_TC_MAX_DIM
+            and bn >= _TC_MIN_BLOCK and out in _TC_OUTS):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def split_bf16x3(q: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the split kernel: (3, *q.shape) bf16 pieces hi =
+    bf16(q), mid = bf16(q − hi), lo = bf16(q − hi − mid) of f32 ``q``.
+    Each difference is exact in f32 and three 8-bit significands cover
+    f32's 24, so hi + mid + lo == q exactly (outside bf16's subnormal
+    range)."""
+    q = q.float()
+    hi = q.to(torch.bfloat16)
+    rest = q - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return torch.stack([hi, mid, (rest - mid.float()).to(torch.bfloat16)])
+
+
+def _split_queries_cuda(q: torch.Tensor) -> torch.Tensor:
+    from recommendit_tpu_torch.ops._build import load_library
+
+    q = q.float().contiguous()
+    pieces = torch.empty((3, *q.shape), dtype=torch.bfloat16, device=q.device)
+    fn = load_library("fold_mips").fold_split_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), pieces.data_ptr(), q.numel(), stream)
+    if rc != 0:
+        raise RuntimeError(f"fold_split launch failed: CUDA error {rc}")
+    LAUNCHES["fold_split"] += 1
+    return pieces
+
+
+def split_queries(q: torch.Tensor) -> torch.Tensor:
+    """The three bf16 pieces of f32 queries, (3, *q.shape): the split
+    kernel (``csrc/fold_mips.cu``) for queries on the card, the plain twin
+    :func:`split_bf16x3` for queries on the CPU."""
+    if q.device.type == "cpu":
+        return split_bf16x3(q)
+    if q.device.type != "cuda":
+        raise ValueError(f"no split kernel for device {q.device}")
+    return _split_queries_cuda(q)
+
+
 def _fold_candidates_cuda(queries: torch.Tensor, items: torch.Tensor,
-                          block_items: int, reduction: int):
-    """Launch ``csrc/fold_mips.cu`` on the current stream."""
+                          block_items: int, reduction: int, body=None):
+    """Launch ``csrc/fold_mips.cu`` on the current stream, through the
+    entry of ``body``: by default the one :func:`fold_body` picks (the other
+    only to compare the two)."""
     from recommendit_tpu_torch.ops._build import load_library
 
     if items.dtype not in (torch.float32, torch.bfloat16):
@@ -120,28 +196,43 @@ def _fold_candidates_cuda(queries: torch.Tensor, items: torch.Tensor,
     if n_blocks * bn >= 2 ** 31:
         raise ValueError(f"corpus of {n} rows exceeds the kernel's int32 ids")
 
+    body = body or fold_body(items.dtype, d, bn, out)
     lib = load_library("fold_mips")
-    fn = lib.fold_mips_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_void_p]
     q = queries.float().contiguous()
     n_q = q.shape[0]
     vals = torch.empty((n_q, n_blocks * out), dtype=torch.float32,
                        device=items.device)
     ids = torch.empty((n_q, n_blocks * out), dtype=torch.int32,
                       device=items.device)
+    if body == "tensor_cores":
+        if items.dtype != torch.bfloat16 or n_q >= 2 ** 31 // 3:
+            raise ValueError("the tensor-core body takes a bf16 corpus and "
+                             "fewer than 2**31 / 3 queries")
+        # zero columns change no score
+        q, items = pad_columns(q, _ROW_ALIGN), pad_columns(items, _ROW_ALIGN)
+        if items.data_ptr() % 16:
+            raise ValueError("corpus must start 16-byte aligned")
+        pieces = split_queries(q)
+        fn = lib.fold_mips_bf16_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_void_p]
+        head = (pieces.data_ptr(), items.data_ptr())
+    else:
+        fn = lib.fold_mips_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [
+            ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                                       ctypes.c_void_p]
+        head = (q.data_ptr(), items.data_ptr(),
+                int(items.dtype == torch.bfloat16))
+    fn.restype = ctypes.c_int
     with torch.cuda.device(items.device):
         stream = torch.cuda.current_stream(items.device).cuda_stream
-        rc = fn(q.data_ptr(), items.data_ptr(),
-                int(items.dtype == torch.bfloat16), vals.data_ptr(),
-                ids.data_ptr(), n_q, n, d, bn, out, pad_score(items.dtype),
-                stream)
+        rc = fn(*head, vals.data_ptr(), ids.data_ptr(), n_q, n,
+                items.shape[1], bn, out, pad_score(items.dtype), stream)
     if rc != 0:
         raise RuntimeError(f"fold_mips launch failed: CUDA error {rc}")
     LAUNCHES["fold_mips"] += 1
+    LAST_BODY["fold_mips"] = body
     return vals, ids
 
 

@@ -21,13 +21,22 @@ epilogues are the same single f32 operations. The queries-major window
 kernel runs kernel 1's arithmetic, so it equals kernel 1's output
 transposed bit for bit. Both bodies of the int8 window kernel (tensor cores
 up to 384 columns, dp4a above) are held to the twin bit for bit. The fold
-kernel: values within 1e-4 of the twin,
-and on integer-valued inputs (exact sums, ties everywhere) values and rows
-equal to the twin's. The gather copies bytes: equal.
+kernel, both bodies (tensor cores over the three bf16 pieces of the f32
+queries for bf16 rows up to 144 columns, CUDA cores otherwise): values
+within 1e-4 of the twin, rows equal for at least 99.9 % of the bins (f32
+sums in another order may swap near-ties), every score within
+``chip_smoke.FOLD_F64_LIMIT`` (2e-6) of its f64 value relative to its
+Σ|q_k·x_k| — below what dropping the third bf16 piece costs on queries
+whose third piece is large, which the twin fed two pieces shows each
+time — and on integer-valued inputs
+(exact sums, ties everywhere) values and rows equal to the twin's; two
+calls equal bit for bit. The query split equals its twin bit for bit. The
+gather copies bytes: equal.
 """
 import pytest
 import torch
 
+import chip_smoke
 from recommendit_tpu_torch.ops import bpr
 from recommendit_tpu_torch.ops import gather
 from recommendit_tpu_torch.ops import mips_fold as mf
@@ -712,6 +721,7 @@ def test_fold_kernel_matches_twin(cuda_device, dtype, case):
     assert kv.shape == rv.shape and ki.dtype == torch.int32
     torch.testing.assert_close(kv, rv, atol=1e-4, rtol=0)
     assert (ki == ri).float().mean() >= 0.999
+    assert chip_smoke.fold_f64_err(q, items, kv, ki) <= chip_smoke.FOLD_F64_LIMIT
 
 
 @pytest.mark.cuda
@@ -725,6 +735,150 @@ def test_fold_kernel_keeps_the_tournament_ties(cuda_device, dtype, case):
     kv, ki = mf.fold_candidates(q, items, block, r)
     rv, ri = mf.fold_candidates_ref(q, items, block, r)
     assert torch.equal(kv, rv) and torch.equal(ki, ri)
+
+
+# The tensor-core body: bins of 8-64 rows (R = 32, 16, 8, 4 at bn = 256),
+# widths 8 and 16 (the tail box alone), 129 (zero-padded to 136) and 136,
+# one query to a full 1,024 (a ragged second query tile at 129), N a
+# multiple of the block, not, and 2·bn + 1 (a block of one real row and a
+# tile wholly past the corpus).
+FOLD_TC_BLOCK = 256
+FOLD_TC_OUTS = [8, 16, 32, 64]
+FOLD_TC_DIMS = [8, 16, 129, 136]
+FOLD_TC_QS = [1, 100, 129, 1024]
+FOLD_TC_NS = [2048, 1900, 2 * FOLD_TC_BLOCK + 1]
+
+
+def _fold_tc_launch(q, items, out):
+    """One fold call that must take the tensor-core body: one fold and one
+    split launch."""
+    before = dict(mf.LAUNCHES)
+    mf.LAST_BODY["fold_mips"] = None
+    kv, ki = mf.fold_candidates(q, items, FOLD_TC_BLOCK, FOLD_TC_BLOCK // out)
+    torch.cuda.synchronize()
+    assert mf.LAST_BODY["fold_mips"] == "tensor_cores"
+    assert mf.LAUNCHES == {"fold_mips": before["fold_mips"] + 1,
+                           "fold_split": before["fold_split"] + 1}
+    return kv, ki
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", FOLD_TC_NS)
+@pytest.mark.parametrize("n_q", FOLD_TC_QS)
+@pytest.mark.parametrize("d", FOLD_TC_DIMS)
+@pytest.mark.parametrize("out", FOLD_TC_OUTS)
+def test_fold_tensor_core_body_matches_twin(cuda_device, out, d, n_q, n):
+    g = torch.Generator().manual_seed(n + d + out)
+    q = torch.randn(n_q, d, generator=g).to(cuda_device)
+    items = torch.randn(n, d, generator=g)
+    items = (items / items.norm(dim=1, keepdim=True)).to(torch.bfloat16).to(cuda_device)
+    kv, ki = _fold_tc_launch(q, items, out)
+    rv, ri = mf.fold_candidates_ref(q, items, FOLD_TC_BLOCK, FOLD_TC_BLOCK // out)
+    assert kv.shape == rv.shape and ki.dtype == torch.int32
+    torch.testing.assert_close(kv, rv, atol=1e-4, rtol=0)
+    assert (ki == ri).float().mean() >= 0.999
+    assert chip_smoke.fold_f64_err(q, items, kv, ki) <= chip_smoke.FOLD_F64_LIMIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", FOLD_TC_NS)
+@pytest.mark.parametrize("n_q", FOLD_TC_QS)
+@pytest.mark.parametrize("d", FOLD_TC_DIMS)
+@pytest.mark.parametrize("out", FOLD_TC_OUTS)
+def test_fold_tensor_core_body_keeps_the_tournament_ties(cuda_device, out, d, n_q, n):
+    """Integer queries split with mid = lo = 0, so every sum is exact and
+    only the tie rule and the pad rows can differ."""
+    g = torch.Generator().manual_seed(n * out + d)
+    q = torch.randint(-1, 2, (n_q, d), generator=g).float().to(cuda_device)
+    items = torch.randint(-1, 2, (n, d), generator=g).to(torch.bfloat16).to(cuda_device)
+    kv, ki = _fold_tc_launch(q, items, out)
+    rv, ri = mf.fold_candidates_ref(q, items, FOLD_TC_BLOCK, FOLD_TC_BLOCK // out)
+    assert torch.equal(kv, rv) and torch.equal(ki, ri)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 129, 136])
+@pytest.mark.parametrize("out", FOLD_TC_OUTS)
+def test_fold_tensor_core_body_keeps_the_third_piece(cuda_device, out, d):
+    """Queries whose lo piece moves every score by ~4e-6·Σ|q_k·x_k|: the
+    kernel's scores stay within the f64 limit, the twin fed hi + mid alone
+    (what a kernel without lo computes) reads above it."""
+    q, items = chip_smoke.lo_heavy_inputs(1900, d, 129, cuda_device, seed=out + d)
+    kv, ki = _fold_tc_launch(q, items, out)
+    assert chip_smoke.fold_f64_err(q, items, kv, ki) <= chip_smoke.FOLD_F64_LIMIT
+    hi, mid, _ = mf.split_bf16x3(q).float()
+    tv, ti = mf.fold_candidates_ref(hi + mid, items, FOLD_TC_BLOCK, FOLD_TC_BLOCK // out)
+    assert chip_smoke.fold_f64_err(q, items, tv, ti) > 2 * chip_smoke.FOLD_F64_LIMIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", FOLD_TC_OUTS)
+def test_fold_tensor_core_body_is_deterministic(cuda_device, out):
+    q, items = _corpus(70_000, 136, torch.bfloat16, cuda_device, seed=out)
+    a = mf.fold_candidates(q, items, 2048, 2048 // out)
+    b = mf.fold_candidates(q, items, 2048, 2048 // out)
+    assert mf.LAST_BODY["fold_mips"] == "tensor_cores"
+    assert torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+    assert torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,block,r", [
+    (torch.float32, 136, 2048, 64),    # an f32 corpus
+    (torch.float32, 8, 256, 32),
+    (torch.bfloat16, 136, 2048, 16),   # out = 128
+    (torch.bfloat16, 136, 2048, 8),    # out = 256
+    (torch.bfloat16, 136, 2048, 1024),   # out = 2
+    (torch.bfloat16, 152, 2048, 64),   # rows past FOLD_TC_MAX_DIM
+    (torch.bfloat16, 200, 2048, 32),
+    (torch.bfloat16, 136, 64, 8),      # a block below one 128-row tile
+])
+def test_fold_other_shapes_take_the_cuda_core_body(cuda_device, dtype, d, block, r):
+    q, items = _corpus(5000, d, dtype, cuda_device, seed=d + r)
+    split = mf.LAUNCHES["fold_split"]
+    kv, ki = mf.fold_candidates(q, items, block, r)
+    torch.cuda.synchronize()
+    assert mf.LAST_BODY["fold_mips"] == "cuda_cores"
+    assert mf.LAUNCHES["fold_split"] == split
+    rv, ri = mf.fold_candidates_ref(q, items, block, r)
+    torch.testing.assert_close(kv, rv, atol=1e-4, rtol=0)
+    assert (ki == ri).float().mean() >= 0.999
+    assert chip_smoke.fold_f64_err(q, items, kv, ki) <= chip_smoke.FOLD_F64_LIMIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["cuda_cores", "tensor_cores"])
+def test_fold_bodies_agree_on_ties(cuda_device, body):
+    """Both entries on one tensor-core shape, through the wrapper's body
+    argument: equal to the twin bit for bit on integer inputs."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randint(-1, 2, (300, 129), generator=g).float().to(cuda_device)
+    items = torch.randint(-1, 2, (9000, 129), generator=g).to(torch.bfloat16).to(cuda_device)
+    kv, ki = mf._fold_candidates_cuda(q, items, 2048, 64, body=body)
+    assert mf.LAST_BODY["fold_mips"] == body
+    rv, ri = mf.fold_candidates_ref(q, items, 2048, 64)
+    assert torch.equal(kv, rv) and torch.equal(ki, ri)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 8), (100, 129), (1024, 136)])
+def test_split_kernel_matches_twin_bit_for_bit(cuda_device, shape):
+    g = torch.Generator().manual_seed(shape[0])
+    q = torch.randn(shape, generator=g) * 10.0 ** torch.randint(-20, 20, (shape[0], 1),
+                                                               generator=g)
+    before = mf.LAUNCHES["fold_split"]
+    got = mf.split_queries(q.to(cuda_device))
+    torch.cuda.synchronize()
+    assert mf.LAUNCHES["fold_split"] == before + 1
+    want = mf.split_bf16x3(q)
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_fold_tensor_core_body_refuses_an_f32_corpus(cuda_device):
+    q, items = _corpus(4096, 136, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="bf16 corpus"):
+        mf._fold_candidates_cuda(q, items, 2048, 64, body="tensor_cores")
 
 
 @pytest.mark.cuda

@@ -321,12 +321,60 @@ def test_fold_phase_on_the_twin(small_artifacts):
     paths, _ = small_artifacts
     rec = chip_smoke.fold_phase(paths, "cpu", 0, n_q=32, k=50, block=1024,
                                 reduction=16, timer=_host_ms, min_recall=0.9,
-                                tie_cases=((301, 4, 3, 16, 4),))
+                                tie_cases=((301, 4, 3, 16, 4),), f64_q=8,
+                                lo_case=(3000, 136, 16))
     assert rec["max_abs_err"] == 0.0 and rec["ids_equal_share"] == 1.0
+    # the f32 twin is f32-grade; the control without the third piece is not
+    lo = rec["lo_case"]
+    assert rec["f64_q"] == 8 and (lo["n"], lo["d"], lo["q"]) == (3000, 136, 16)
+    assert max(rec["f64_err"], lo["f64_err"]) <= chip_smoke.FOLD_F64_LIMIT / 2
+    assert lo["two_piece_f64_err"] > 2 * chip_smoke.FOLD_F64_LIMIT
+    assert rec["two_piece_f64_err"] > rec["f64_err"] and lo["body"] is None
     assert rec["ties_equal"] == [True, True]
     assert (rec["n"], rec["d"], rec["n_cand"]) == (5000, 24, 5 * 64)
     assert rec["d_func"] == 17
     assert rec["recall_vs_exact"] >= rec["bin_model_recall"] - 0.05
+    # the twins on the CPU: no body, and the split is its own twin
+    assert rec["body"] is None and not rec["tc_route"]
+    assert rec["jax_reduction"] == 32 and rec["jax_reduction_body"] is None
+    assert rec["split_equal"] and rec["split_max_abs_err"] == 0.0
+    assert "cuda_cores_ms" not in rec and "ptxas" not in rec
+    assert rec["bound_ms"] == chip_smoke.fold_bounds(rec)[0]
+
+
+def test_fold_f64_err_reads_each_score_over_its_terms():
+    """0 for the f64 scores themselves; a value moved by 1e-5·Σ|q_k·x_k|
+    reads 1e-5; bins of pad rows must hold the pad score exactly."""
+    from recommendit_tpu_torch.ops import mips_fold as mf
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(5, 8, generator=g)
+    items = torch.randn(2 * 16 + 1, 8, generator=g).to(torch.bfloat16)
+    vals, ids = mf.fold_candidates_ref(q, items, 16, 4)
+    real = ids < items.shape[0]
+    terms = q.double()[:, None, :] * items[ids.long().clamp(max=32)].double()
+    exact = torch.where(real, terms.sum(-1), vals.double())
+    assert chip_smoke.fold_f64_err(q, items, exact, ids) == 0.0
+    moved = exact.clone()
+    moved[2, 1] += 1e-5 * terms[2, 1].abs().sum()
+    assert chip_smoke.fold_f64_err(q, items, moved, ids) == pytest.approx(1e-5)
+    assert not bool(real.all())
+    moved[~real] = 0.0
+    with pytest.raises(AssertionError, match="pad score"):
+        chip_smoke.fold_f64_err(q, items, moved, ids)
+
+
+def test_fold_bounds():
+    """Three bf16 passes at the bf16 peak for f32-grade scores on the
+    tensor cores, and the f32 operations at the f32 rate beside them; D is
+    the function's width."""
+    rec = {"q": 1024, "n": 1_000_000, "d": 136, "d_func": 129,
+           "n_cand": 489 * 32}
+    ms, by, f32_ms = chip_smoke.fold_bounds(rec)
+    assert by == "operations"
+    assert ms == pytest.approx(3 * 2 * 1024 * 1e6 * 129 / 989e9)
+    assert f32_ms == pytest.approx(2 * 1024 * 1e6 * 129 / 67e9)
+    assert ms < f32_ms / 4
 
 
 def test_gather_phase_on_the_twin(small_artifacts):
