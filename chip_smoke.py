@@ -22,11 +22,13 @@ serve's packed item table; then the kernel probe
 ``scripts/pallas_probe.py``) in its four variants at 1M x 128, the path
 that drives the queries-major window and fold kernels.
 
-Then two-tower training, at the repository's BPR training configuration
+Then two-tower training and the offline pipeline, at the repository's BPR training configuration
 (``bench.py::bench_bpr_train``, ML-1M shape): 6,040 users, 3,952 items,
 towers 64/128, batch 1,024, dropout 0.2, AdamW under a cosine schedule with
 global-norm clipping at 1.0, ``LOSS_MODE=in_batch``, on synthetic ML-1M
-data (1,000,209 ratings requested) made from ``--seed``.
+data (1,000,209 ratings requested) made from ``--seed``; then the pipeline
+CLI's data, features, embeddings, index, evaluate and skew stages on the
+same data (the ML-1M shape: 6,040 users, 3,952 items; 2 epochs, not 60).
 
 Phases (each failure raises, so the exit code is not 0):
 
@@ -117,7 +119,25 @@ Phases (each failure raises, so the exit code is not 0):
 15. index phase: ``IndexBuilder`` on the in-batch model (exact f32 index),
    ``batch_search`` for 1,024 users with held-out positives: valid ids,
    and Recall@20 of the held-out 10 % positives (train items filtered)
-   above a random ranking's.
+   above a random ranking's;
+16. pipeline phase: the pipeline CLI's stages
+   (``recommendit_tpu_torch.pipelines.run_pipeline``) on the train phase's
+   data written as ML-1M ``.dat`` files (read back equal): ``features``;
+   ``embeddings`` (Settings defaults but ``LOSS_MODE=in_batch``, 2 epochs
+   not 60) under ``torch.profiler``, each BPR kernel launched once a step
+   (the wrappers' counts set to 0 just before the stage and read just
+   after, and the profiler's kernel counts), the loss finite and below
+   ln 2; a random ranker (128, 64) from ``--seed``; the packed tables the
+   features stage wrote equal, bit for bit, to those
+   ``RecommendationPipeline.load`` recomputes from the ratings; ``index``
+   and ``evaluate`` for the exact f32, fused bf16 and fused int8 index,
+   every user with held-out positives evaluated — every value finite, the
+   full and popularity lists 20 distinct unrated items, the retrieval-only
+   lists the first 20 unrated items of the index's top-500, and its
+   NDCG@10 and Recall@20 above a seeded random ranking's — and ``skew``
+   (max KL 0.0, 50 features). It prints the stage times and the three
+   rows (``full_random_ranker``, popularity, retrieval-only) of each
+   report, and int8 minus bf16 of the retrieval-only row.
 
 Usage, from the repository root: ``python3 chip_smoke.py [--seed N]``.
 After the build it prints ptxas's registers, spills and shared memory of
@@ -260,6 +280,26 @@ def _glorot(rng, shape):
     return rng.uniform(-limit, limit, size=shape).astype(np.float32)
 
 
+def write_random_ranker(path: str, rng, device) -> None:
+    """The serve configuration's ranker, random: an MLP (128, 64) with query
+    norm over the 50 features and the two retrieval columns, Glorot weights
+    and a random standardisation, drawn from ``rng``."""
+    from recommendit_tpu_torch.features.schema import FEATURE_COLUMNS
+    from recommendit_tpu_torch.models import LambdaRankScorer
+
+    names = FEATURE_COLUMNS + ["retrieval_score", "retrieval_rank"]
+    ranker = LambdaRankScorer(feature_names=names, hidden_dims=RANKER_HIDDEN,
+                              query_norm=True, device=device)
+    dims = [len(names), *RANKER_HIDDEN, 1]
+    ranker.params = {}
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        ranker.params[f"w{i}"] = torch.as_tensor(_glorot(rng, (a, b)))
+        ranker.params[f"b{i}"] = torch.zeros(b)
+    ranker.feat_mean = rng.standard_normal(len(names), np.float32)
+    ranker.feat_std = rng.uniform(0.5, 2.0, len(names)).astype(np.float32)
+    ranker.save(path)
+
+
 def make_artifacts(workdir: Path, seed: int, device, n_users: int = N_USERS,
                    n_items: int = N_ITEMS, dim: int = DIM,
                    hidden: int = HIDDEN, n_ratings: int = N_RATINGS,
@@ -269,12 +309,11 @@ def make_artifacts(workdir: Path, seed: int, device, n_users: int = N_USERS,
     catalog's augmented f32 rows (normalised embedding and bias column) as
     ``catalog.npy``. Returns (paths, ServeData)."""
     from recommendit_tpu_torch.features.schema import (
-        FEATURE_COLUMNS,
         ITEM_PACKED_DIM,
         N_GENRES,
         USER_PACKED_DIM,
     )
-    from recommendit_tpu_torch.models import LambdaRankScorer, MIPSIndex, TwoTower
+    from recommendit_tpu_torch.models import MIPSIndex, TwoTower
     from recommendit_tpu_torch.serving.recommender import ServeData
 
     workdir.mkdir(parents=True, exist_ok=True)
@@ -323,17 +362,7 @@ def make_artifacts(workdir: Path, seed: int, device, n_users: int = N_USERS,
             np.concatenate([unit, bias[:, None]], axis=1).astype(np.float32))
     del model, index, embs, unit
 
-    names = FEATURE_COLUMNS + ["retrieval_score", "retrieval_rank"]
-    ranker = LambdaRankScorer(feature_names=names, hidden_dims=RANKER_HIDDEN,
-                              query_norm=True, device=device)
-    dims = [len(names), *RANKER_HIDDEN, 1]
-    ranker.params = {}
-    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
-        ranker.params[f"w{i}"] = torch.as_tensor(_glorot(rng, (a, b)))
-        ranker.params[f"b{i}"] = torch.zeros(b)
-    ranker.feat_mean = rng.standard_normal(len(names), np.float32)
-    ranker.feat_std = rng.uniform(0.5, 2.0, len(names)).astype(np.float32)
-    ranker.save(paths["ranker_path"])
+    write_random_ranker(paths["ranker_path"], rng, device)
 
     feats = Path(paths["features_dir"])
     feats.mkdir(parents=True, exist_ok=True)
@@ -1604,6 +1633,230 @@ def index_phase(model, data, view, device, seed: int, workdir: Path,
     return rec
 
 
+PIPELINE_INDEXES = (("exact", "float32"), ("fused", "bfloat16"), ("fused", "int8"))
+BPR_KERNELS = ("bpr_fwd_tile_kernel", "bpr_fwd_finish_kernel",
+               "bpr_bwd_tile_kernel", "bpr_bwd_finish_kernel")
+# the full row ranks with a random ranker (ranker training is not ported)
+REPORT_ROWS = {"full_random_ranker": ("ndcg@10", "recall@20", "mrr"),
+               "popularity": ("popularity_ndcg@10", "popularity_recall@20",
+                              "popularity_mrr"),
+               "retrieval_only": ("retrieval_only_ndcg@10",
+                                  "retrieval_only_recall@20", "retrieval_only_mrr")}
+EVAL_K = 20
+
+
+def _held_out_truth(data, split: float = 0.9):
+    """The evaluate stage's truth, computed here on its own: each user's
+    positives (rating >= 4) in the last 10 % of the ratings by time."""
+    from recommendit_tpu_torch.data.movielens import timestamp_order
+
+    rows = timestamp_order(data.timestamp)[int(len(data) * split):]
+    rows = rows[data.rating[rows] >= 4]
+    truth = {}
+    for u, i in zip(data.user_id[rows].tolist(), data.item_id[rows].tolist()):
+        truth.setdefault(u, []).append(i)
+    return truth
+
+
+def check_eval_lists(orch, seen, truth, device, seed: int, k: int = EVAL_K):
+    """The evaluate stage's ranked lists: the full and popularity rows hold
+    ``k`` distinct items the user did not rate in the train view; the
+    retrieval-only row is exactly the first ``k`` such items of the index's
+    top-C search (C = min(TOP_K_CANDIDATES, items)), so a user who rated
+    most of the C gets fewer, as in the reference. Then NDCG@10 and
+    Recall@20 of the retrieval-only row against a seeded random ranking of
+    the same users' unseen items. Returns the random ranking's row."""
+    from recommendit_tpu_torch.evaluation.metrics import evaluate_model
+    from recommendit_tpu_torch.models import MIPSIndex, TwoTower
+
+    lists = orch.eval_lists
+    for row in ("full", "popularity"):
+        for u, items in lists[row].items():
+            arr = np.asarray(items, dtype=np.int64)
+            if len(arr) != k or len(np.unique(arr)) != k or seen[u, arr].any():
+                raise AssertionError(f"{row} list of user {u}: {items}")
+    model = TwoTower.load(orch.cfg.EMBEDDING_MODEL_PATH, device=device)
+    index = MIPSIndex.load(orch.cfg.INDEX_PATH, device=device)
+    retr = lists["retrieval_only"]
+    users = list(retr)
+    q = np.stack([model.get_user_embedding(u) for u in users])
+    _, ids = index.batch_search(q, k=min(orch.cfg.TOP_K_CANDIDATES, index.n_total))
+    short = 0
+    for row, u in enumerate(users):
+        unseen = ids[row][~seen[u, ids[row]]]
+        if retr[u] != unseen[:k].tolist():
+            raise AssertionError(f"retrieval-only list of user {u}: {retr[u]}")
+        short += len(unseen) < k
+    rng = np.random.default_rng(seed + 5)
+    rand = {u: (rng.permutation(np.flatnonzero(~seen[u, 1:]) + 1)[:k]).tolist()
+            for u in users}
+    rand_report = evaluate_model(rand, truth, k_values=[10, 20])
+    return {"random_ndcg@10": rand_report["ndcg@10"],
+            "random_recall@20": rand_report["recall@20"],
+            "retrieval_only_short_lists": short}
+
+
+def _profiled_embeddings(orch, device):
+    """The embeddings stage with the BPR wrappers' counts set to 0 just
+    before and read just after, and on the card under ``torch.profiler``:
+    the launches of each BPR kernel it recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from recommendit_tpu_torch.ops import bpr
+
+    for name in bpr.LAUNCHES:
+        bpr.LAUNCHES[name] = 0
+    counts = {}
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            hist = orch.run_stage("embeddings")
+            torch.cuda.synchronize()
+        for key, _, count in device_events(prof):
+            name = _short_kernel_name(key)
+            if name.startswith("bpr_"):
+                counts[name] = counts.get(name, 0) + count
+    else:
+        hist = orch.run_stage("embeddings")
+    return hist, dict(bpr.LAUNCHES), counts
+
+
+def pipeline_phase(data, device, seed: int, workdir: Path, card: str,
+                   epochs: int = TRAIN_EPOCHS, dim: int = TRAIN_DIM,
+                   hidden: int = TRAIN_HIDDEN, batch: int = TRAIN_BATCH):
+    """The pipeline CLI's stages on ``data`` (the train phase's synthetic
+    ML-1M-shape set), as ``python -m recommendit_tpu_torch.pipelines.run_pipeline``
+    runs them: the ``.dat`` files written and read back equal; ``features``;
+    ``embeddings`` (Settings defaults but ``LOSS_MODE=in_batch`` and
+    ``epochs``), profiled, with one launch of each BPR kernel per step;
+    a random ranker (128, 64); the packed tables ``features`` wrote equal
+    to those ``RecommendationPipeline.load`` recomputes from the ratings;
+    then ``index`` and ``evaluate`` for the exact f32, fused bf16 and fused
+    int8 index, every user with held-out positives evaluated; ``skew``."""
+    import dataclasses
+    import shutil
+
+    from recommendit_tpu_torch.config import Settings
+    from recommendit_tpu_torch.data.movielens import load_movielens, save_movielens
+    from recommendit_tpu_torch.features.schema import ITEM_PACKED_DIM
+    from recommendit_tpu_torch.pipelines.run_pipeline import PipelineOrchestrator
+    from recommendit_tpu_torch.serving.recommender import RecommendationPipeline
+
+    root = workdir / "pipeline"
+    shutil.rmtree(root, ignore_errors=True)
+    rec = {"ratings": len(data), "users": data.n_users, "items": data.n_items}
+    t0 = time.perf_counter()
+    save_movielens(data, str(root / "ml"))
+    rec["save_dat_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = load_movielens(str(root / "ml"))
+    rec["load_dat_s"] = time.perf_counter() - t0
+    for f in dataclasses.fields(data):
+        if not np.array_equal(getattr(again, f.name), getattr(data, f.name)):
+            raise AssertionError(f"the .dat round trip changed {f.name}")
+
+    cfg = Settings(LOSS_MODE="in_batch", TRAIN_EPOCHS=epochs, SEED=seed,
+                   EMBEDDING_DIM=dim, HIDDEN_DIM=hidden, BATCH_SIZE=batch)
+    orch = PipelineOrchestrator(cfg=cfg, data_dir=str(root / "ml"),
+                                models_dir=str(root / "models"),
+                                features_dir=str(root / "features"),
+                                eval_users=data.n_users + 1, device=device)
+    orch.run_stage("features")
+    hist, launches, counts = _profiled_embeddings(orch, device)
+    steps = sum(h["steps"] for h in hist)
+    losses = [h["loss"] for h in hist]
+    rec.update(steps=steps, losses=losses, bpr_launches=launches,
+               bpr_profiled=counts)
+    if not (np.isfinite(losses).all() and losses[-1] < np.log(2.0)):
+        raise AssertionError(f"embeddings loss {losses}: not finite or not below ln 2")
+    on_card = torch.device(device).type == "cuda"
+    per_step = steps if on_card else 0
+    if launches != {"bpr_fwd": per_step, "bpr_bwd": per_step}:
+        raise AssertionError(f"expected {per_step} launches of each BPR "
+                             f"wrapper ({steps} steps), got {launches}")
+    if on_card and counts != {name: steps for name in BPR_KERNELS}:
+        raise AssertionError(f"the profiler saw BPR kernels {counts}, "
+                             f"expected each {steps} times")
+    write_random_ranker(orch.cfg.RANKER_MODEL_PATH, np.random.default_rng(seed + 6),
+                        device)
+
+    view = orch._train_view()
+    seen = np.zeros((data.n_users + 1, data.n_items + 1), dtype=bool)
+    seen[view.user_id, view.item_id] = True
+    truth = _held_out_truth(orch._load_data())
+    rec["eval_users"] = len(truth)
+    rec["stage_s"] = {k: orch.stage_times[k] for k in ("features", "embeddings")}
+    reports = {}
+    for mode, dtype in PIPELINE_INDEXES:
+        name = f"{mode}_{dtype}"
+        orch.cfg = orch.cfg.replace(
+            INDEX_MODE=mode, INDEX_DTYPE=dtype,
+            INDEX_PATH=str(root / "models" / f"mips_{name}.index.npz"))
+        orch.run_stage("index")
+        if mode == "exact":
+            # the packed tables: written by the features stage, recomputed
+            # by a load that has no features directory
+            t0 = time.perf_counter()
+            pipe = RecommendationPipeline(
+                model_path=orch.cfg.EMBEDDING_MODEL_PATH,
+                index_path=orch.cfg.INDEX_PATH,
+                ranker_path=orch.cfg.RANKER_MODEL_PATH, cfg=orch.cfg,
+                device=device)
+            pipe.load(view)
+            rec["load_recompute_s"] = time.perf_counter() - t0
+            up = pipe._user_packed.cpu().numpy()
+            ip = pipe._item_packed.cpu().numpy()
+            if not (np.array_equal(up, np.load(root / "features" / "user_packed.npy"))
+                    and np.array_equal(ip[:, :ITEM_PACKED_DIM],
+                                       np.load(root / "features" / "item_packed.npy"))
+                    and not ip[:, ITEM_PACKED_DIM:].any()):
+                raise AssertionError("the recomputed packed tables differ from "
+                                     "the features stage's")
+            del pipe
+        report = orch.run_stage("evaluate")
+        bad = [k for k, v in report.items()
+               if not isinstance(v, list) and not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{name}: non-finite report values {bad}")
+        if report["n_users"] != len(truth):
+            raise AssertionError(f"{name}: {report['n_users']} users evaluated, "
+                                 f"{len(truth)} have held-out positives")
+        rand = check_eval_lists(orch, seen, truth, device, seed)
+        for key in ("ndcg@10", "recall@20"):
+            if not report[f"retrieval_only_{key}"] > rand[f"random_{key}"]:
+                raise AssertionError(f"{name}: retrieval-only {key} "
+                                     f"{report[f'retrieval_only_{key}']} does not "
+                                     f"beat a random ranking's {rand[f'random_{key}']}")
+        reports[name] = {
+            "rows": {row: {k: report[k] for k in keys}
+                     for row, keys in REPORT_ROWS.items()},
+            **rand, "coverage": report["coverage"],
+            "paired_ndcg10_full_minus_retrieval":
+                report.get("paired_ndcg10_full_minus_retrieval"),
+            "index_s": orch.stage_times["index"],
+            "evaluate_s": orch.stage_times["evaluate"]}
+    skew = orch.run_stage("skew")
+    rec["stage_s"]["skew"] = orch.stage_times["skew"]
+    if skew["max_kl"] != 0.0 or skew["skew_detected"] or \
+            skew["n_features_checked"] != 50:
+        raise AssertionError(f"skew report: {skew}")
+    rec["skew"] = {k: skew[k] for k in ("max_kl", "skew_detected",
+                                        "n_features_checked")}
+    rec["reports"] = reports
+    i8, bf = (reports["fused_int8"]["rows"]["retrieval_only"],
+              reports["fused_bfloat16"]["rows"]["retrieval_only"])
+    rec["int8_minus_bf16_retrieval_only"] = {
+        k: i8[f"retrieval_only_{k}"] - bf[f"retrieval_only_{k}"]
+        for k in ("ndcg@10", "recall@20")}
+    print(json.dumps({"pipeline": rec, "card": card}), flush=True)
+    for name, r in reports.items():
+        print(f"pipeline {name} ({card}): " + "; ".join(
+            f"{row} " + ", ".join(f"{k.split('_')[-1]}={v:.5f}"
+                                  for k, v in vals.items())
+            for row, vals in r["rows"].items()), flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1692,6 +1945,13 @@ def main(argv=None) -> int:
     train_profile_phase(view, device, args.seed)
     index = index_phase(model, data, view, device, args.seed, workdir)
     print(json.dumps({"index": index}), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pipeline = pipeline_phase(data, device, args.seed, workdir, card)
+    print(json.dumps({"pipeline_s": time.perf_counter() - t0,
+                      "pipeline_bpr_launches": pipeline["bpr_launches"]}),
+          flush=True)
 
     print(json.dumps({"total_s": time.perf_counter() - t_start}), flush=True)
     main_q = checks[-1]
@@ -1737,6 +1997,7 @@ def main(argv=None) -> int:
     }, {
         "name": "bpr_fwd", "source": BPR_SOURCE, "replaces": BPR_REPLACES["bpr_fwd"],
         "launches": train["launches"]["bpr_fwd"],
+        "pipeline_launches": pipeline["bpr_launches"]["bpr_fwd"],
         "max_abs_err": max(abs(c["loss"] - c["twin_loss"]) for c in bpr_checks),
         "ms": main_b["fwd_device_ms"], "plain_ms": main_b["twin_fwd_device_ms"],
         # the (B, B) score matrix; the softplus per pair is not counted
@@ -1744,6 +2005,7 @@ def main(argv=None) -> int:
     }, {
         "name": "bpr_bwd", "source": BPR_SOURCE, "replaces": BPR_REPLACES["bpr_bwd"],
         "launches": train["launches"]["bpr_bwd"],
+        "pipeline_launches": pipeline["bpr_launches"]["bpr_bwd"],
         "max_abs_err": max(c["grad_max_abs_err"] for c in bpr_checks),
         "ms": main_b["bwd_device_ms"], "plain_ms": main_b["twin_bwd_device_ms"],
         # the scores, then du = G V and dv = G^T U

@@ -5,8 +5,9 @@ the same rating model (bilinear latent taste, genre taste from demographic
 groups, item quality, a genre-loyalty bonus, popularity-and-taste exposure,
 ML-1M marginals) drawn from the same numpy stream in the same order, so one
 seed gives the same ratings. It returns arrays (:class:`MovieLensData`)
-instead of DataFrames; titles, demographics and zip codes are drawn (to
-keep the stream) but not returned, since no ported stage reads them.
+instead of DataFrames: the ratings, the users table with its demographics
+and zip codes, the catalog with its titles (``Synthetic Movie <id>
+(<year>)``), genre strings and genre matrix.
 ``tests/test_torch_data.py`` holds it to the JAX generator value for value.
 """
 from __future__ import annotations
@@ -89,7 +90,11 @@ def make_synthetic_movielens(n_users: int = 600, n_items: int = 400,
     item_pop = rng.zipf(1.4, size=n_items).astype(np.float64)
     item_pop = np.log1p(item_pop)
     item_pop /= item_pop.max()
-    rng.integers(1940, 2001, size=n_items)           # release years (titles)
+    years = rng.integers(1940, 2001, size=n_items)
+    titles = np.array([f"Synthetic Movie {i} ({y})"
+                       for i, y in zip(item_ids.tolist(), years.tolist())])
+    genre_strs = np.array(["|".join(GENRES[g] for g in gs)
+                           for gs in item_genre_sets])
 
     # users: demographic-group genre tastes + individual taste
     user_ids = np.arange(1, n_users + 1)
@@ -110,7 +115,8 @@ def make_synthetic_movielens(n_users: int = 600, n_items: int = 400,
     taste /= np.linalg.norm(taste, axis=1, keepdims=True) + 1e-9
     user_latent = rng.normal(size=(n_users, latent_dim))
     user_bias = rng.normal(size=n_users)
-    rng.integers(0, 99999, size=n_users)             # zip codes
+    zip_codes = np.array([f"{z:05d}" for z in
+                          rng.integers(0, 99999, size=n_users).tolist()])
 
     # interactions: long-tail activity per user; items sampled by
     # popularity tilted toward each user's taste (exposure)
@@ -171,4 +177,6 @@ def make_synthetic_movielens(n_users: int = 600, n_items: int = 400,
         user_id=user_ids[u_idx][order], item_id=item_ids[i_idx][order],
         rating=rating[order], timestamp=timestamps[order].astype(np.int64),
         user_ids=user_ids, item_ids=item_ids,
-        genres=item_genre_mat.astype(np.float32))
+        genres=item_genre_mat.astype(np.float32),
+        gender=genders, age=ages.astype(np.int64), occupation=occs.astype(np.int64),
+        zip_code=zip_codes, titles=titles, genre_strs=genre_strs)

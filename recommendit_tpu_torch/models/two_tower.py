@@ -196,6 +196,14 @@ class TwoTower(nn.Module):
     def device(self) -> torch.device:
         return self.user_embed.device
 
+    def get_user_embedding(self, user_id: int) -> np.ndarray:
+        """One user's normalised embedding, (D,) float32; ids outside
+        [0, n_users] raise ``ValueError``, as in JAX."""
+        if not (0 <= user_id <= self.n_users):
+            raise ValueError(f"user_id {user_id} out of range [0, {self.n_users}]")
+        emb = self.user_tower(torch.as_tensor([user_id], device=self.device))
+        return emb[0].cpu().numpy().astype(np.float32)
+
     def get_item_embeddings(self, item_ids: np.ndarray, genre_matrix: np.ndarray,
                             batch_size: int = 65536) -> np.ndarray:
         """Batched catalog embedding → (N, D) float32 numpy."""

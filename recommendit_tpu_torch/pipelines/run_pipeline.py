@@ -1,0 +1,338 @@
+"""Pipeline orchestrator CLI — torch port.
+
+Counterpart of ``recommendit_tpu/pipelines/run_pipeline.py`` for the
+stages ported so far: ``data`` (synthetic only: downloading needs the
+network), ``features``, ``embeddings``, ``index``, ``evaluate`` and
+``skew``, with per-stage timing. ``ranker``, ``load_features`` and ``all``
+are not offered yet (ROADMAP.md, queue A). The stages run on the card
+unless ``--device cpu`` is given.
+
+    python -m recommendit_tpu_torch.pipelines.run_pipeline --stage features \\
+        --data-dir data/ml-1m --models-dir models
+
+The ML-1M files (``ratings.dat``, ``users.dat``, ``movies.dat``,
+``README``) are placed in ``--data-dir`` by hand; ``--synthetic`` writes a
+synthetic set there instead when the directory is incomplete.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import time
+from itertools import islice
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from recommendit_tpu_torch.config import Settings, settings as default_settings
+from recommendit_tpu_torch.data.movielens import (
+    MovieLensData,
+    load_or_synthesize,
+    save_movielens,
+    timestamp_order,
+    verify_dataset,
+)
+from recommendit_tpu_torch.data.synthetic import make_synthetic_movielens
+from recommendit_tpu_torch.evaluation.metrics import (
+    detect_training_serving_skew,
+    evaluate_model,
+    ndcg_at_k,
+)
+from recommendit_tpu_torch.features.engineering import FeatureEngineer
+from recommendit_tpu_torch.features.schema import (
+    FEATURE_COLUMNS,
+    assemble_packed_np,
+    pack_item_features,
+    pack_user_features,
+)
+from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from recommendit_tpu_torch.utils.logging import setup_logging
+
+logger = logging.getLogger(__name__)
+
+STAGES = ["data", "features", "embeddings", "index", "evaluate", "skew"]
+EVAL_SPLIT = 0.9       # the evaluate stage's temporal cut (reference protocol)
+SKEW_PAIRS = 4000      # training pairs the skew stage compares
+
+
+def _group_items(user_id: np.ndarray, item_id: np.ndarray) -> Dict[int, np.ndarray]:
+    """Each user's items in row order, by user id (``groupby("user_id")``)."""
+    order = np.argsort(user_id, kind="stable")
+    users, starts = np.unique(user_id[order], return_index=True)
+    items = np.split(item_id[order], starts[1:])
+    return dict(zip(users.tolist(), items))
+
+
+class PipelineOrchestrator:
+    def __init__(
+        self,
+        cfg: Optional[Settings] = None,
+        data_dir: Optional[str] = None,
+        models_dir: str = "models",
+        features_dir: str = "data/features",
+        synthetic: bool = False,
+        eval_users: int = 200,
+        device=DEFAULT_DEVICE,
+    ):
+        self.cfg = cfg or default_settings
+        self.data_dir = data_dir or self.cfg.DATA_DIR
+        self.models_dir = Path(models_dir)
+        self.features_dir = features_dir
+        self.synthetic = synthetic
+        self.eval_users = eval_users
+        self.device = resolve_device(device)
+        self.stage_times: Dict[str, float] = {}
+        # the evaluate stage's ranked lists, by row ("full", "popularity",
+        # "retrieval_only") and user
+        self.eval_lists: Dict[str, Dict[int, List[int]]] = {}
+        self._data: Optional[MovieLensData] = None
+        # the artifacts go into models_dir
+        self.cfg = self.cfg.replace(
+            EMBEDDING_MODEL_PATH=str(self.models_dir / "two_tower.npz"),
+            INDEX_PATH=str(self.models_dir / "mips.index.npz"),
+            RANKER_MODEL_PATH=str(self.models_dir / "ranker.npz"),
+            DATA_DIR=self.data_dir)
+
+    # ------------------------------------------------------------------ #
+
+    def _timed(self, name: str, fn):
+        logger.info("=== stage: %s ===", name)
+        t0 = time.time()
+        out = fn()
+        dt = time.time() - t0
+        self.stage_times[name] = dt
+        logger.info("=== stage %s done in %.2fs ===", name, dt)
+        return out
+
+    def _synthesize(self) -> MovieLensData:
+        data = make_synthetic_movielens(
+            n_users=self.cfg.SYNTH_USERS, n_items=self.cfg.SYNTH_ITEMS,
+            n_ratings=self.cfg.SYNTH_RATINGS, seed=self.cfg.SEED)
+        save_movielens(data, self.data_dir)
+        return data
+
+    def _load_data(self) -> MovieLensData:
+        if self._data is None:
+            if self.synthetic and not verify_dataset(Path(self.data_dir)):
+                self._synthesize()
+            self._data = load_or_synthesize(self.data_dir, seed=self.cfg.SEED)
+        return self._data
+
+    def _train_view(self) -> MovieLensData:
+        """The temporal train split the training stages see: the first
+        ``TRAIN_SPLIT_FRACTION`` of the ratings by time (C.11's order); the
+        users table and the catalog stay whole."""
+        return self._load_data().train_view(self.cfg.TRAIN_SPLIT_FRACTION)
+
+    # ------------------------------------------------------------------ #
+    # Stages                                                               #
+    # ------------------------------------------------------------------ #
+
+    def run_data(self):
+        if not self.synthetic:
+            raise RuntimeError(
+                "downloading MovieLens-1M needs the network; place "
+                "ratings.dat, users.dat, movies.dat and README in "
+                f"{self.data_dir} by hand, or pass --synthetic")
+        self._data = self._synthesize()
+        logger.info("Synthetic dataset written to %s", self.data_dir)
+
+    def run_features(self):
+        fe = FeatureEngineer(seed=self.cfg.SEED)
+        fe.set_data(self._train_view())
+        fe.build_user_features()
+        fe.build_item_features()
+        fe.save_features(self.features_dir)
+
+    def run_embeddings(self):
+        """Train the towers on the train view. The JAX stage resumes from a
+        train-state checkpoint and can offload the tables to the host;
+        neither is ported, so a run that would take either raises."""
+        from recommendit_tpu_torch.training.train_embeddings import EmbeddingTrainer
+
+        if self.cfg.HOST_TABLE:
+            raise NotImplementedError(
+                "HOST_TABLE training is not ported yet (ROADMAP.md, queue A, "
+                "training/host_train.py)")
+        best = self.models_dir / "two_tower_ckpt" / "best"
+        if best.exists():
+            raise NotImplementedError(
+                f"resuming from the checkpoint at {best} is not ported yet "
+                "(ROADMAP.md, queue A, utils/checkpoint.py)")
+        trainer = EmbeddingTrainer(self._train_view(), self.cfg,
+                                   model_output_path=self.cfg.EMBEDDING_MODEL_PATH,
+                                   device=self.device)
+        trainer.train()
+        return trainer.history
+
+    def run_index(self):
+        from recommendit_tpu_torch.training.build_index import IndexBuilder
+
+        IndexBuilder(self._train_view(), self.cfg,
+                     model_path=self.cfg.EMBEDDING_MODEL_PATH,
+                     index_output_path=self.cfg.INDEX_PATH,
+                     device=self.device).build()
+
+    def run_evaluate(self) -> Dict:
+        """Temporal-split offline evaluation through the serving pipeline
+        (last 10 % by time, relevance = rating ≥ 4, K ∈ {5, 10, 20}, the
+        first ``eval_users`` users with held-out positives by user id),
+        with the popularity and retrieval-only rows and the paired NDCG@10
+        statistic. The serving pipeline sees only the train view."""
+        from recommendit_tpu_torch.serving.recommender import (
+            RecommendationPipeline,
+            popularity_order,
+        )
+
+        data = self._load_data()
+        order = timestamp_order(data.timestamp)
+        cut = int(len(order) * EVAL_SPLIT)
+        train_rows, test_rows = order[:cut], order[cut:]
+        test_rows = test_rows[data.rating[test_rows] >= 4]
+        truth = {u: items.tolist() for u, items in _group_items(
+            data.user_id[test_rows], data.item_id[test_rows]).items()}
+        users = list(truth.keys())[: self.eval_users]
+
+        pipeline = RecommendationPipeline(
+            model_path=self.cfg.EMBEDDING_MODEL_PATH,
+            index_path=self.cfg.INDEX_PATH,
+            ranker_path=self.cfg.RANKER_MODEL_PATH,
+            features_dir=self.features_dir, cfg=self.cfg, device=self.device)
+        pipeline.load(self._train_view())
+        recs = pipeline.batch_recommend(users, k=20)
+
+        # every row filters the user's train-time items when FILTER_SEEN is
+        # on, as the serve path does
+        seen_train = (
+            {u: set(items.tolist()) for u, items in _group_items(
+                data.user_id[train_rows], data.item_id[train_rows]).items()}
+            if self.cfg.FILTER_SEEN else {})
+
+        def _filtered(u, ordered_ids, k=20):
+            s = seen_train.get(u, ())
+            return list(islice((int(i) for i in ordered_ids if i not in s), k))
+
+        pop_all = popularity_order(data.item_id[train_rows]).tolist()
+        pop_recs = {u: _filtered(u, pop_all) for u in users}
+        self.eval_lists = {"full": recs, "popularity": pop_recs}
+        report = evaluate_model(recs, truth, k_values=[5, 10, 20],
+                                catalog_size=data.n_items)
+        pop_report = evaluate_model(pop_recs, truth, k_values=[10, 20])
+        report["popularity_ndcg@10"] = pop_report["ndcg@10"]
+        report["popularity_recall@20"] = pop_report["recall@20"]
+        report["popularity_mrr"] = pop_report["mrr"]
+
+        known = [u for u in users if 1 <= u <= pipeline.model.n_users]
+        if known:
+            q = np.stack([pipeline.model.get_user_embedding(u) for u in known])
+            k_search = (min(self.cfg.TOP_K_CANDIDATES, pipeline.index.n_total)
+                        if self.cfg.FILTER_SEEN else 20)
+            _, ids = pipeline.index.batch_search(q, k=k_search)
+            retr_recs = {u: _filtered(u, ids[i].tolist())
+                         for i, u in enumerate(known)}
+            self.eval_lists["retrieval_only"] = retr_recs
+            retr_report = evaluate_model(retr_recs, truth, k_values=[10, 20])
+            report["retrieval_only_ndcg@10"] = retr_report["ndcg@10"]
+            report["retrieval_only_recall@20"] = retr_report["recall@20"]
+            report["retrieval_only_mrr"] = retr_report["mrr"]
+
+            # the two rows score the same users: the paired difference
+            d = np.asarray([
+                ndcg_at_k(recs.get(u, []), truth[u], 10)
+                - ndcg_at_k(retr_recs[u], truth[u], 10)
+                for u in known if truth.get(u)
+            ])
+            if len(d) > 1:
+                se = float(d.std(ddof=1) / np.sqrt(len(d)))
+                report["paired_ndcg10_full_minus_retrieval"] = float(d.mean())
+                report["paired_ndcg10_se"] = se
+                report["paired_ndcg10_t"] = float(d.mean() / se) if se > 0 else 0.0
+
+        out = self.models_dir / "evaluation.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(report, indent=2, default=float))
+        logger.info("Evaluation written to %s", out)
+        return report
+
+    def run_skew(self) -> Dict:
+        """Training-serving skew check: the offline feature join of a
+        sample of training pairs against the packed-table assembly of the
+        same (user, item) pairs. With one contract the two agree (max KL
+        0); a nonzero report means the contract drifted."""
+        data = self._train_view()
+        fe = FeatureEngineer(seed=self.cfg.SEED)
+        fe.set_data(data)
+        fe.load_features(self.features_dir)
+        if fe.user_features is None or fe.item_features is None:
+            fe.build_user_features()
+            fe.build_item_features()
+
+        pairs, _ = fe.build_training_pairs(n_negatives=2, seed=self.cfg.SEED)
+        # DataFrame.sample(n, random_state=SEED): a RandomState permutation's
+        # first n rows
+        n = len(pairs["label"])
+        take = np.random.RandomState(self.cfg.SEED).permutation(n)[:min(SKEW_PAIRS, n)]
+        sample = {c: a[take] for c, a in pairs.items()}
+        train_feats = fe.build_interaction_features(sample)
+
+        user_table = pack_user_features(fe.user_features, data.n_users)
+        item_table = pack_item_features(fe.item_features, data.n_items)
+        rows = np.stack([
+            assemble_packed_np(user_table[int(u)], item_table[np.array([int(i)])])[0]
+            for u, i in zip(sample["user_id"].tolist(), sample["item_id"].tolist())
+        ]) if n else np.zeros((0, len(FEATURE_COLUMNS)), np.float32)
+        serving_feats = {c: rows[:, j] for j, c in enumerate(FEATURE_COLUMNS)}
+
+        report = detect_training_serving_skew(
+            {c: train_feats[c] for c in FEATURE_COLUMNS}, serving_feats,
+            threshold=self.cfg.SKEW_KL_THRESHOLD)
+        out = self.models_dir / "skew_report.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(report, indent=2, default=float))
+        logger.info("Skew check: max_kl=%.6f detected=%s (report → %s)",
+                    report["max_kl"], report["skew_detected"], out)
+        return report
+
+    # ------------------------------------------------------------------ #
+
+    def run_stage(self, stage: str):
+        if stage not in STAGES:
+            raise ValueError(f"Unknown stage {stage}; choose from {STAGES}")
+        return self._timed(stage, getattr(self, f"run_{stage}"))
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="recommendit_tpu_torch pipeline")
+    parser.add_argument("--stage", choices=STAGES, required=True)
+    parser.add_argument("--data-dir", default=None)
+    parser.add_argument("--models-dir", default="models")
+    parser.add_argument("--features-dir", default=None)
+    parser.add_argument("--synthetic", action="store_true",
+                        help="generate synthetic MovieLens-format data")
+    parser.add_argument("--eval-users", type=int, default=200)
+    parser.add_argument("--device", default=DEFAULT_DEVICE,
+                        help="where the stages run (default: the card)")
+    args = parser.parse_args(argv)
+
+    setup_logging(default_settings.LOG_LEVEL)
+    orch = PipelineOrchestrator(
+        cfg=default_settings,
+        data_dir=args.data_dir,
+        models_dir=args.models_dir,
+        features_dir=args.features_dir or (
+            str(Path(args.data_dir).parent / "features") if args.data_dir
+            else "data/features"),
+        synthetic=args.synthetic,
+        eval_users=args.eval_users,
+        device=args.device,
+    )
+    result = orch.run_stage(args.stage)
+    if isinstance(result, dict):
+        print(json.dumps(result, indent=2, default=float))
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -8,8 +8,10 @@ unknown users and the unseen-popularity backfill. The hot path runs on
 batches of 384 users or more through the window kernel
 (``ops/mips_window.py``).
 
-``load`` needs no pandas: it takes plain arrays (:class:`ServeData`) or a
-``MovieLensData``, whose frames are read through ``to_numpy`` only.
+``load`` needs no pandas: it takes the port's ``MovieLensData`` — whose
+ratings the packed feature tables are recomputed from when no fresh
+snapshot is in ``features_dir`` — or plain arrays (:class:`ServeData`),
+which need the snapshots.
 """
 from __future__ import annotations
 
@@ -25,7 +27,19 @@ import numpy as np
 import torch
 
 from recommendit_tpu_torch.config import Settings, settings as default_settings
-from recommendit_tpu_torch.features.schema import assemble_packed, pad_packed_width
+from recommendit_tpu_torch.data.movielens import MovieLensData
+from recommendit_tpu_torch.features.engineering import (
+    ITEM_SNAPSHOT,
+    USER_FILE,
+    USER_SNAPSHOT,
+    FeatureEngineer,
+)
+from recommendit_tpu_torch.features.schema import (
+    assemble_packed,
+    pack_item_features,
+    pack_user_features,
+    pad_packed_width,
+)
 from recommendit_tpu_torch.features.store import FeatureStore
 from recommendit_tpu_torch.models import MIPSIndex, TwoTower, load_ranker
 from recommendit_tpu_torch.ops.seen import SeenSet, seen_mask
@@ -61,18 +75,18 @@ class ServeData:
     genres: Dict[int, List[str]] = dataclasses.field(default_factory=dict)
 
     @classmethod
-    def from_movielens(cls, data) -> "ServeData":
-        """From a ``MovieLensData`` (ratings / movies frames)."""
-        r, m = data.ratings, data.movies
-        ids = m["item_id"].to_numpy().astype(np.int64).tolist()
+    def from_movielens(cls, data: MovieLensData) -> "ServeData":
+        """From the port's ``MovieLensData``: its ratings, sizes, titles and
+        genre lists."""
+        ids = np.asarray(data.item_ids).astype(np.int64).tolist()
         return cls(
-            user_id=r["user_id"].to_numpy(),
-            item_id=r["item_id"].to_numpy(),
+            user_id=data.user_id,
+            item_id=data.item_id,
             n_users=int(data.n_users),
             n_items=int(data.n_items),
-            titles=dict(zip(ids, m["title"].astype(str).tolist())),
+            titles=dict(zip(ids, [str(t) for t in data.titles.tolist()])),
             genres={i: str(g).split("|")
-                    for i, g in zip(ids, m["genres"].tolist())},
+                    for i, g in zip(ids, data.genre_strs.tolist())},
         )
 
 
@@ -163,8 +177,9 @@ class RecommendationPipeline:
 
     def load(self, data) -> None:
         """Load the model files and build the serve path. ``data``: a
-        :class:`ServeData` or a ``MovieLensData``."""
+        ``MovieLensData`` or a :class:`ServeData`."""
         t0 = time.time()
+        source = data
         if not isinstance(data, ServeData):
             data = ServeData.from_movielens(data)
         self.model = TwoTower.load(self.model_path, device=self.device)
@@ -178,33 +193,67 @@ class RecommendationPipeline:
                       int(np.max(data.user_id, initial=0)))
         n_items = max(self.model.n_items, data.n_items,
                       int(np.max(data.item_id, initial=0)))
-        self._load_packed_tables(n_users, n_items)
+        self._load_packed_tables(source, n_users, n_items)
         self._seen = (SeenSet(data.user_id, data.item_id, n_items)
                       if self.cfg.FILTER_SEEN else None)
         self._build_serve_fn()
         self._loaded = True
         logger.info("Pipeline loaded in %.2fs", time.time() - t0)
 
-    def _load_packed_tables(self, n_users: int, n_items: int) -> None:
-        """The packed user/item feature tables from their ``.npy``
-        snapshots (``user_packed.npy``, ``item_packed.npy``) in
-        ``features_dir`` — the JAX pipeline's fast path. Recomputing them
-        from raw ratings needs the pandas feature engineering, which is not
-        ported (ROADMAP)."""
-        if not self.features_dir:
-            raise ValueError("features_dir with the packed .npy snapshots is required")
-        snap_u = Path(self.features_dir) / "user_packed.npy"
-        snap_i = Path(self.features_dir) / "item_packed.npy"
-        up = np.load(snap_u, mmap_mode="r")
-        ip = np.load(snap_i, mmap_mode="r")
-        if up.shape[0] < n_users + 1 or ip.shape[0] < n_items + 1:
+    def _load_packed_tables(self, data, n_users: int, n_items: int) -> None:
+        """The packed user/item feature tables (JAX ``_build_packed_tables``).
+
+        The ``.npy`` snapshots in ``features_dir`` are used when they are
+        fresh (no newer ``user_features.npz``) and large enough. Otherwise
+        the feature tables are loaded from ``features_dir`` or computed
+        from ``data``'s ratings, packed, and written back as the snapshots
+        (when there is a ``features_dir``). A :class:`ServeData` holds no
+        ratings to compute from, so without a usable snapshot it raises."""
+        snap_u = snap_i = None
+        if self.features_dir:
+            snap_u = Path(self.features_dir) / USER_SNAPSHOT
+            snap_i = Path(self.features_dir) / ITEM_SNAPSHOT
+            feats = Path(self.features_dir) / USER_FILE
+            fresh = (snap_u.exists() and snap_i.exists()
+                     and (not feats.exists()
+                          or snap_u.stat().st_mtime >= feats.stat().st_mtime))
+            if fresh:
+                up = np.load(snap_u, mmap_mode="r")
+                ip = np.load(snap_i, mmap_mode="r")
+                if up.shape[0] >= n_users + 1 and ip.shape[0] >= n_items + 1:
+                    logger.info("Loaded packed feature snapshot from %s",
+                                self.features_dir)
+                    self._set_packed_tables(up[: n_users + 1],
+                                            ip[: n_items + 1], n_users)
+                    return
+        if isinstance(data, ServeData):
             raise ValueError(
-                f"packed snapshot too small: users {up.shape[0]} < {n_users + 1} "
-                f"or items {ip.shape[0]} < {n_items + 1}")
+                "no fresh packed feature snapshot of the right size in "
+                f"features_dir={self.features_dir!r}; load a MovieLensData "
+                "to compute the features from its ratings")
+
+        fe = FeatureEngineer(seed=self.cfg.SEED)
+        fe.set_data(data)
+        if self.features_dir and Path(self.features_dir).exists():
+            fe.load_features(self.features_dir)
+        if fe.user_features is None or fe.item_features is None:
+            fe.build_user_features()
+            fe.build_item_features()
+        user_packed = pack_user_features(fe.user_features, n_users)
+        item_packed = pack_item_features(fe.item_features, n_items)
+        if snap_u is not None:
+            snap_u.parent.mkdir(parents=True, exist_ok=True)
+            np.save(snap_u, user_packed)
+            np.save(snap_i, item_packed)
+        self._set_packed_tables(user_packed, item_packed, n_users)
+
+    def _set_packed_tables(self, user_packed, item_packed, n_users: int) -> None:
+        """Move the tables to the device, the item rows padded to
+        ``GATHER_PAD_WIDTH`` columns."""
         self._user_packed = torch.as_tensor(
-            np.array(up[: n_users + 1], np.float32), device=self.device)
+            np.array(user_packed, np.float32), device=self.device)
         self._item_packed = torch.as_tensor(
-            pad_packed_width(np.array(ip[: n_items + 1], np.float32)),
+            pad_packed_width(np.array(item_packed, np.float32)),
             device=self.device)
         self._n_users = n_users
 

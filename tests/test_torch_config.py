@@ -16,6 +16,7 @@ from recommendit_tpu_torch.data.synthetic import make_synthetic_movielens
 from recommendit_tpu_torch.models import LambdaRankScorer, MIPSIndex, TwoTower, load_ranker
 from recommendit_tpu_torch.models import two_tower
 from recommendit_tpu_torch.ops import quantize
+from recommendit_tpu_torch.pipelines import PipelineOrchestrator
 from recommendit_tpu_torch.serving.recommender import RecommendationPipeline
 from recommendit_tpu_torch.training import EmbeddingTrainer, IndexBuilder
 from recommendit_tpu_torch.utils.device import resolve_device
@@ -83,6 +84,7 @@ ENTRY_POINTS = {
     "IndexBuilder": IndexBuilder.__init__,
     "EmbeddingTrainer": EmbeddingTrainer.__init__,
     "threefry_uniform": quantize.threefry_uniform,
+    "PipelineOrchestrator": PipelineOrchestrator.__init__,
 }
 
 
@@ -137,6 +139,7 @@ def _calls(tmp, params):
         "IndexBuilder": lambda: IndexBuilder(data),
         "EmbeddingTrainer": lambda: EmbeddingTrainer(data, model_output_path=""),
         "threefry_uniform": lambda: quantize.threefry_uniform(0, 4),
+        "PipelineOrchestrator": lambda: PipelineOrchestrator(),
     }
 
 

@@ -50,6 +50,18 @@ def test_catalog_and_sizes_equal(pair):
     assert (td.n_users, td.n_items) == (jd.n_users, jd.n_items)
 
 
+def test_titles_genre_strings_and_demographics_equal(pair):
+    jd, td = pair
+    m, u = jd.movies, jd.users
+    assert td.titles.tolist() == m["title"].tolist()
+    assert td.genre_strs.tolist() == m["genres"].tolist()
+    assert td.gender.tolist() == u["gender"].tolist()
+    np.testing.assert_array_equal(td.age, u["age"].values)
+    np.testing.assert_array_equal(td.occupation, u["occupation"].values)
+    assert td.zip_code.tolist() == u["zip_code"].tolist()
+    assert td.age.dtype == td.occupation.dtype == np.int64
+
+
 @pytest.mark.parametrize("fraction", [0.9, 0.5, 1.0])
 def test_train_view_equals_the_pipeline_view(pair, fraction, tmp_path):
     jd, td = pair
@@ -65,6 +77,7 @@ def test_train_view_equals_the_pipeline_view(pair, fraction, tmp_path):
     np.testing.assert_array_equal(got.rating, want["rating"].values)
     np.testing.assert_array_equal(got.timestamp, _seconds(want["timestamp"]))
     assert got.item_ids is td.item_ids and got.genres is td.genres
+    assert got.titles is td.titles and got.gender is td.gender
 
 
 def test_timestamp_order_is_the_pandas_order():

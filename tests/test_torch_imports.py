@@ -1,8 +1,8 @@
 """The port imports and runs with neither jax nor pandas installed.
 
-Each check runs in a subprocess whose ``sys.modules`` maps ``jax`` and
-``pandas`` to None, so any import of either raises there, as it would on a
-machine without them.
+Each check runs in a subprocess whose ``sys.modules`` maps ``jax``,
+``pandas`` and ``pyarrow`` to None, so any import of them raises there, as
+it would on a machine without them.
 """
 import json
 import subprocess
@@ -41,9 +41,16 @@ MODULES = [
     "recommendit_tpu_torch.training",
     "recommendit_tpu_torch.training.train_embeddings",
     "recommendit_tpu_torch.training.build_index",
+    "recommendit_tpu_torch.features.engineering",
+    "recommendit_tpu_torch.evaluation",
+    "recommendit_tpu_torch.evaluation.metrics",
+    "recommendit_tpu_torch.pipelines",
+    "recommendit_tpu_torch.pipelines.run_pipeline",
+    "recommendit_tpu_torch.utils.logging",
     "chip_smoke",
 ]
-_BLOCK = 'import sys\nsys.modules["jax"] = None\nsys.modules["pandas"] = None\n'
+_BLOCK = ('import sys\nsys.modules["jax"] = None\nsys.modules["pandas"] = None\n'
+          'sys.modules["pyarrow"] = None\n')
 # what the port may load from the JAX package: nothing (it keeps copies of
 # the framework-free modules it needs)
 _ALLOWED_JAX_PKG = set()
@@ -80,7 +87,8 @@ def test_imports_without_jax_or_pandas(import_report, module):
 
 def test_no_jax_pandas_or_other_jax_package_modules_loaded(import_report):
     loaded = import_report["loaded"]
-    assert not [m for m in loaded if m.split(".")[0] in ("jax", "jaxlib", "pandas")]
+    assert not [m for m in loaded
+                if m.split(".")[0] in ("jax", "jaxlib", "pandas", "pyarrow")]
     jax_pkg = {m for m in loaded if m.split(".")[0] == "recommendit_tpu"}
     assert jax_pkg <= _ALLOWED_JAX_PKG, jax_pkg - _ALLOWED_JAX_PKG
 
@@ -146,3 +154,21 @@ print("served", out["batch_users"])
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "served 200" in proc.stdout
+
+
+def test_pipeline_runs_without_jax_or_pandas(tmp_path):
+    """chip_smoke's pipeline phase (the CLI's stages from the .dat files to
+    the skew report) at a small size on the CPU with all three blocked."""
+    code = f"""
+from pathlib import Path
+import torch
+import chip_smoke
+torch.set_num_threads(1)
+data, _ = chip_smoke.make_train_data(0, 600, 400, 40_000)
+rec = chip_smoke.pipeline_phase(data, "cpu", 0, Path({str(tmp_path)!r}), "cpu",
+                                epochs=4, dim=16, hidden=32, batch=256)
+print("pipeline", rec["eval_users"], rec["skew"]["max_kl"])
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "pipeline" in proc.stdout and " 0.0" in proc.stdout

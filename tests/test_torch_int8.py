@@ -408,6 +408,9 @@ def served_int8(tmp_path_factory):
         RecommendationPipeline as JaxPipeline,
     )
     from recommendit_tpu.training.train_embeddings import build_genre_table
+    from recommendit_tpu_torch.data.synthetic import (
+        make_synthetic_movielens as torch_synth,
+    )
     from recommendit_tpu_torch.serving.recommender import RecommendationPipeline
 
     tmp = tmp_path_factory.mktemp("torch_int8_serving")
@@ -453,7 +456,8 @@ def served_int8(tmp_path_factory):
         jax_batch = [np.asarray(a) for a in jp._serve_batch_fn(
             jnp.arange(1, N_USERS + 1, dtype=jnp.int32))]
     tp = RecommendationPipeline(device="cpu", **paths)
-    tp.load(data)
+    tp.load(torch_synth(n_users=N_USERS, n_items=N_ITEMS, n_ratings=20_000,
+                        seed=6))   # the JAX data drawn again as arrays
     return jp, tp, jax_batch, windows
 
 

@@ -60,6 +60,9 @@ def served(request, tmp_path_factory):
         RecommendationPipeline as JaxPipeline,
     )
     from recommendit_tpu.training.train_embeddings import build_genre_table
+    from recommendit_tpu_torch.data.synthetic import (
+        make_synthetic_movielens as torch_synth,
+    )
     from recommendit_tpu_torch.serving.recommender import RecommendationPipeline
 
     tmp = tmp_path_factory.mktemp("torch_serving")
@@ -111,7 +114,8 @@ def served(request, tmp_path_factory):
         jax_batch = [np.asarray(a) for a in jp._serve_batch_fn(
             jnp.arange(1, N_USERS + 1, dtype=jnp.int32))]
     tp = RecommendationPipeline(device="cpu", **paths)
-    tp.load(data)
+    tp.load(torch_synth(n_users=N_USERS, n_items=N_ITEMS, n_ratings=20_000,
+                        seed=5))   # the JAX data drawn again as arrays
     return jp, tp, jax_batch, windows
 
 
@@ -227,6 +231,28 @@ class TestRequestParity:
         assert cal["measured"] and cal["timer"] == "host"
         assert 0.05 <= cal["retrieval_fraction"] <= 0.95
         assert tp._calls_since_recal == 0
+
+
+def test_load_from_the_ports_movielens_data(served):
+    """``load`` takes the port's own container (arrays, no frames): the
+    same serve path, titles and genre lists as a load from the JAX one."""
+    from recommendit_tpu_torch.data.synthetic import make_synthetic_movielens
+    from recommendit_tpu_torch.serving.recommender import RecommendationPipeline
+
+    jp, tp, _, _ = served
+    data = make_synthetic_movielens(n_users=N_USERS, n_items=N_ITEMS,
+                                    n_ratings=20_000, seed=5)
+    p2 = RecommendationPipeline(
+        model_path=tp.model_path, index_path=tp.index_path,
+        ranker_path=tp.ranker_path, features_dir=tp.features_dir,
+        cfg=tp.cfg, device="cpu")
+    p2.load(data)
+    for x, y in zip(tp.serve_batch([4, 8, 15]), p2.serve_batch([4, 8, 15])):
+        assert torch.equal(x, y)
+    assert p2._item_titles == jp._item_titles
+    assert p2._item_genres == jp._item_genres
+    assert p2._popularity_fallback == jp._popularity_fallback
+    np.testing.assert_array_equal(p2._seen.cols, tp._seen.cols)
 
 
 def test_load_from_plain_arrays(served):

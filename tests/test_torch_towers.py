@@ -180,3 +180,23 @@ def test_precompute_item_embeddings_keeps_the_catalog(carried):
     out = model.precompute_item_embeddings(ids, g)
     assert out.shape == (N_ITEMS, DIM) and model._item_embeddings is out
     np.testing.assert_array_equal(model._item_ids, ids)
+
+
+def test_get_user_embedding_matches_jax(carried):
+    """One user's normalised (D,) f32 embedding, as JAX's
+    ``TwoTowerModel.get_user_embedding``; ids outside [0, n_users] raise
+    ``ValueError`` on both sides."""
+    params, model = carried
+    jax_model = jtt.TwoTowerModel(N_USERS, N_ITEMS, DIM, HIDDEN, params=params)
+    for u in (0, 1, 17, N_USERS):
+        got = model.get_user_embedding(u)
+        want = jax_model.get_user_embedding(u)
+        assert got.shape == (DIM,) and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+        if u:        # row 0 is the zero padding row
+            np.testing.assert_allclose(np.linalg.norm(got), 1.0, atol=1e-5)
+    for bad in (-1, N_USERS + 1):
+        with pytest.raises(ValueError, match="out of range"):
+            jax_model.get_user_embedding(bad)
+        with pytest.raises(ValueError, match="out of range"):
+            model.get_user_embedding(bad)
