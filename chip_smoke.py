@@ -27,8 +27,10 @@ Then two-tower training and the offline pipeline, at the repository's BPR traini
 towers 64/128, batch 1,024, dropout 0.2, AdamW under a cosine schedule with
 global-norm clipping at 1.0, ``LOSS_MODE=in_batch``, on synthetic ML-1M
 data (1,000,209 ratings requested) made from ``--seed``; then the pipeline
-CLI's data, features, embeddings, index, evaluate and skew stages on the
-same data (the ML-1M shape: 6,040 users, 3,952 items; 2 epochs, not 60).
+CLI's ``all`` on the same data (the ML-1M shape: 6,040 users, 3,952 items;
+2 tower epochs, not 60): data, features, embeddings, index, ranker (two
+inner towers, the LambdaRank MLP (128, 64) over 52 features trained),
+load_features, skew, evaluate.
 
 Phases (each failure raises, so the exit code is not 0):
 
@@ -120,24 +122,34 @@ Phases (each failure raises, so the exit code is not 0):
    ``batch_search`` for 1,024 users with held-out positives: valid ids,
    and Recall@20 of the held-out 10 % positives (train items filtered)
    above a random ranking's;
-16. pipeline phase: the pipeline CLI's stages
+16. pipeline phase: the pipeline CLI's ``all``
    (``recommendit_tpu_torch.pipelines.run_pipeline``) on the train phase's
-   data written as ML-1M ``.dat`` files (read back equal): ``features``;
-   ``embeddings`` (Settings defaults but ``LOSS_MODE=in_batch``, 2 epochs
-   not 60) under ``torch.profiler``, each BPR kernel launched once a step
-   (the wrappers' counts set to 0 just before the stage and read just
-   after, and the profiler's kernel counts), the loss finite and below
-   ln 2; a random ranker (128, 64) from ``--seed``; the packed tables the
-   features stage wrote equal, bit for bit, to those
-   ``RecommendationPipeline.load`` recomputes from the ratings; ``index``
-   and ``evaluate`` for the exact f32, fused bf16 and fused int8 index,
-   every user with held-out positives evaluated — every value finite, the
-   full and popularity lists 20 distinct unrated items, the retrieval-only
-   lists the first 20 unrated items of the index's top-500, and its
-   NDCG@10 and Recall@20 above a seeded random ranking's — and ``skew``
-   (max KL 0.0, 50 features). It prints the stage times and the three
-   rows (``full_random_ranker``, popularity, retrieval-only) of each
-   report, and int8 minus bf16 of the retrieval-only row.
+   data written as ML-1M ``.dat`` files (read back equal; the ``data``
+   stage finds them): ``features``; ``embeddings`` (Settings defaults but
+   ``LOSS_MODE=in_batch``, 2 epochs not 60); ``index`` (exact f32);
+   ``ranker`` (candidate mode: two inner towers on the 0.9 and 0.8
+   histories, their exact indexes, 200 negatives a query, the LambdaRank
+   MLP (128, 64) over 52 features with query norm, 40 epochs with early
+   stopping); ``load_features`` (the store and ``features.fsnap``);
+   ``skew``; ``evaluate``. Each BPR kernel launched once a step of the
+   three tower trainings (the wrappers' counts set to 0 just before
+   ``all`` and read just after; ``torch.profiler`` around each training),
+   every tower loss finite and below ln 2; every ranker epoch's loss
+   finite, a best epoch, the holdout NDCG@10 above a seeded random
+   scorer's on the same groups; ``features.fsnap`` equal to the feature
+   files; a second ``embeddings`` run resuming from
+   ``two_tower_ckpt/best`` with no step and the same model; the packed
+   tables equal, bit for bit, to those ``RecommendationPipeline.load``
+   recomputes; then ``index`` and ``evaluate`` again for the fused bf16
+   and int8 index. Every evaluate run covers every user with held-out
+   positives — every value finite, the full and popularity lists 20
+   distinct unrated items, the retrieval-only lists the first 20 unrated
+   items of the index's top-500, and its NDCG@10 and Recall@20 above a
+   seeded random ranking's — and ``skew`` reads max KL 0.0 over 50
+   features. It prints the stage times, the ranker's holdout report, best
+   epoch and epochs run, the three rows (full, popularity,
+   retrieval-only) of each report with the paired NDCG@10 full minus
+   retrieval-only, and int8 minus bf16 of the retrieval-only row.
 
 Usage, from the repository root: ``python3 chip_smoke.py [--seed N]``.
 After the build it prints ptxas's registers, spills and shared memory of
@@ -1636,12 +1648,13 @@ def index_phase(model, data, view, device, seed: int, workdir: Path,
 PIPELINE_INDEXES = (("exact", "float32"), ("fused", "bfloat16"), ("fused", "int8"))
 BPR_KERNELS = ("bpr_fwd_tile_kernel", "bpr_fwd_finish_kernel",
                "bpr_bwd_tile_kernel", "bpr_bwd_finish_kernel")
-# the full row ranks with a random ranker (ranker training is not ported)
-REPORT_ROWS = {"full_random_ranker": ("ndcg@10", "recall@20", "mrr"),
+# the full row ranks with the ranker the ranker stage trained
+REPORT_ROWS = {"full": ("ndcg@10", "recall@20", "mrr"),
                "popularity": ("popularity_ndcg@10", "popularity_recall@20",
                               "popularity_mrr"),
                "retrieval_only": ("retrieval_only_ndcg@10",
                                   "retrieval_only_recall@20", "retrieval_only_mrr")}
+HOLDOUT_KEYS = ("ndcg@10", "ndcg@20", "recall@20", "base_ndcg@10", "n_queries")
 EVAL_K = 20
 
 
@@ -1696,49 +1709,155 @@ def check_eval_lists(orch, seen, truth, device, seed: int, k: int = EVAL_K):
             "retrieval_only_short_lists": short}
 
 
-def _profiled_embeddings(orch, device):
-    """The embeddings stage with the BPR wrappers' counts set to 0 just
-    before and read just after, and on the card under ``torch.profiler``:
-    the launches of each BPR kernel it recorded."""
-    from torch.profiler import ProfilerActivity, profile
+class _TowerTrainings:
+    """Around every ``EmbeddingTrainer.train`` call while installed (the
+    ``embeddings`` stage's and the ranker stage's inner towers): its steps,
+    its seconds and, on the card under ``torch.profiler``, the launches of
+    each BPR kernel it recorded and the seconds the profiler took to
+    collect and sum its trace after the training (``profiler_s``, which
+    the stage times include and the net times take out)."""
 
-    from recommendit_tpu_torch.ops import bpr
+    def __init__(self, device):
+        from recommendit_tpu_torch.training.train_embeddings import EmbeddingTrainer
 
-    for name in bpr.LAUNCHES:
-        bpr.LAUNCHES[name] = 0
-    counts = {}
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            hist = orch.run_stage("embeddings")
-            torch.cuda.synchronize()
-        for key, _, count in device_events(prof):
-            name = _short_kernel_name(key)
-            if name.startswith("bpr_"):
-                counts[name] = counts.get(name, 0) + count
-    else:
-        hist = orch.run_stage("embeddings")
-    return hist, dict(bpr.LAUNCHES), counts
+        self.cls, self.train = EmbeddingTrainer, EmbeddingTrainer.train
+        self.on_card = torch.device(device).type == "cuda"
+        self.runs = []
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        outer = self
+
+        def train(trainer, *args, **kwargs):
+            counts = {}
+            t0 = time.perf_counter()
+            if outer.on_card:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    model = outer.train(trainer, *args, **kwargs)
+                    torch.cuda.synchronize()
+                    t_train = time.perf_counter()
+                for key, _, count in device_events(prof):
+                    name = _short_kernel_name(key)
+                    if name.startswith("bpr_"):
+                        counts[name] = counts.get(name, 0) + count
+            else:
+                model = outer.train(trainer, *args, **kwargs)
+                t_train = time.perf_counter()
+            outer.runs.append({"steps": sum(h["steps"] for h in trainer.history),
+                               "losses": [h["loss"] for h in trainer.history],
+                               "epoch_s": [h["seconds"] for h in trainer.history],
+                               "train_s": t_train - t0,
+                               "profiler_s": time.perf_counter() - t_train,
+                               "bpr_profiled": counts})
+            return model
+
+        self.cls.train = train
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train = self.train
+
+
+class _MethodTimes:
+    """Host seconds and calls of each named method while installed, the
+    card synchronised around each call: where the ranker stage's time
+    goes."""
+
+    def __init__(self, device, targets):
+        self.on_card = torch.device(device).type == "cuda"
+        self.targets = targets          # {label: (class, method name)}
+        self.seconds = {label: 0.0 for label in targets}
+        self.calls = {label: 0 for label in targets}
+        self._saved = {}
+
+    def __enter__(self):
+        for label, (cls, name) in self.targets.items():
+            fn = getattr(cls, name)
+            self._saved[label] = (cls, name, fn)
+            setattr(cls, name, self._wrap(label, fn))
+        return self
+
+    def _wrap(self, label, fn):
+        def timed(*args, **kwargs):
+            if self.on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if self.on_card:
+                torch.cuda.synchronize()
+            self.seconds[label] += time.perf_counter() - t0
+            self.calls[label] += 1
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._saved.values():
+            setattr(cls, name, fn)
+
+
+class _RandomScorer:
+    """A ranker whose scores are seeded uniform draws."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+
+    def predict(self, frame):
+        return self.rng.random(len(frame["label"])).astype(np.float32)
+
+
+def check_snapshot(features_dir: Path):
+    """``features.fsnap`` read back: each section's ids and rows equal the
+    feature files' columns (the genre blocks last), and one user's and one
+    item's dicts equal their file rows."""
+    from recommendit_tpu_torch.features.snapshot import FeatureSnapshot
+
+    snap = FeatureSnapshot(str(features_dir / "features.fsnap"))
+    for sec, (name, key, drop, cols) in enumerate((
+            ("user_features.npz", "user_id", ("user_id",), snap.user_cols),
+            ("item_features.npz", "item_id", ("item_id", "title"), snap.item_cols))):
+        with np.load(features_dir / name) as z:
+            table = {c: z[c] for c in z.files}
+        vec = [c for c in table if c.startswith(("genre_pref_", "genre_vec_"))]
+        names = [c for c in table if c not in drop and c not in vec] + vec
+        want = np.stack([table[c].astype(np.float64) for c in names], 1).astype(np.float32)
+        order = np.argsort(table[key], kind="stable")
+        ids, rows = snap.backend.sections[sec]
+        if not (np.array_equal(ids, table[key][order])
+                and np.array_equal(rows, want[order]) and len(cols) == len(names)):
+            raise AssertionError(f"features.fsnap section {sec} differs from {name}")
+    u, i = (int(snap.backend.sections[sec][0][0]) for sec in (0, 1))
+    if snap.user_dict(u) is None or snap.item_dict(i) is None:
+        raise AssertionError("features.fsnap lost a user or an item")
+    return {"users": snap.n_users(), "items": snap.n_items()}
 
 
 def pipeline_phase(data, device, seed: int, workdir: Path, card: str,
                    epochs: int = TRAIN_EPOCHS, dim: int = TRAIN_DIM,
-                   hidden: int = TRAIN_HIDDEN, batch: int = TRAIN_BATCH):
-    """The pipeline CLI's stages on ``data`` (the train phase's synthetic
-    ML-1M-shape set), as ``python -m recommendit_tpu_torch.pipelines.run_pipeline``
-    runs them: the ``.dat`` files written and read back equal; ``features``;
-    ``embeddings`` (Settings defaults but ``LOSS_MODE=in_batch`` and
-    ``epochs``), profiled, with one launch of each BPR kernel per step;
-    a random ranker (128, 64); the packed tables ``features`` wrote equal
-    to those ``RecommendationPipeline.load`` recomputes from the ratings;
-    then ``index`` and ``evaluate`` for the exact f32, fused bf16 and fused
-    int8 index, every user with held-out positives evaluated; ``skew``."""
+                   hidden: int = TRAIN_HIDDEN, batch: int = TRAIN_BATCH,
+                   ranker_cfg=None):
+    """The pipeline CLI on ``data`` (the train phase's synthetic ML-1M-shape
+    set), as ``python -m recommendit_tpu_torch.pipelines.run_pipeline
+    --stage all`` runs it: the ``.dat`` files written and read back equal;
+    ``all`` (Settings defaults but ``LOSS_MODE=in_batch`` and ``epochs``,
+    and ``ranker_cfg`` where given): data (the files found), features,
+    embeddings, index (exact f32), ranker (two inner towers, the ranker
+    trained), load_features, skew, evaluate; one launch of each BPR kernel
+    per step of the three tower trainings, by the wrappers' counts and the
+    profiler's; every ranker epoch's loss finite, a best epoch, the holdout
+    NDCG@10 above a seeded random scorer's on the same groups; the snapshot
+    equal to the feature files; a second ``embeddings`` run resuming from
+    the checkpoint with no step and writing the same model; the packed
+    tables equal to those ``RecommendationPipeline.load`` recomputes; then
+    ``index`` and ``evaluate`` again for the fused bf16 and int8 index."""
     import dataclasses
     import shutil
 
     from recommendit_tpu_torch.config import Settings
     from recommendit_tpu_torch.data.movielens import load_movielens, save_movielens
     from recommendit_tpu_torch.features.schema import ITEM_PACKED_DIM
+    from recommendit_tpu_torch.ops import bpr
     from recommendit_tpu_torch.pipelines.run_pipeline import PipelineOrchestrator
     from recommendit_tpu_torch.serving.recommender import RecommendationPipeline
 
@@ -1756,46 +1875,107 @@ def pipeline_phase(data, device, seed: int, workdir: Path, card: str,
             raise AssertionError(f"the .dat round trip changed {f.name}")
 
     cfg = Settings(LOSS_MODE="in_batch", TRAIN_EPOCHS=epochs, SEED=seed,
-                   EMBEDDING_DIM=dim, HIDDEN_DIM=hidden, BATCH_SIZE=batch)
+                   EMBEDDING_DIM=dim, HIDDEN_DIM=hidden, BATCH_SIZE=batch,
+                   **(ranker_cfg or {}))
     orch = PipelineOrchestrator(cfg=cfg, data_dir=str(root / "ml"),
                                 models_dir=str(root / "models"),
                                 features_dir=str(root / "features"),
                                 eval_users=data.n_users + 1, device=device)
-    orch.run_stage("features")
-    hist, launches, counts = _profiled_embeddings(orch, device)
-    steps = sum(h["steps"] for h in hist)
-    losses = [h["loss"] for h in hist]
-    rec.update(steps=steps, losses=losses, bpr_launches=launches,
-               bpr_profiled=counts)
-    if not (np.isfinite(losses).all() and losses[-1] < np.log(2.0)):
-        raise AssertionError(f"embeddings loss {losses}: not finite or not below ln 2")
+    from recommendit_tpu_torch.models.ranker import LambdaRankScorer
+    from recommendit_tpu_torch.training.train_ranker import RankerTrainer
+
+    # the ranker stage's parts; a fold's frame includes its inner tower
+    ranker_parts = {
+        "fold_frames": (RankerTrainer, "_fold_candidate_frames"),
+        "ranker_train": (LambdaRankScorer, "train"),
+        "holdout": (RankerTrainer, "_evaluate_holdout"),
+        "importance": (LambdaRankScorer, "top_features")}
+    for name in bpr.LAUNCHES:
+        bpr.LAUNCHES[name] = 0
+    with _TowerTrainings(device) as towers, _MethodTimes(device, ranker_parts) as parts:
+        report = orch.run_stage("all")
+    launches = dict(bpr.LAUNCHES)
+    rec["stage_s"] = dict(orch.stage_times)
+    rec["ranker_parts_s"] = parts.seconds
+    rec["ranker_parts_calls"] = parts.calls
     on_card = torch.device(device).type == "cuda"
-    per_step = steps if on_card else 0
+    steps = [r["steps"] for r in towers.runs]
+    profiler_s = [r["profiler_s"] for r in towers.runs]
+    rec["stage_net_s"] = dict(rec["stage_s"], embeddings=rec["stage_s"]["embeddings"]
+                              - profiler_s[0], ranker=rec["stage_s"]["ranker"]
+                              - sum(profiler_s[1:]))
+    rec["ranker_parts_s"]["fold_frames_net"] = (rec["ranker_parts_s"]["fold_frames"]
+                                                - sum(profiler_s[1:]))
+    rec.update(tower_steps=steps, tower_losses=[r["losses"] for r in towers.runs],
+               tower_epoch_s=[r["epoch_s"] for r in towers.runs],
+               tower_train_s=[r["train_s"] for r in towers.runs],
+               tower_profiler_s=profiler_s, bpr_launches=launches,
+               bpr_profiled=[r["bpr_profiled"] for r in towers.runs])
+    if len(steps) != 1 + cfg.RANKER_CAND_FOLDS:
+        raise AssertionError(f"expected the embeddings stage's and "
+                             f"{cfg.RANKER_CAND_FOLDS} inner towers, got {steps}")
+    for r in towers.runs:
+        if not (np.isfinite(r["losses"]).all() and r["losses"][-1] < np.log(2.0)):
+            raise AssertionError(f"tower loss {r['losses']}: not finite or not "
+                                 "below ln 2")
+        if on_card and r["bpr_profiled"] != {n: r["steps"] for n in BPR_KERNELS}:
+            raise AssertionError(f"the profiler saw BPR kernels {r['bpr_profiled']}, "
+                                 f"expected each {r['steps']} times")
+    per_step = sum(steps) if on_card else 0
     if launches != {"bpr_fwd": per_step, "bpr_bwd": per_step}:
         raise AssertionError(f"expected {per_step} launches of each BPR "
                              f"wrapper ({steps} steps), got {launches}")
-    if on_card and counts != {name: steps for name in BPR_KERNELS}:
-        raise AssertionError(f"the profiler saw BPR kernels {counts}, "
-                             f"expected each {steps} times")
-    write_random_ranker(orch.cfg.RANKER_MODEL_PATH, np.random.default_rng(seed + 6),
-                        device)
+
+    trainer = orch.ranker_trainer
+    ranker = trainer.ranker
+    hold = trainer.holdout_metrics
+    rand = trainer._evaluate_holdout(_RandomScorer(seed + 7), trainer.test_feats,
+                                     trainer.feature_cols)
+    rec["ranker"] = {
+        "holdout": {k: hold.get(k) for k in HOLDOUT_KEYS},
+        "random_ndcg@10": rand["ndcg@10"], "best_iteration": ranker.best_iteration,
+        "epochs_run": len(ranker.evals_result["train_loss"]),
+        "train_loss": ranker.evals_result["train_loss"],
+        "valid_ndcg@10": ranker.evals_result["valid_ndcg@10"],
+        "holdout_rows": len(trainer.test_feats["label"])}
+    if not np.isfinite(ranker.evals_result["train_loss"]).all():
+        raise AssertionError(f"ranker loss {ranker.evals_result['train_loss']}")
+    if ranker.best_iteration < 1:
+        raise AssertionError("the ranker has no best epoch")
+    if not (hold["n_queries"] > 0 and hold["ndcg@10"] > rand["ndcg@10"]):
+        raise AssertionError(f"holdout {hold} does not beat a random scorer's "
+                             f"NDCG@10 {rand['ndcg@10']}")
+    rec["snapshot"] = check_snapshot(root / "features")
+
+    # a second embeddings run resumes from the best checkpoint: the last
+    # epoch, so no step, and the same model
+    model_path = Path(orch.cfg.EMBEDDING_MODEL_PATH)
+    with np.load(model_path) as z:
+        first = {k: z[k] for k in z.files}
+    for name in bpr.LAUNCHES:
+        bpr.LAUNCHES[name] = 0
+    hist = orch.run_stage("embeddings")
+    with np.load(model_path) as z:
+        same = sorted(z.files) == sorted(first) and all(
+            np.array_equal(z[k], first[k]) for k in z.files)
+    rec["resume"] = {"steps": sum(h["steps"] for h in hist),
+                     "launches": dict(bpr.LAUNCHES), "same_model": same,
+                     "seconds": orch.stage_times["embeddings"]}
+    if hist or any(bpr.LAUNCHES.values()) or not same:
+        raise AssertionError(f"the resumed embeddings run: {rec['resume']}")
 
     view = orch._train_view()
     seen = np.zeros((data.n_users + 1, data.n_items + 1), dtype=bool)
     seen[view.user_id, view.item_id] = True
     truth = _held_out_truth(orch._load_data())
     rec["eval_users"] = len(truth)
-    rec["stage_s"] = {k: orch.stage_times[k] for k in ("features", "embeddings")}
     reports = {}
     for mode, dtype in PIPELINE_INDEXES:
         name = f"{mode}_{dtype}"
-        orch.cfg = orch.cfg.replace(
-            INDEX_MODE=mode, INDEX_DTYPE=dtype,
-            INDEX_PATH=str(root / "models" / f"mips_{name}.index.npz"))
-        orch.run_stage("index")
         if mode == "exact":
-            # the packed tables: written by the features stage, recomputed
-            # by a load that has no features directory
+            # the index and evaluate stages of all; the packed tables,
+            # written by the features stage, recomputed by a load that has
+            # no features directory
             t0 = time.perf_counter()
             pipe = RecommendationPipeline(
                 model_path=orch.cfg.EMBEDDING_MODEL_PATH,
@@ -1813,7 +1993,14 @@ def pipeline_phase(data, device, seed: int, workdir: Path, card: str,
                 raise AssertionError("the recomputed packed tables differ from "
                                      "the features stage's")
             del pipe
-        report = orch.run_stage("evaluate")
+            index_s, evaluate_s = rec["stage_s"]["index"], rec["stage_s"]["evaluate"]
+        else:
+            orch.cfg = orch.cfg.replace(
+                INDEX_MODE=mode, INDEX_DTYPE=dtype,
+                INDEX_PATH=str(root / "models" / f"mips_{name}.index.npz"))
+            orch.run_stage("index")
+            report = orch.run_stage("evaluate")
+            index_s, evaluate_s = orch.stage_times["index"], orch.stage_times["evaluate"]
         bad = [k for k, v in report.items()
                if not isinstance(v, list) and not np.isfinite(v)]
         if bad:
@@ -1833,10 +2020,9 @@ def pipeline_phase(data, device, seed: int, workdir: Path, card: str,
             **rand, "coverage": report["coverage"],
             "paired_ndcg10_full_minus_retrieval":
                 report.get("paired_ndcg10_full_minus_retrieval"),
-            "index_s": orch.stage_times["index"],
-            "evaluate_s": orch.stage_times["evaluate"]}
-    skew = orch.run_stage("skew")
-    rec["stage_s"]["skew"] = orch.stage_times["skew"]
+            "paired_ndcg10_se": report.get("paired_ndcg10_se"),
+            "index_s": index_s, "evaluate_s": evaluate_s}
+    skew = json.loads((root / "models" / "skew_report.json").read_text())
     if skew["max_kl"] != 0.0 or skew["skew_detected"] or \
             skew["n_features_checked"] != 50:
         raise AssertionError(f"skew report: {skew}")
@@ -1849,11 +2035,21 @@ def pipeline_phase(data, device, seed: int, workdir: Path, card: str,
         k: i8[f"retrieval_only_{k}"] - bf[f"retrieval_only_{k}"]
         for k in ("ndcg@10", "recall@20")}
     print(json.dumps({"pipeline": rec, "card": card}), flush=True)
+    print(f"pipeline stage seconds, net of the profiler's trace collection "
+          f"({card}): " + ", ".join(f"{k} {v:.3f}" for k, v in rec["stage_net_s"].items()),
+          flush=True)
+    r = rec["ranker"]
+    print(f"pipeline ranker holdout ({card}): " + ", ".join(
+        f"{k}={v}" for k, v in r["holdout"].items())
+        + f"; random ndcg@10={r['random_ndcg@10']}; best epoch "
+        f"{r['best_iteration']} of {r['epochs_run']} run", flush=True)
     for name, r in reports.items():
         print(f"pipeline {name} ({card}): " + "; ".join(
             f"{row} " + ", ".join(f"{k.split('_')[-1]}={v:.5f}"
                                   for k, v in vals.items())
-            for row, vals in r["rows"].items()), flush=True)
+            for row, vals in r["rows"].items())
+            + f"; paired ndcg@10 full - retrieval-only="
+            f"{r['paired_ndcg10_full_minus_retrieval']}", flush=True)
     return rec
 
 
@@ -1950,7 +2146,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     pipeline = pipeline_phase(data, device, args.seed, workdir, card)
     print(json.dumps({"pipeline_s": time.perf_counter() - t0,
-                      "pipeline_bpr_launches": pipeline["bpr_launches"]}),
+                      "pipeline_bpr_launches": pipeline["bpr_launches"],
+                      "pipeline_tower_steps": pipeline["tower_steps"]}),
           flush=True)
 
     print(json.dumps({"total_s": time.perf_counter() - t_start}), flush=True)

@@ -1,22 +1,46 @@
-"""Online feature store — the part the serve path touches (torch port).
+"""Online feature store (torch port).
 
-Counterpart of ``recommendit_tpu/features/store.py``: the in-memory
-key-value backend and the recommendation cache under the same ``recs:``
-key contract. Values are stored serialized (JSON), as the JAX store does
-when msgpack is absent, so a cached list is a copy and not shared with the
-caller. The Redis backend and the feature keys are not ported yet
-(ROADMAP).
+Counterpart of ``recommendit_tpu/features/store.py``: the key contract
+``user:feat:{id}`` / ``item:feat:{id}`` / ``recs:{id}``, the bulk load of the
+flattened feature columns (the port's column dicts in place of
+DataFrames), the recommendation cache and the read-through to a
+memory-mapped :class:`~recommendit_tpu_torch.features.snapshot.FeatureSnapshot`.
+Values are stored serialized (JSON, as the JAX store does when msgpack is
+absent), so a read returns a copy.
+
+The backend is the in-memory one, which the JAX store also takes when the
+``redis`` package is missing. The Redis backend is not ported (ROADMAP.md,
+queue A): where ``redis`` is importable the store raises rather than
+quietly keep the features in this process.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
-from typing import Any, Dict, List, Optional
+import logging
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
+import numpy as np
+
+logger = logging.getLogger(__name__)
+
+USER_FEATURE_PREFIX = "user:feat:"
+ITEM_FEATURE_PREFIX = "item:feat:"
 RECS_PREFIX = "recs:"
 
 
+def _to_native(v: Any) -> Any:
+    if isinstance(v, np.ndarray):
+        return v.tolist()
+    if isinstance(v, np.integer):
+        return int(v)
+    if isinstance(v, np.floating):
+        return float(v)
+    return v
+
+
 def serialize(data: Dict[str, Any]) -> bytes:
-    return json.dumps(data).encode("utf-8")
+    return json.dumps({k: _to_native(v) for k, v in data.items()}).encode("utf-8")
 
 
 def deserialize(data: bytes) -> Dict[str, Any]:
@@ -26,24 +50,138 @@ def deserialize(data: bytes) -> Dict[str, Any]:
 class MemoryBackend:
     """Plain-dict KV backend (TTLs are ignored: process lifetime is the TTL)."""
 
+    name = "in-memory"
+
     def __init__(self) -> None:
         self._kv: Dict[str, bytes] = {}
 
     def read(self, key: str) -> Optional[bytes]:
         return self._kv.get(key)
 
+    def read_many(self, keys: List[str]) -> List[Optional[bytes]]:
+        return [self._kv.get(k) for k in keys]
+
     def write(self, key: str, value: bytes, ttl: int) -> None:
         self._kv[key] = value
+
+    def write_many(self, items: Dict[str, bytes], ttl: int) -> None:
+        self._kv.update(items)
 
     def delete(self, key: str) -> None:
         self._kv.pop(key, None)
 
+    def flush(self) -> None:
+        self._kv.clear()
+
+    def stats(self) -> Dict[str, Any]:
+        return {"backend": self.name, "keys": len(self._kv)}
+
+
+def _pick_backend(redis_url: str) -> MemoryBackend:
+    if importlib.util.find_spec("redis") is not None:
+        raise NotImplementedError(
+            f"the redis package is installed, but the Redis backend is not "
+            f"ported yet (ROADMAP.md, queue A, features/store.py); {redis_url} "
+            "is not used")
+    logger.info("redis package unavailable; using in-memory store")
+    return MemoryBackend()
+
 
 class FeatureStore:
-    """Recommendation cache over the in-memory backend."""
+    """Feature keys and the recommendation cache over the in-memory
+    backend, with an optional snapshot to fall through to."""
 
-    def __init__(self):
-        self._backend = MemoryBackend()
+    def __init__(self, redis_url: str = "redis://localhost:6379", ttl: int = 3600):
+        self.redis_url = redis_url
+        self.ttl = ttl
+        self._backend = _pick_backend(redis_url)
+        self._snapshot = None
+
+    # --- user and item features --------------------------------------- #
+
+    def store_user_features(self, user_id: int, features: Dict[str, Any]) -> None:
+        self._backend.write(f"{USER_FEATURE_PREFIX}{user_id}", serialize(features),
+                            self.ttl)
+
+    def get_user_features(self, user_id: int) -> Optional[Dict[str, Any]]:
+        raw = self._backend.read(f"{USER_FEATURE_PREFIX}{user_id}")
+        if raw is not None:
+            return deserialize(raw)
+        if self._snapshot is not None:
+            return self._snapshot.user_dict(user_id)
+        return None
+
+    def store_item_features(self, item_id: int, features: Dict[str, Any]) -> None:
+        self._backend.write(f"{ITEM_FEATURE_PREFIX}{item_id}", serialize(features),
+                            self.ttl)
+
+    def get_item_features(self, item_id: int) -> Optional[Dict[str, Any]]:
+        raw = self._backend.read(f"{ITEM_FEATURE_PREFIX}{item_id}")
+        if raw is not None:
+            return deserialize(raw)
+        if self._snapshot is not None:
+            return self._snapshot.item_dict(item_id)
+        return None
+
+    def get_item_features_batch(self, item_ids: List[int]
+                                ) -> Dict[int, Optional[Dict[str, Any]]]:
+        raws = self._backend.read_many([f"{ITEM_FEATURE_PREFIX}{i}" for i in item_ids])
+        out = {i: (deserialize(r) if r is not None else None)
+               for i, r in zip(item_ids, raws)}
+        if self._snapshot is not None:
+            for i in item_ids:
+                if out[i] is None:
+                    out[i] = self._snapshot.item_dict(i)
+        return out
+
+    def attach_snapshot(self, snapshot) -> None:
+        """Back the store with a read-only snapshot: reads that miss the KV
+        layer fall through to it; writes land in the KV layer and shadow
+        it."""
+        self._snapshot = snapshot
+
+    # --- bulk load ----------------------------------------------------- #
+
+    def load_all_features(self, user_features: Mapping[str, np.ndarray],
+                          item_features: Mapping[str, np.ndarray],
+                          batch_size: int = 500) -> None:
+        """Bulk-load the flattened feature columns (``genre_pref_<i>`` /
+        ``genre_vec_<i>``, as ``features/engineering.py`` saves them): one
+        dict per user and item, the genre columns as a ``genre_pref`` /
+        ``genre_vector`` list, item titles as strings."""
+        logger.info("Loading features: %d users, %d items",
+                    len(user_features["user_id"]), len(item_features["item_id"]))
+        self._bulk_load(user_features, "user_id", USER_FEATURE_PREFIX,
+                        "genre_pref_", "genre_pref", ("user_id",), batch_size)
+        self._bulk_load(item_features, "item_id", ITEM_FEATURE_PREFIX,
+                        "genre_vec_", "genre_vector", ("item_id", "title"),
+                        batch_size, keep_as_str=("title",))
+        logger.info("Bulk load complete")
+
+    def _bulk_load(self, frame: Mapping[str, np.ndarray], key_col: str, prefix: str,
+                   vec_prefix: str, vec_name: str, drop: Tuple[str, ...],
+                   batch_size: int, keep_as_str: Iterable[str] = ()) -> None:
+        vec_cols = [c for c in frame if c.startswith(vec_prefix)]
+        scalar_cols = [c for c in frame if c not in drop and c not in vec_cols]
+        str_cols = [c for c in keep_as_str if c in frame]
+        # Python scalars, as DataFrame.to_dict("records") gives them
+        scalars = {c: np.asarray(frame[c]).tolist() for c in scalar_cols}
+        strs = {c: [str(v) for v in np.asarray(frame[c]).tolist()] for c in str_cols}
+        vecs = (np.stack([np.asarray(frame[c]) for c in vec_cols], axis=1).astype(float).tolist()
+                if vec_cols else None)
+        keys = np.asarray(frame[key_col]).astype(np.int64).tolist()
+        for start in range(0, len(keys), batch_size):
+            items: Dict[str, bytes] = {}
+            for r in range(start, min(start + batch_size, len(keys))):
+                feat: Dict[str, Any] = {c: scalars[c][r] for c in scalar_cols}
+                for c in str_cols:
+                    feat[c] = strs[c][r]
+                if vecs is not None:
+                    feat[vec_name] = vecs[r]
+                items[f"{prefix}{keys[r]}"] = serialize(feat)
+            self._backend.write_many(items, self.ttl)
+
+    # --- recommendation cache ----------------------------------------- #
 
     def cache_recommendations(self, user_id: int, recommendations: List[Dict],
                               ttl: int = 300) -> None:
@@ -59,3 +197,11 @@ class FeatureStore:
         if raw is None:
             return None
         return deserialize(raw).get("recs")
+
+    # --- ops ----------------------------------------------------------- #
+
+    def flush(self) -> None:
+        self._backend.flush()
+
+    def stats(self) -> Dict[str, Any]:
+        return self._backend.stats()

@@ -1,18 +1,23 @@
 """Pipeline orchestrator CLI — torch port.
 
-Counterpart of ``recommendit_tpu/pipelines/run_pipeline.py`` for the
-stages ported so far: ``data`` (synthetic only: downloading needs the
-network), ``features``, ``embeddings``, ``index``, ``evaluate`` and
-``skew``, with per-stage timing. ``ranker``, ``load_features`` and ``all``
-are not offered yet (ROADMAP.md, queue A). The stages run on the card
-unless ``--device cpu`` is given.
+Counterpart of ``recommendit_tpu/pipelines/run_pipeline.py``: the stages
+``data``, ``features``, ``load_features``, ``embeddings``, ``index``,
+``ranker``, ``evaluate`` and ``skew``, with per-stage timing, and ``all``,
+which runs them in JAX's order (data, features, embeddings, index, ranker,
+load_features, skew, evaluate). The stages run on the card unless
+``--device cpu`` is given.
 
-    python -m recommendit_tpu_torch.pipelines.run_pipeline --stage features \\
+    python -m recommendit_tpu_torch.pipelines.run_pipeline --stage all \\
         --data-dir data/ml-1m --models-dir models
 
-The ML-1M files (``ratings.dat``, ``users.dat``, ``movies.dat``,
-``README``) are placed in ``--data-dir`` by hand; ``--synthetic`` writes a
-synthetic set there instead when the directory is incomplete.
+Nothing is downloaded: the ML-1M files (``ratings.dat``, ``users.dat``,
+``movies.dat``, ``README``) are placed in ``--data-dir`` by hand, and the
+``data`` stage checks that they are there; ``--synthetic`` writes a
+synthetic set there instead. ``embeddings`` keeps a train-state
+checkpoint at ``<models-dir>/two_tower_ckpt/best`` (a ``torch.save`` file)
+and resumes from it when it exists, as JAX's stage does from its Orbax
+directory. ``load_features`` loads the feature files into the feature
+store and writes ``features.fsnap`` beside them.
 """
 from __future__ import annotations
 
@@ -40,7 +45,11 @@ from recommendit_tpu_torch.evaluation.metrics import (
     evaluate_model,
     ndcg_at_k,
 )
-from recommendit_tpu_torch.features.engineering import FeatureEngineer
+from recommendit_tpu_torch.features.engineering import (
+    ITEM_FILE,
+    USER_FILE,
+    FeatureEngineer,
+)
 from recommendit_tpu_torch.features.schema import (
     FEATURE_COLUMNS,
     assemble_packed_np,
@@ -52,7 +61,10 @@ from recommendit_tpu_torch.utils.logging import setup_logging
 
 logger = logging.getLogger(__name__)
 
-STAGES = ["data", "features", "embeddings", "index", "evaluate", "skew"]
+STAGES = ["all", "data", "features", "load_features", "embeddings", "index",
+          "ranker", "evaluate", "skew"]
+ALL_STAGES = ["data", "features", "embeddings", "index", "ranker",
+              "load_features", "skew", "evaluate"]
 EVAL_SPLIT = 0.9       # the evaluate stage's temporal cut (reference protocol)
 SKEW_PAIRS = 4000      # training pairs the skew stage compares
 
@@ -87,6 +99,8 @@ class PipelineOrchestrator:
         # the evaluate stage's ranked lists, by row ("full", "popularity",
         # "retrieval_only") and user
         self.eval_lists: Dict[str, Dict[int, List[int]]] = {}
+        # the ranker stage's trainer (its holdout frame and report)
+        self.ranker_trainer = None
         self._data: Optional[MovieLensData] = None
         # the artifacts go into models_dir
         self.cfg = self.cfg.replace(
@@ -131,13 +145,16 @@ class PipelineOrchestrator:
     # ------------------------------------------------------------------ #
 
     def run_data(self):
-        if not self.synthetic:
+        if self.synthetic:
+            self._data = self._synthesize()
+            logger.info("Synthetic dataset written to %s", self.data_dir)
+        elif verify_dataset(Path(self.data_dir)):
+            logger.info("Dataset already present at %s", self.data_dir)
+        else:
             raise RuntimeError(
                 "downloading MovieLens-1M needs the network; place "
                 "ratings.dat, users.dat, movies.dat and README in "
                 f"{self.data_dir} by hand, or pass --synthetic")
-        self._data = self._synthesize()
-        logger.info("Synthetic dataset written to %s", self.data_dir)
 
     def run_features(self):
         fe = FeatureEngineer(seed=self.cfg.SEED)
@@ -146,25 +163,44 @@ class PipelineOrchestrator:
         fe.build_item_features()
         fe.save_features(self.features_dir)
 
+    def run_load_features(self):
+        """The feature files into the store, and the ``features.fsnap``
+        snapshot beside them (serving processes map it and skip the bulk
+        load)."""
+        from recommendit_tpu_torch.features.snapshot import write_snapshot_from_frames
+        from recommendit_tpu_torch.features.store import FeatureStore
+
+        store = FeatureStore(self.cfg.REDIS_URL, ttl=self.cfg.FEATURE_CACHE_TTL_SECONDS)
+        tables = []
+        for name in (USER_FILE, ITEM_FILE):
+            with np.load(Path(self.features_dir) / name) as z:
+                tables.append({c: z[c] for c in z.files})
+        store.load_all_features(*tables)
+        write_snapshot_from_frames(str(Path(self.features_dir) / "features.fsnap"),
+                                   *tables)
+        logger.info("Store stats: %s", store.stats())
+
     def run_embeddings(self):
-        """Train the towers on the train view. The JAX stage resumes from a
-        train-state checkpoint and can offload the tables to the host;
-        neither is ported, so a run that would take either raises."""
+        """Train the towers on the train view, saving the train state at
+        every best epoch and resuming from ``two_tower_ckpt/best`` when it
+        exists. Host-table training (``HOST_TABLE``) is not ported and
+        raises."""
         from recommendit_tpu_torch.training.train_embeddings import EmbeddingTrainer
 
         if self.cfg.HOST_TABLE:
             raise NotImplementedError(
                 "HOST_TABLE training is not ported yet (ROADMAP.md, queue A, "
                 "training/host_train.py)")
-        best = self.models_dir / "two_tower_ckpt" / "best"
-        if best.exists():
-            raise NotImplementedError(
-                f"resuming from the checkpoint at {best} is not ported yet "
-                "(ROADMAP.md, queue A, utils/checkpoint.py)")
+        ckpt_dir = self.models_dir / "two_tower_ckpt"
         trainer = EmbeddingTrainer(self._train_view(), self.cfg,
                                    model_output_path=self.cfg.EMBEDDING_MODEL_PATH,
-                                   device=self.device)
-        trainer.train()
+                                   ckpt_dir=str(ckpt_dir), device=self.device)
+        resume_from = None
+        best = ckpt_dir / "best"
+        if best.exists():
+            logger.info("Found checkpoint at %s — resuming", best)
+            resume_from = str(best)
+        trainer.train(resume_from=resume_from)
         return trainer.history
 
     def run_index(self):
@@ -174,6 +210,16 @@ class PipelineOrchestrator:
                      model_path=self.cfg.EMBEDDING_MODEL_PATH,
                      index_output_path=self.cfg.INDEX_PATH,
                      device=self.device).build()
+
+    def run_ranker(self) -> Dict:
+        from recommendit_tpu_torch.training.train_ranker import RankerTrainer
+
+        self.ranker_trainer = RankerTrainer(
+            self._train_view(), self.cfg,
+            ranker_output_path=self.cfg.RANKER_MODEL_PATH,
+            features_dir=self.features_dir, device=self.device)
+        self.ranker_trainer.run()
+        return self.ranker_trainer.holdout_metrics
 
     def run_evaluate(self) -> Dict:
         """Temporal-split offline evaluation through the serving pipeline
@@ -300,25 +346,39 @@ class PipelineOrchestrator:
     def run_stage(self, stage: str):
         if stage not in STAGES:
             raise ValueError(f"Unknown stage {stage}; choose from {STAGES}")
+        if stage == "all":
+            return self.run_all()
         return self._timed(stage, getattr(self, f"run_{stage}"))
+
+    def run_all(self):
+        out = None
+        for stage in ALL_STAGES:
+            out = self._timed(stage, getattr(self, f"run_{stage}"))
+        logger.info("Stage times: %s",
+                    {k: round(v, 2) for k, v in self.stage_times.items()})
+        return out
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="recommendit_tpu_torch pipeline")
-    parser.add_argument("--stage", choices=STAGES, required=True)
+    parser.add_argument("--stage", choices=STAGES, default="all")
     parser.add_argument("--data-dir", default=None)
     parser.add_argument("--models-dir", default="models")
     parser.add_argument("--features-dir", default=None)
     parser.add_argument("--synthetic", action="store_true",
                         help="generate synthetic MovieLens-format data")
+    parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--eval-users", type=int, default=200)
     parser.add_argument("--device", default=DEFAULT_DEVICE,
                         help="where the stages run (default: the card)")
     args = parser.parse_args(argv)
 
-    setup_logging(default_settings.LOG_LEVEL)
+    cfg = default_settings
+    if args.epochs:
+        cfg = cfg.replace(TRAIN_EPOCHS=args.epochs)
+    setup_logging(cfg.LOG_LEVEL)
     orch = PipelineOrchestrator(
-        cfg=default_settings,
+        cfg=cfg,
         data_dir=args.data_dir,
         models_dir=args.models_dir,
         features_dir=args.features_dir or (

@@ -37,13 +37,21 @@ back once per epoch.
 ``TRAIN_JIT_SCOPE`` and ``TRAIN_CHUNK_BATCHES`` choose how JAX compiles an
 epoch and have no meaning here: they are ignored. ``USE_PALLAS`` keeps its
 meaning: on CUDA tensors ``True`` launches the BPR kernels and ``False``
-takes the plain twin. Orbax checkpoints (``ckpt_dir``, ``resume_from``)
-are not ported and raise.
+takes the plain twin.
+
+With ``ckpt_dir`` the train state (params, the AdamW moments and step
+count, epoch, loss) is saved to ``ckpt_dir/best`` at every best epoch
+(``utils/checkpoint.py``: a ``torch.save`` file, not JAX's Orbax
+directory); ``train(resume_from=…)`` restores one and goes on with the
+next epoch, the schedule at the restored count. As in JAX, the batch
+generator and the dropout generator restart from their seeds, so a
+resumed run is not the run it continues would have been.
 """
 from __future__ import annotations
 
 import logging
 import time
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -65,12 +73,9 @@ from recommendit_tpu_torch.ops.bpr import (
     pairwise_bpr_loss,
 )
 from recommendit_tpu_torch.ops.seen import SeenSet
+from recommendit_tpu_torch.utils.checkpoint import load_train_state, save_train_state
 
 logger = logging.getLogger(__name__)
-
-_ROADMAP_CKPT = ("train-state checkpoints (ckpt_dir / resume_from, Orbax in "
-                 "the JAX package) are not ported yet (ROADMAP.md, queue A, "
-                 "utils/checkpoint.py)")
 
 
 def build_genre_table(item_ids: np.ndarray, genres: np.ndarray,
@@ -185,8 +190,6 @@ class EmbeddingTrainer:
                  model_output_path: Optional[str] = None,
                  ckpt_dir: Optional[str] = None,
                  device=DEFAULT_DEVICE):
-        if ckpt_dir:
-            raise NotImplementedError(_ROADMAP_CKPT)
         self.cfg = cfg or default_settings
         self.data = data
         self.loss_mode = loss_mode or self.cfg.LOSS_MODE
@@ -197,6 +200,7 @@ class EmbeddingTrainer:
             self.cfg.EMBEDDING_MODEL_PATH if model_output_path is None
             else model_output_path)
         self.device = resolve_device(device)
+        self.ckpt_dir = ckpt_dir
         self.history: List[Dict] = []
 
         self.n_users = data.n_users
@@ -279,6 +283,28 @@ class EmbeddingTrainer:
                 item_bias=params["item_bias"][i])
         return in_batch_bpr_loss(ue, ie, use_kernel)
 
+    @torch.no_grad()
+    def _restore(self, path: str, params: Dict[str, torch.Tensor],
+                 opt: OptaxAdamW) -> int:
+        """Load the train state at ``path`` into ``params`` and ``opt``;
+        returns its epoch."""
+        state = load_train_state(path, device=self.device)
+        saved = state["params"]
+        shapes = {k: tuple(v.shape) for k, v in saved.items()}
+        want = {k: tuple(params[k].shape) for k in PARAM_NAMES}
+        if shapes != want:
+            raise ValueError(f"checkpoint {path}: param shapes {shapes}, "
+                             f"expected {want}")
+        for i, k in enumerate(PARAM_NAMES):
+            params[k].copy_(saved[k])
+            opt.mu[i].copy_(state["opt_state"]["mu"][k])
+            opt.nu[i].copy_(state["opt_state"]["nu"][k])
+        opt.count = int(state["opt_state"]["count"])
+        epoch = int(state["epoch"])
+        logger.info("Resumed from %s at epoch %d (loss %.4f)", path, epoch,
+                    float(state["loss"]))
+        return epoch
+
     def train(self, epochs: Optional[int] = None,
               resume_from: Optional[str] = None,
               init_params: Optional[TwoTower] = None) -> TwoTower:
@@ -287,9 +313,8 @@ class EmbeddingTrainer:
         initial weights (e.g. :func:`~recommendit_tpu_torch.models.two_tower.from_jax_params`
         of the JAX package's ``init_params``); by default they are drawn
         from ``SEED``. In softmax mode the item bias is warm-started either
-        way, as in JAX."""
-        if resume_from:
-            raise NotImplementedError(_ROADMAP_CKPT)
+        way, as in JAX. ``resume_from`` restores a train state saved by
+        ``ckpt_dir`` and trains from the epoch after its own."""
         cfg = self.cfg
         dev = self.device
         epochs = epochs or cfg.TRAIN_EPOCHS
@@ -306,18 +331,21 @@ class EmbeddingTrainer:
                          cfg.WEIGHT_DECAY)
         tables = (torch.as_tensor(self.genre_table, device=dev),
                   torch.as_tensor(self._log_q_table(), device=dev))
+        start_epoch = 1
+        if resume_from:
+            start_epoch = self._restore(resume_from, params, opt) + 1
 
         host_rng = np.random.default_rng(cfg.SEED)
         gen = torch.Generator(device=dev).manual_seed(cfg.SEED + 1)
         best_loss = float("inf")
         best = {k: p.detach().clone() for k, p in params.items()}
         total_examples = 0
-        count = 0
+        count = opt.count
         t_train = time.time()
         logger.info("Training: %d epochs x %d batches x %d batch (%s, "
                     "kernels=%s, device=%s)", epochs, n_batches, batch_size,
                     self.loss_mode, cfg.USE_PALLAS, dev)
-        for epoch in range(1, epochs + 1):
+        for epoch in range(start_epoch, epochs + 1):
             t0 = time.time()
             u, i, neg = self._epoch_batches(host_rng, batch_size)
             ub, ib, nb = (torch.as_tensor(a, device=dev).long()
@@ -347,6 +375,13 @@ class EmbeddingTrainer:
             if loss < best_loss:
                 best_loss = loss
                 best = {k: p.detach().clone() for k, p in params.items()}
+                if self.ckpt_dir:
+                    save_train_state(str(Path(self.ckpt_dir) / "best"), {
+                        "params": params,
+                        "opt_state": {"mu": dict(zip(PARAM_NAMES, opt.mu)),
+                                      "nu": dict(zip(PARAM_NAMES, opt.nu)),
+                                      "count": torch.tensor(opt.count)},
+                        "epoch": torch.tensor(epoch), "loss": torch.tensor(loss)})
 
         elapsed = time.time() - t_train
         self.examples_per_s = total_examples / elapsed

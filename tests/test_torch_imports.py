@@ -41,6 +41,9 @@ MODULES = [
     "recommendit_tpu_torch.training",
     "recommendit_tpu_torch.training.train_embeddings",
     "recommendit_tpu_torch.training.build_index",
+    "recommendit_tpu_torch.training.train_ranker",
+    "recommendit_tpu_torch.utils.checkpoint",
+    "recommendit_tpu_torch.features.snapshot",
     "recommendit_tpu_torch.features.engineering",
     "recommendit_tpu_torch.evaluation",
     "recommendit_tpu_torch.evaluation.metrics",
@@ -157,8 +160,10 @@ print("served", out["batch_users"])
 
 
 def test_pipeline_runs_without_jax_or_pandas(tmp_path):
-    """chip_smoke's pipeline phase (the CLI's stages from the .dat files to
-    the skew report) at a small size on the CPU with all three blocked."""
+    """chip_smoke's pipeline phase (the CLI's ``all``: every stage from the
+    .dat files to the evaluate report, the ranker stage's two inner towers
+    and ranker training included, then a resumed ``embeddings``) at a small
+    size on the CPU with all three blocked."""
     code = f"""
 from pathlib import Path
 import torch
@@ -166,9 +171,14 @@ import chip_smoke
 torch.set_num_threads(1)
 data, _ = chip_smoke.make_train_data(0, 600, 400, 40_000)
 rec = chip_smoke.pipeline_phase(data, "cpu", 0, Path({str(tmp_path)!r}), "cpu",
-                                epochs=4, dim=16, hidden=32, batch=256)
-print("pipeline", rec["eval_users"], rec["skew"]["max_kl"])
+                                epochs=4, dim=16, hidden=32, batch=256,
+                                ranker_cfg=dict(RANKER_EPOCHS=3,
+                                                RANKER_HIDDEN_DIMS=(16, 8)))
+print("pipeline", rec["eval_users"], rec["skew"]["max_kl"], sorted(rec["stage_s"]),
+      len(rec["tower_steps"]), rec["ranker"]["best_iteration"] >= 1)
 """
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    assert "pipeline" in proc.stdout and " 0.0" in proc.stdout
+    assert "pipeline" in proc.stdout and " 0.0 " in proc.stdout
+    assert ("['data', 'embeddings', 'evaluate', 'features', 'index', 'load_features', "
+            "'ranker', 'skew'] 3 True") in proc.stdout

@@ -1,19 +1,23 @@
 """The port's pipeline orchestrator (``pipelines/run_pipeline.py``) against
 the JAX one.
 
-The JAX orchestrator runs ``data → features → embeddings → index`` on a
-small synthetic set; a ranker is written with JAX's ``LambdaRankScorer``
-(initialised, not trained: ranker training is not ported yet). Then the JAX
-and the port's ``evaluate`` and ``skew`` stages run over the same models
-directory — the port from its own ``features`` stage, since the two
-packages' feature files differ (parquet, ``.npz``). Tolerances: the ranked
-lists of every report row identical; every metric within 1e-6; the skew
-reports equal.
+The JAX orchestrator runs ``data → features → embeddings → index →
+load_features`` on a small synthetic set; the port's ``features`` and
+``ranker`` stages train the ranker into the same models directory (two
+inner towers, 3 ranker epochs, no query norm, so both serve paths score
+alike: C.8), and its ``load_features`` writes its snapshot. Then the JAX and
+the port's ``evaluate`` and ``skew`` stages run over that models directory
+— the port from its own ``features`` stage, since the two packages' feature
+files differ (parquet, ``.npz``). Tolerances: the ranked lists of every
+report row identical; every metric within 1e-6; the skew reports equal;
+each ``.fsnap`` read by the other package's reader gives equal user and
+item dicts, and the two feature stores hold equal dicts.
 """
 import json
 
 import numpy as np
 import pytest
+import torch
 
 from recommendit_tpu.config import Settings as JaxSettings
 from recommendit_tpu_torch.config import Settings
@@ -23,31 +27,27 @@ from recommendit_tpu_torch.pipelines.run_pipeline import STAGES, PipelineOrchest
 
 CFG = dict(SYNTH_USERS=200, SYNTH_ITEMS=160, SYNTH_RATINGS=12_000,
            EMBEDDING_DIM=16, HIDDEN_DIM=32, BATCH_SIZE=128, TRAIN_EPOCHS=2,
-           USE_PALLAS=False, SEED=0, TOP_K_CANDIDATES=60, STAGE_RECAL_EVERY=0)
+           USE_PALLAS=False, SEED=0, TOP_K_CANDIDATES=60, STAGE_RECAL_EVERY=0,
+           RANKER_EPOCHS=3, RANKER_HIDDEN_DIMS=(16, 8), RANKER_CAND_NEGS=20,
+           RANKER_QUERY_NORM=False)
 EVAL_USERS = 150
+ALL = ["data", "features", "embeddings", "index", "ranker", "load_features",
+       "skew", "evaluate"]
 
 
-def _jax_ranker(path, seed=1):
-    import jax
-
-    from recommendit_tpu.features.schema import FEATURE_COLUMNS
-    from recommendit_tpu.models.ranker import LambdaRankScorer, init_mlp
-
-    names = FEATURE_COLUMNS + ["retrieval_score", "retrieval_rank"]
-    rng = np.random.default_rng(seed)
-    ranker = LambdaRankScorer(feature_names=names, hidden_dims=(32, 16),
-                              query_norm=False)
-    ranker.params = init_mlp(jax.random.PRNGKey(seed), len(names), (32, 16))
-    ranker.feat_mean = rng.normal(size=len(names)).astype(np.float32)
-    ranker.feat_std = rng.uniform(0.5, 2.0, len(names)).astype(np.float32)
-    ranker._trained = True
-    ranker.save(path)
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The JAX stages, then the JAX and the port's evaluate and skew; the
-    ranked lists each evaluate scores, captured from its evaluate_model."""
+    """The JAX stages, the port's ranker stage, then the JAX and the port's
+    evaluate and skew; the ranked lists each evaluate scores, captured from
+    its evaluate_model."""
     import recommendit_tpu.pipelines.run_pipeline as jrp
 
     tmp = tmp_path_factory.mktemp("pipeline")
@@ -55,9 +55,13 @@ def runs(tmp_path_factory):
                   synthetic=True, eval_users=EVAL_USERS)
     jorch = jrp.PipelineOrchestrator(cfg=JaxSettings(**CFG),
                                      features_dir=str(tmp / "jax_features"), **common)
-    for stage in ("data", "features", "embeddings", "index"):
+    for stage in ("data", "features", "embeddings", "index", "load_features"):
         jorch.run_stage(stage)
-    _jax_ranker(jorch.cfg.RANKER_MODEL_PATH)
+    torch_orch = PipelineOrchestrator(cfg=Settings(**CFG),
+                                      features_dir=str(tmp / "port_features"),
+                                      device="cpu", **common)
+    for stage in ("features", "ranker", "load_features"):
+        torch_orch.run_stage(stage)
 
     jax_lists = []
     real = jrp.evaluate_model
@@ -71,10 +75,6 @@ def runs(tmp_path_factory):
         jax_report = jorch.run_stage("evaluate")
     jax_skew = jorch.run_stage("skew")
 
-    torch_orch = PipelineOrchestrator(cfg=Settings(**CFG),
-                                      features_dir=str(tmp / "port_features"),
-                                      device="cpu", **common)
-    torch_orch.run_stage("features")
     report = torch_orch.run_stage("evaluate")
     written = json.loads((tmp / "models" / "evaluation.json").read_text())
     skew = torch_orch.run_stage("skew")
@@ -102,6 +102,92 @@ def test_evaluate_report_matches(runs):
             np.testing.assert_allclose(got[key], v, atol=1e-6, rtol=0, err_msg=key)
     assert runs["written"] == json.loads(json.dumps(got, default=float))
     assert "paired_ndcg10_se" in got and "retrieval_only_recall@20" in got
+    # the full row is the trained ranker's re-rank, not the retrieval order
+    assert runs["orch"].eval_lists["full"] != runs["orch"].eval_lists["retrieval_only"]
+
+
+def test_ranker_stage_writes_a_trained_ranker(runs):
+    from recommendit_tpu.models.ranker import LambdaRankScorer as JaxRanker
+
+    orch = runs["orch"]
+    hold = orch.ranker_trainer.holdout_metrics
+    assert hold["n_queries"] > 0 and set(hold) >= {"ndcg@10", "ndcg@20",
+                                                   "recall@20", "base_ndcg@10"}
+    ranker = JaxRanker.load(orch.cfg.RANKER_MODEL_PATH)
+    assert ranker.best_iteration >= 1 and len(ranker.feature_names) == 52
+    assert orch.stage_times["ranker"] > 0
+
+
+def test_feature_snapshots_open_in_the_other_package(runs):
+    from recommendit_tpu.features.snapshot import FeatureSnapshot as JaxSnapshot
+    from recommendit_tpu_torch.features.snapshot import FeatureSnapshot
+
+    tmp = runs["tmp"]
+    jax_file, port_file = (str(tmp / d / "features.fsnap")
+                           for d in ("jax_features", "port_features"))
+    readers = [JaxSnapshot(port_file, prefer_native=False), FeatureSnapshot(jax_file),
+               FeatureSnapshot(port_file)]
+    n_users, n_items = readers[0].n_users(), readers[0].n_items()
+    assert all((r.n_users(), r.n_items()) == (n_users, n_items) for r in readers)
+    assert n_users > 150 and n_items > 100
+    for u in range(0, CFG["SYNTH_USERS"] + 2):
+        dicts = [r.user_dict(u) for r in readers]
+        assert dicts[0] == dicts[1] == dicts[2], u
+    for i in range(0, CFG["SYNTH_ITEMS"] + 2):
+        dicts = [r.item_dict(i) for r in readers]
+        assert dicts[0] == dicts[1] == dicts[2], i
+    got, found = readers[2].gather_items(np.arange(0, 12))
+    want, wfound = readers[0].gather_items(np.arange(0, 12))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(found, wfound)
+
+
+def test_feature_store_holds_the_jax_dicts(runs):
+    import pandas as pd
+
+    from recommendit_tpu.features.store import FeatureStore as JaxStore
+    from recommendit_tpu_torch.features.snapshot import FeatureSnapshot
+    from recommendit_tpu_torch.features.store import FeatureStore
+
+    tmp = runs["tmp"]
+    jstore, store = JaxStore(), FeatureStore()
+    jstore.load_all_features(pd.read_parquet(tmp / "jax_features" / "user_features.parquet"),
+                             pd.read_parquet(tmp / "jax_features" / "item_features.parquet"))
+    tables = []
+    for name in ("user_features.npz", "item_features.npz"):
+        with np.load(tmp / "port_features" / name) as z:
+            tables.append({c: z[c] for c in z.files})
+    store.load_all_features(*tables, batch_size=64)
+    assert store.stats() == jstore.stats()
+    for u in range(0, CFG["SYNTH_USERS"] + 2):
+        assert store.get_user_features(u) == jstore.get_user_features(u), u
+    items = list(range(0, CFG["SYNTH_ITEMS"] + 2))
+    assert store.get_item_features_batch(items) == jstore.get_item_features_batch(items)
+    assert isinstance(store.get_item_features(1)["title"], str)
+
+    # read-through: a miss falls to the snapshot, a write shadows it
+    fresh = FeatureStore()
+    snap = FeatureSnapshot(str(tmp / "port_features" / "features.fsnap"))
+    fresh.attach_snapshot(snap)
+    assert fresh.get_user_features(5) == snap.user_dict(5)
+    assert fresh.get_item_features_batch([3])[3] == snap.item_dict(3)
+    fresh.store_user_features(5, {"avg_rating": 1.5})
+    assert fresh.get_user_features(5) == {"avg_rating": 1.5}
+    assert fresh.get_user_features(10_000) is None
+
+
+def test_store_refuses_redis_it_cannot_use(monkeypatch):
+    """With the redis package importable the store raises: the Redis
+    backend is not ported, and memory would hide that."""
+    import importlib.util
+
+    from recommendit_tpu_torch.features import store
+
+    real = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec",
+                        lambda name, *a: object() if name == "redis" else real(name, *a))
+    with pytest.raises(NotImplementedError, match="Redis backend"):
+        store.FeatureStore()
 
 
 def test_skew_report_matches(runs):
@@ -123,37 +209,26 @@ def test_skew_sample_is_pandas_sample():
 
 @pytest.fixture(scope="module")
 def own_run(tmp_path_factory):
-    """The port's own features → embeddings → index → evaluate → skew on
-    the CPU (in-batch BPR, the kernels' plain twins), after its data stage."""
-    from recommendit_tpu_torch.models import LambdaRankScorer
-    from recommendit_tpu_torch.features.schema import FEATURE_COLUMNS
-    import torch
-
+    """The port's ``all`` on the CPU (in-batch BPR, the kernels' plain
+    twins), then a second ``embeddings`` run that resumes."""
     tmp = tmp_path_factory.mktemp("own")
     orch = PipelineOrchestrator(
         cfg=Settings(**CFG, LOSS_MODE="in_batch"), data_dir=str(tmp / "ml"),
         models_dir=str(tmp / "models"), features_dir=str(tmp / "features"),
         synthetic=True, eval_users=10_000, device="cpu")
-    orch.run_stage("data")
-    for stage in ("features", "embeddings", "index"):
-        orch.run_stage(stage)
-    names = FEATURE_COLUMNS + ["retrieval_score", "retrieval_rank"]
-    ranker = LambdaRankScorer(feature_names=names, hidden_dims=(8,), device="cpu")
-    g = torch.Generator().manual_seed(0)
-    ranker.params = {"w0": torch.randn(len(names), 8, generator=g),
-                     "b0": torch.zeros(8), "w1": torch.randn(8, 1, generator=g),
-                     "b1": torch.zeros(1)}
-    ranker.feat_mean = np.zeros(len(names), np.float32)
-    ranker.feat_std = np.ones(len(names), np.float32)
-    ranker.save(orch.cfg.RANKER_MODEL_PATH)
-    report = orch.run_stage("evaluate")
-    return orch, report, orch.run_stage("skew")
+    report = orch.run_stage("all")
+    stage_times = dict(orch.stage_times)
+    skew = json.loads((tmp / "models" / "skew_report.json").read_text())
+    with np.load(orch.cfg.EMBEDDING_MODEL_PATH) as z:
+        model = {k: z[k] for k in z.files}
+    resumed = orch.run_stage("embeddings")
+    return orch, report, skew, dict(stage_times=stage_times, model=model,
+                                    resumed=resumed, tmp=tmp)
 
 
 def test_own_pipeline_on_the_cpu(own_run):
-    orch, report, skew = own_run
-    assert set(orch.stage_times) == {"data", "features", "embeddings", "index",
-                                     "evaluate", "skew"}
+    orch, report, skew, more = own_run
+    assert list(more["stage_times"]) == ALL
     data = orch._load_data()
     view = orch._train_view()
     seen = {}
@@ -186,15 +261,52 @@ def test_own_pipeline_on_the_cpu(own_run):
     assert skew["max_kl"] == 0.0 and skew["n_features_checked"] == 50
 
 
+def test_all_writes_every_artifact(own_run):
+    from recommendit_tpu.models.ranker import LambdaRankScorer as JaxRanker
+
+    orch, _, _, more = own_run
+    models, features = more["tmp"] / "models", more["tmp"] / "features"
+    assert (models / "two_tower_ckpt" / "best").is_file()
+    assert (features / "features.fsnap").is_file()
+    assert (features / "features.fsnap.meta.json").is_file()
+    ranker = JaxRanker.load(str(models / "ranker.npz"))
+    assert ranker.query_norm is False and ranker.best_iteration >= 1
+    hold = orch.ranker_trainer.holdout_metrics
+    assert hold["n_queries"] > 0 and 0 <= hold["ndcg@10"] <= 1
+
+
+def test_embeddings_stage_resumes_from_its_checkpoint(own_run):
+    """The best epoch was the last, so the resumed run takes no step and
+    writes the same model."""
+    orch, _, _, more = own_run
+    assert more["resumed"] == []
+    with np.load(orch.cfg.EMBEDDING_MODEL_PATH) as z:
+        assert sorted(z.files) == sorted(more["model"])
+        for k in z.files:
+            np.testing.assert_array_equal(z[k], more["model"][k], err_msg=k)
+
+
 def test_cli_stage_list():
-    assert STAGES == ["data", "features", "embeddings", "index", "evaluate", "skew"]
+    assert STAGES == ["all", "data", "features", "load_features", "embeddings",
+                      "index", "ranker", "evaluate", "skew"]
+    assert run_pipeline.ALL_STAGES == ALL
     with pytest.raises(SystemExit):
-        run_pipeline.main(["--stage", "ranker", "--device", "cpu"])
-    with pytest.raises(SystemExit):
-        run_pipeline.main(["--stage", "all", "--device", "cpu"])
+        run_pipeline.main(["--stage", "bogus", "--device", "cpu"])
     orch = PipelineOrchestrator(cfg=Settings(), device="cpu")
     with pytest.raises(ValueError, match="Unknown stage"):
-        orch.run_stage("load_features")
+        orch.run_stage("bogus")
+
+
+def test_cli_needs_a_card_unless_told_cpu(tmp_path):
+    """Without ``--device cpu`` the CLI runs on the card, and here, with no
+    card, it raises before any stage runs."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_pipeline.main(["--stage", "all", "--synthetic",
+                           "--data-dir", str(tmp_path / "ml"),
+                           "--models-dir", str(tmp_path / "models")])
+    assert not (tmp_path / "ml").exists()
 
 
 def test_cli_data_stage_writes_the_files(tmp_path):
@@ -216,12 +328,28 @@ def test_data_stage_without_synthetic_raises(tmp_path):
         orch.run_stage("data")
 
 
+def test_data_stage_finds_files_placed_by_hand(tmp_path):
+    from recommendit_tpu_torch.data.movielens import save_movielens
+    from recommendit_tpu_torch.data.synthetic import make_synthetic_movielens
+
+    save_movielens(make_synthetic_movielens(30, 20, 300, seed=2), str(tmp_path / "ml"))
+    before = {f.name: f.read_bytes() for f in (tmp_path / "ml").iterdir()}
+    orch = PipelineOrchestrator(cfg=Settings(), data_dir=str(tmp_path / "ml"),
+                                models_dir=str(tmp_path), device="cpu")
+    orch.run_stage("data")
+    assert {f.name: f.read_bytes() for f in (tmp_path / "ml").iterdir()} == before
+    assert "data" in orch.stage_times
+
+
 def test_embeddings_stage_refuses_what_is_not_ported(tmp_path):
+    small = dict(SYNTH_USERS=40, SYNTH_ITEMS=30, SYNTH_RATINGS=600)
     orch = PipelineOrchestrator(cfg=Settings(HOST_TABLE=True), models_dir=str(tmp_path),
                                 device="cpu")
     with pytest.raises(NotImplementedError, match="HOST_TABLE"):
         orch.run_embeddings()
+    # an Orbax checkpoint directory (the JAX package's) is not read
     (tmp_path / "two_tower_ckpt" / "best").mkdir(parents=True)
-    orch = PipelineOrchestrator(cfg=Settings(), models_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    orch = PipelineOrchestrator(cfg=Settings(**small), data_dir=str(tmp_path / "ml"),
+                                models_dir=str(tmp_path), synthetic=True, device="cpu")
+    with pytest.raises(ValueError, match="Orbax"):
         orch.run_embeddings()
