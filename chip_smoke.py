@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-Drives two paths of the port. First the fused two-stage serve path, at the
+Drives the port's paths. First the fused two-stage serve path, at the
 repository's large serve configuration (``bench.py::bench_serve_e2e_large``): 6,040
 users, a 1,000,000-item catalog, two towers of width 128, a bf16 fused
 index with the item-bias column, the MLP LambdaRank ranker (128, 64) over
@@ -10,7 +10,11 @@ output, the seen filter. Weights and data are random, made from ``--seed``
 and written in the JAX package's file formats.
 
 Then the same serve path with the index stored in int8 (``INDEX_DTYPE=int8``,
-the int8 window kernel for batches of 1,024 users), and the int8 capacity
+the int8 window kernel for batches of 1,024 users); then the request path:
+both pipelines behind the port's HTTP app and micro-batcher
+(``serving/app.py``, ``MICRO_BATCH_MAX=1024``), driven over the loopback by
+closed-loop clients, so that live ``/recommend`` traffic reaches the window
+kernels in 1,024-user dispatches; and the int8 capacity
 shape of ``scripts/capacity_30m.py``: 30,000,000 random unit rows x 128,
 window 512, k=500, Q=1024.
 
@@ -68,7 +72,25 @@ Phases (each failure raises, so the exit code is not 0):
 7. int8 serve phase: the serve phase over the int8 index, with exactly one
    int8 window launch per batch and none of the bf16 kernel; then the
    profile of step 4 over 10 int8 batches (``serve_profile_int8``);
-8. queries-major window phase: at Q in {256, 1024} over the saved bf16
+8. HTTP phase: the bf16 serve phase's pipeline behind the port's app
+   (``serving/app.py``) on the threaded server at 127.0.0.1, a free port,
+   micro-batching on (``MICRO_BATCH_MAX=1024``, a wait of
+   ``HTTP_WAIT_MS``): ``/health`` loaded, then closed-loop clients at 1,
+   64 and 512 in flight (4, 128 and 2,048 requests, one distinct user
+   each, ``use_cache`` false), the launch counts set to 0 just before each
+   level and read just after; every returned list equal to the direct
+   ``serve_batch`` of the bucket it was served in (the same users in the
+   same rows; scores within 1e-4, ids equal up to ties within 1e-4); at
+   512 at least one live dispatch of more than 256 requests (the 1,024
+   bucket), each such dispatch exactly one window-kernel launch; no error
+   record (a serve failure answered from popularity logs one); then
+   ``/recommend/batch`` for 100 users equal to ``batch_recommend``,
+   ``/model/info``, ``/items/{id}`` and a user-feature update that changes
+   that user's next list. QPS and p50/p99 per level, batch sizes, the
+   first live batch's time and a fresh thread's first and second
+   1,024-user batch. Then the 512 level once over the int8 serve phase's
+   pipeline (kernel 3);
+9. queries-major window phase: at Q in {256, 1024} over the saved bf16
    corpus, W=64, the queries-major kernel against its twin (maxima within
    1e-3, top-500 id overlap >= 0.99) and against the items-major kernel
    (maxima and positions equal to its transpose); then Q=1024 at W=128, its
@@ -76,7 +98,7 @@ Phases (each failure raises, so the exit code is not 0):
    then the router's two routes (``mips_topk_fused_route``: the dense scan
    and the window kernel) timed at Q in {1, 16, 64, ..., 1024} beside the
    route the router takes (its constants unchanged);
-9. fold phase: ``mips_topk_fused`` at Q=1024 over the valid rows, block
+10. fold phase: ``mips_topk_fused`` at Q=1024 over the valid rows, block
    2048, R=64: the tensor-core body (``tc_route``: the f32 queries split
    into three bf16 pieces by the split kernel, equal to its twin bit for
    bit) with candidates within 1e-4 (relative to the largest) of the twin,
@@ -91,19 +113,19 @@ Phases (each failure raises, so the exit code is not 0):
    body and through the CUDA-core entry; the times of the kernel, its twin,
    the CUDA-core body (``cuda_cores_ms``), the kernel at R=32 and the
    split; ptxas's registers and spills of the fold library;
-10. gather phase: ``gather_rows`` of a (1024, 500) int64 index into the
+11. gather phase: ``gather_rows`` of a (1024, 500) int64 index into the
    packed item table (1,000,001 x 64 f32) — the counted run — equal to the
    twin, and with out-of-range and int32 indices, a 23-wide f32 and a bf16
    table; the times of the kernel, the twin and ``torch.index_select``;
-11. probe phase: the kernel probe's four variants in-process at N=1M,
+12. probe phase: the kernel probe's four variants in-process at N=1M,
    D=128, Q=1024, k=500, block 2048, W=64, bf16, each exiting 0, with the
    window and fold launch counts read around exactly that run;
-12. capacity phase: 30M x 128 random unit rows made and quantised on the
+13. capacity phase: 30M x 128 random unit rows made and quantised on the
    card in chunks, the int8 window kernel (the tensor-core body) at Q=1024
    and W=512 (windows wider than a tile) timed, and on 64 queries its
    maxima and positions equal to the twin's and recall@500 >= 0.98 against
    int8-exact;
-13. BPR kernel phase: at B=1024 and a ragged B=1000, D=64 f32, the forward
+14. BPR kernel phase: at B=1024 and a ragged B=1000, D=64 f32, the forward
    and backward kernels against their twins — the loss within 1e-5
    relative, du and dv within 1e-4 of the twin's largest entry, a second
    call equal bit for bit — all four times by CUDA events and, since by
@@ -112,17 +134,17 @@ Phases (each failure raises, so the exit code is not 0):
    line reports), ``gemm_only_ms`` (``u @ v.T`` in full f32: a yardstick
    the port never calls), the bounds (f32, and 3xTF32 at the TF32 peak)
    and the bpr library's ptxas registers and spills;
-14. train phase: the synthetic data, its 0.9 temporal train view, 2 epochs
+15. train phase: the synthetic data, its 0.9 temporal train view, 2 epochs
    of in-batch BPR (the loss finite, falling, below ln 2; one forward and
    one backward kernel launch per step, counted around exactly that run),
    then 1 epoch of the default softmax loss (no BPR launch); then
    ``torch.profiler`` over a 67-step in-batch epoch with the kernels and
    with the twins: device µs per step by kernel group, host ms per step;
-15. index phase: ``IndexBuilder`` on the in-batch model (exact f32 index),
+16. index phase: ``IndexBuilder`` on the in-batch model (exact f32 index),
    ``batch_search`` for 1,024 users with held-out positives: valid ids,
    and Recall@20 of the held-out 10 % positives (train items filtered)
    above a random ranking's;
-16. pipeline phase: the pipeline CLI's ``all``
+17. pipeline phase: the pipeline CLI's ``all``
    (``recommendit_tpu_torch.pipelines.run_pipeline``) on the train phase's
    data written as ML-1M ``.dat`` files (read back equal; the ``data``
    stage finds them): ``features``; ``embeddings`` (Settings defaults but
@@ -133,7 +155,8 @@ Phases (each failure raises, so the exit code is not 0):
    stopping); ``load_features`` (the store and ``features.fsnap``);
    ``skew``; ``evaluate``. Each BPR kernel launched once a step of the
    three tower trainings (the wrappers' counts set to 0 just before
-   ``all`` and read just after; ``torch.profiler`` around each training),
+   ``all`` and read just after; ``torch.profiler`` around each training,
+   whose counts may miss ``PROFILER_RECORD_LOSS`` of the records),
    every tower loss finite and below ln 2; every ranker epoch's loss
    finite, a best epoch, the holdout NDCG@10 above a seeded random
    scorer's on the same groups; ``features.fsnap`` equal to the feature
@@ -165,10 +188,15 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import logging
+import multiprocessing
 import re
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -224,6 +252,16 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
                   "tf32": 495e12}
 INDEX_PATHS = {"bfloat16": "index_path", "int8": "index_i8_path"}
+# the HTTP phase: closed-loop clients in flight and requests per level, the
+# micro-batcher's largest bucket and its wait (ms). A dispatch fills the
+# 1,024 bucket only when more than 256 requests arrive within one wait, and
+# the threaded server answers about 300 requests a second on the GPU
+# machine's host (PERF.md section 5): hence a wait of 0.7 s.
+HTTP_LEVELS = ((1, 4), (64, 128), (512, 2048))
+HTTP_MAX_BATCH = 1024
+HTTP_WAIT_MS = 700.0
+HTTP_BATCH_USERS = 100            # the /recommend/batch check
+HTTP_TOL = 1e-4
 SERVE_KERNELS = {"bfloat16": "window_mips", "int8": "window_mips_i8"}
 
 # the int8 kernel's extra check: the dp4a body where the wrapper takes it
@@ -321,6 +359,7 @@ def make_artifacts(workdir: Path, seed: int, device, n_users: int = N_USERS,
     catalog's augmented f32 rows (normalised embedding and bias column) as
     ``catalog.npy``. Returns (paths, ServeData)."""
     from recommendit_tpu_torch.features.schema import (
+        GENRES,
         ITEM_PACKED_DIM,
         N_GENRES,
         USER_PACKED_DIM,
@@ -389,8 +428,13 @@ def make_artifacts(workdir: Path, seed: int, device, n_users: int = N_USERS,
     items = np.where(rng.random(n_ratings) < 0.5,
                      rng.integers(1, n_items + 1, n_ratings),
                      rng.integers(1, head + 1, n_ratings))
+    # the catalog's titles and genre names, as the responses carry them
+    titles = {int(i): f"Synthetic Item {i}" for i in item_ids}
+    item_genres = {int(i): [] for i in item_ids}
+    for row, g in zip(*np.nonzero(genres)):
+        item_genres[int(item_ids[row])].append(GENRES[g])
     return paths, ServeData(user_id=users, item_id=items, n_users=n_users,
-                            n_items=n_items)
+                            n_items=n_items, titles=titles, genres=item_genres)
 
 
 def _overlap(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -560,7 +604,8 @@ def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
     requests. Checks what comes out and the launch counts of exactly that
     run — on the card one launch of the dtype's window kernel per batch,
     none for the single requests (the scan route) and none of the other
-    kernel — and returns the measurements and the counts."""
+    kernel — and returns the measurements and the counts, and the loaded
+    pipeline."""
     from recommendit_tpu_torch.ops import mips_window as mw
     from recommendit_tpu_torch.ops.topk import quantize_queries
 
@@ -652,7 +697,331 @@ def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
         "retrieval_score_abs_err": rerr,
         "stage_split": pipe.get_stats()["stage_split"],
         "launches": launches,
-    }
+    }, pipe
+
+
+class _ErrorRecords(logging.Handler):
+    """Keeps every record of ERROR or above: a failed serve call that the
+    pipeline or the app answers with the popularity list logs one."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def _http_post(url: str, body, timeout: float = 60.0):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"},
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode(errors="replace")
+
+
+def _http_get(url: str, timeout: float = 60.0):
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode(errors="replace")
+
+
+def http_level(url: str, clients: int, users, k: int):
+    """``len(users)`` POST /recommend, one per user, from ``clients``
+    closed-loop client threads (``use_cache`` false) → the wall time, each
+    request's host latency and each user's status and payload."""
+    lock = threading.Lock()
+    cursor = [0]
+    lat, out = [], {}
+
+    def worker():
+        while True:
+            with lock:
+                i = cursor[0]
+                cursor[0] += 1
+            if i >= len(users):
+                return
+            u = users[i]
+            t0 = time.perf_counter()
+            got = _http_post(f"{url}/recommend",
+                             {"user_id": u, "k": k, "use_cache": False})
+            dt = (time.perf_counter() - t0) * 1e3
+            with lock:
+                lat.append(dt)
+                out[u] = got
+
+    threads = [threading.Thread(target=worker) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return time.perf_counter() - t0, lat, out
+
+
+def check_list(got_ids, got_scores, want_ids, want_scores, tol: float = HTTP_TOL):
+    """Scores within ``tol`` position by position, and the ids equal once
+    each run of scores tied within ``tol`` is put in id order
+    (``canonical_tie_order`` with ties up to ``tol``). Raises on a
+    difference."""
+    if len(got_ids) != len(want_ids):
+        raise AssertionError(f"{len(got_ids)} items, expected {len(want_ids)}")
+    g = np.asarray(got_scores, np.float64)
+    w = np.asarray(want_scores, np.float64)
+    fin = np.isfinite(w)
+    if not (np.array_equal(np.isfinite(g), fin)
+            and np.all(np.abs(g[fin] - w[fin]) <= tol)):
+        raise AssertionError(f"scores differ: {g.tolist()} vs {w.tolist()}")
+    start = 0
+    for end in range(1, len(w) + 1):
+        if end == len(w) or not (
+                not (fin[end] or fin[end - 1])
+                or (fin[end] and fin[end - 1] and w[end - 1] - w[end] <= tol)):
+            if sorted(got_ids[start:end]) != sorted(want_ids[start:end]):
+                raise AssertionError(
+                    f"ids differ: {list(got_ids)} vs {list(want_ids)}")
+            start = end
+
+
+def check_http_batches(pipe, batches, bodies, k: int) -> int:
+    """Every list returned over HTTP against the direct ``serve_batch`` of
+    the bucket its request was served in (the same users in the same rows,
+    padded with user 1): ``check_list`` on the first ``k`` finite rows, the
+    popularity backfill as the pipeline adds it. Returns the lists
+    checked."""
+    n_checked = 0
+    for users, bucket, _ in batches:
+        ids, scores, _ = pipe._serve_rows(list(users) + [1] * (bucket - len(users)))
+        for row, u in enumerate(users):
+            status, body = bodies[u]
+            if status != 200:
+                raise AssertionError(f"user {u}: HTTP {status}: {body}")
+            fin = np.isfinite(scores[row])
+            want = ids[row][fin][:k].tolist()
+            want_s = scores[row][fin][:k].tolist()
+            fill = pipe._unseen_popularity(u, k, exclude=set(want))
+            want_s += [float("-inf")] * min(k - len(want), len(fill))
+            want += fill[: k - len(want)]
+            recs = body["recommendations"]
+            check_list([r["item_id"] for r in recs], [r["score"] for r in recs],
+                       want, want_s)
+            n_checked += 1
+    return n_checked
+
+
+def _log_batches(pipe, log):
+    """Wrap the pipeline's micro-batcher so that each dispatch appends (the
+    users, their bucket, host ms) to ``log``; only this script reads it."""
+    from recommendit_tpu_torch.serving.recommender import micro_batch_buckets
+
+    batcher = pipe._batcher
+    inner = batcher.batch_fn
+    buckets = micro_batch_buckets(batcher.max_batch)
+
+    def logged(user_ids):
+        t0 = time.perf_counter()
+        out = inner(user_ids)
+        bucket = next((b for b in buckets if b >= len(user_ids)), buckets[-1])
+        log.append((list(user_ids), bucket, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    batcher.batch_fn = logged
+
+
+def _new_thread_ms(pipe, bucket: int):
+    """Host ms of the first and the second ``serve_batch`` of ``bucket``
+    users (brought to the host) on a thread that has never served: what a
+    dispatch thread not warmed itself would pay on its first batch."""
+    out = []
+
+    def run():
+        for _ in range(2):
+            t0 = time.perf_counter()
+            pipe._serve_rows([1] * bucket)
+            out.append((time.perf_counter() - t0) * 1e3)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    return out
+
+
+def _percentiles(lat):
+    a = np.asarray(lat)
+    return float(np.percentile(a, 50)), float(np.percentile(a, 99))
+
+
+def http_serve(pipe, device, label: str, levels, users_pool, k: int, max_batch: int,
+               wait_ms: float, extra_checks: bool, clients):
+    """One pipeline behind the port's app and threaded server: micro-batching
+    on (``max_batch``, ``wait_ms``), ``/health``, then each level of
+    closed-loop clients (``http_level`` in the process pool ``clients``)
+    with the launch counts set to 0 just before it and read just after,
+    every list against its direct bucket; with
+    ``extra_checks`` also ``/recommend/batch``, ``/model/info``,
+    ``/items/{id}`` and a user-feature update. The last level must send at
+    least one live dispatch to the largest bucket (on the card, with
+    ``max_batch`` 1,024, each one launches the index's window kernel)."""
+    from recommendit_tpu_torch.ops import mips_window as mw
+    from recommendit_tpu_torch.serving.app import HTTPServer, RecommendItApp, make_handler
+    from recommendit_tpu_torch.serving.recommender import micro_batch_buckets
+
+    big = micro_batch_buckets(max_batch)[-1]
+
+    kernel = SERVE_KERNELS[pipe.index.dtype]
+    on_card = torch.device(device).type == "cuda"
+    errors = _ErrorRecords()
+    log_root = logging.getLogger("recommendit_tpu_torch")
+    log_root.addHandler(errors)
+    pipe.enable_micro_batching(max_batch, wait_ms)
+    warm = dict(pipe.get_stats()["micro_batcher"])
+    batches = []
+    _log_batches(pipe, batches)
+    server = HTTPServer(("127.0.0.1", 0), make_handler(RecommendItApp(pipeline=pipe)))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    rec = {"index_dtype": pipe.index.dtype, "wait_ms": wait_ms,
+           "max_batch": max_batch, "warm_s": warm["warm_s"],
+           "warm_on_dispatch_thread": warm["warm_thread"] != threading.current_thread().name,
+           "levels": []}
+    try:
+        status, health = _http_get(f"{url}/health")
+        if status != 200 or health.get("pipeline_loaded") is not True:
+            raise AssertionError(f"/health: {status} {health}")
+        cursor = 0
+        for n_clients, n_req in levels:
+            users = users_pool[cursor: cursor + n_req]
+            cursor += n_req
+            before = dict(pipe.get_stats()["micro_batcher"])
+            batches.clear()
+            for name in mw.LAUNCHES:
+                mw.LAUNCHES[name] = 0
+            wall, lat, bodies = clients.apply(http_level, (url, n_clients, users, k))
+            launches = dict(mw.LAUNCHES)
+            after = pipe.get_stats()["micro_batcher"]
+            sizes = [len(b[0]) for b in batches]
+            big_dispatches = sum(1 for _, b, _ in batches if b == big)
+            served = after["requests_served"] - before["requests_served"]
+            n_batches = after["batches_dispatched"] - before["batches_dispatched"]
+            checked = check_http_batches(pipe, batches, bodies, k)
+            p50, p99 = _percentiles(lat)
+            level = {
+                "clients": n_clients, "requests": len(users), "qps": len(users) / wall,
+                "p50_ms": p50, "p99_ms": p99, "max_ms": float(np.max(lat)),
+                "batches": n_batches, "avg_batch_size": served / max(1, n_batches),
+                "max_batch_size": max(sizes), "bucket_dispatches": {
+                    str(b): sum(1 for _, bb, _ in batches if bb == b)
+                    for b in sorted({bb for _, bb, _ in batches})},
+                "batch_ms_median_by_bucket": {
+                    str(b): float(np.median([ms for _, bb, ms in batches if bb == b]))
+                    for b in sorted({bb for _, bb, _ in batches})},
+                "lists_checked": checked, "launches": launches,
+            }
+            if checked != len(users) or served != len(users):
+                raise AssertionError(f"{label}: {checked} lists checked, {served} "
+                                     f"served, {len(users)} sent")
+            expect = {name: 0 for name in mw.LAUNCHES}
+            if on_card:
+                expect[kernel] = big_dispatches if big == 1024 else 0
+            if launches != expect:
+                raise AssertionError(f"{label}, {n_clients} clients: launches {launches}, "
+                                     f"expected {expect} ({big_dispatches} dispatches "
+                                     f"to the {big} bucket)")
+            rec["levels"].append(level)
+            print(json.dumps({f"http_{label}_level": level}), flush=True)
+        if not big_dispatches:
+            raise AssertionError(f"{label}: no live dispatch to the {big} bucket at "
+                                 f"{levels[-1][0]} clients: "
+                                 f"{rec['levels'][-1]['bucket_dispatches']}")
+        rec["big_bucket_dispatches"] = big_dispatches
+        rec["first_big_batch_ms"] = next(ms for _, b, ms in batches if b == big)
+        rec["first_live_batch_ms"] = after["first_live_batch_ms"]
+        rec["first_live_batch_size"] = after["first_live_batch_size"]
+        rec["new_thread_ms"] = _new_thread_ms(pipe, big)
+
+        if extra_checks:
+            rec.update(http_extra_checks(pipe, url, users_pool[cursor:], k))
+        if errors.records:
+            raise AssertionError(
+                f"{label}: {len(errors.records)} serve failures answered from "
+                f"popularity, first: {errors.records[0].getMessage()}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        pipe._batcher.close()
+        log_root.removeHandler(errors)
+    return rec
+
+
+def http_extra_checks(pipe, url: str, users, k: int):
+    """/recommend/batch (the scan route) against ``batch_recommend``,
+    /model/info, /items/{id}, and a user-feature update that must change
+    that user's next list (the packed row written on the device)."""
+    batch_users = [int(u) for u in users[:HTTP_BATCH_USERS]]
+    status, body = _http_post(f"{url}/recommend/batch",
+                              {"user_ids": batch_users, "k": k})
+    want = pipe.batch_recommend(batch_users, k=k)
+    if status != 200 or body["recommendations"] != {str(u): want[u] for u in batch_users}:
+        raise AssertionError(f"/recommend/batch disagrees with batch_recommend ({status})")
+    status, info = _http_get(f"{url}/model/info")
+    if (status != 200 or info["index_stats"] != pipe.index.stats()
+            or info["n_items"] != pipe.model.n_items
+            or "micro_batcher" not in info["pipeline_stats"]):
+        raise AssertionError(f"/model/info: {status} {info}")
+    item = int(pipe.index.item_ids[len(pipe.index.item_ids) // 2])
+    status, body = _http_get(f"{url}/items/{item}")
+    if status != 200 or body["title"] != pipe._item_titles[item] or not body["genres"]:
+        raise AssertionError(f"/items/{item}: {status} {body}")
+    user = int(users[HTTP_BATCH_USERS])
+    req = {"user_id": user, "k": k, "use_cache": False}
+    _, before = _http_post(f"{url}/recommend", req)
+    status, _ = _http_post(f"{url}/users/{user}/features", {
+        "avg_rating": 5.0, "log_rating_count": 8.0, "recency_score": 1.0,
+        "gender_encoded": 1.0, "age_normalized": 1.0,
+        "occupation_normalized": 1.0, "genre_pref": [1.0] * 9 + [0.0] * 9})
+    _, after = _http_post(f"{url}/recommend", req)
+    if status != 200 or ([r["score"] for r in after["recommendations"]]
+                         == [r["score"] for r in before["recommendations"]]):
+        raise AssertionError("a user-feature update did not change the next list")
+    ids, scores, _ = pipe._serve_rows([user] + [1] * 7)
+    fin = np.isfinite(scores[0])
+    check_list([r["item_id"] for r in after["recommendations"]],
+               [r["score"] for r in after["recommendations"]],
+               ids[0][fin][:k].tolist(), scores[0][fin][:k].tolist())
+    return {"batch_route_users": len(batch_users), "model_info": "ok",
+            "item_checked": item, "feature_update_user": user}
+
+
+def http_phase(pipe, pipe_i8, device, levels=HTTP_LEVELS, k: int = REQUEST_K,
+               max_batch: int = HTTP_MAX_BATCH, wait_ms: float = HTTP_WAIT_MS,
+               seed: int = 0):
+    """The request path: the bf16 pipeline behind the port's HTTP app at each
+    level of ``levels`` (clients in flight, requests), every request a
+    distinct user, then the last level once over the int8 pipeline
+    (``http_serve``). The clients run in a process of their own, as they
+    would against a real server: in this one their threads would compete
+    with the server's for the interpreter lock. Returns the two records."""
+    rng = np.random.default_rng(seed + 11)
+    n_users = pipe._n_users
+    need = sum(n for _, n in levels) + HTTP_BATCH_USERS + 1
+    if need > n_users:
+        raise ValueError(f"the levels need {need} distinct users, there are {n_users}")
+    with multiprocessing.get_context("spawn").Pool(1) as clients:
+        pool = (rng.permutation(n_users) + 1).tolist()
+        out = {"bf16": http_serve(pipe, device, "bf16", levels, pool, k, max_batch,
+                                  wait_ms, extra_checks=True, clients=clients)}
+        pool = (rng.permutation(n_users) + 1).tolist()
+        out["int8"] = http_serve(pipe_i8, device, "int8", levels[-1:], pool, k,
+                                 max_batch, wait_ms, extra_checks=False,
+                                 clients=clients)
+    return out
 
 
 def quantize_phase(paths, device, seed: int, timer=cuda_ms):
@@ -1645,6 +2014,12 @@ def index_phase(model, data, view, device, seed: int, workdir: Path,
     return rec
 
 
+# torch.profiler on the GPU machine loses a few kernel records of a long run
+# (up to 13 of 800 per kernel, 1.6 %, in runs of 800 BPR steps:
+# tools/profiler_record_loss.py, PERF.md section 6), so its count of a
+# kernel is held to this share of the launches; the wrappers' own counts
+# are held exactly
+PROFILER_RECORD_LOSS = 0.03
 PIPELINE_INDEXES = (("exact", "float32"), ("fused", "bfloat16"), ("fused", "int8"))
 BPR_KERNELS = ("bpr_fwd_tile_kernel", "bpr_fwd_finish_kernel",
                "bpr_bwd_tile_kernel", "bpr_bwd_finish_kernel")
@@ -1918,9 +2293,12 @@ def pipeline_phase(data, device, seed: int, workdir: Path, card: str,
         if not (np.isfinite(r["losses"]).all() and r["losses"][-1] < np.log(2.0)):
             raise AssertionError(f"tower loss {r['losses']}: not finite or not "
                                  "below ln 2")
-        if on_card and r["bpr_profiled"] != {n: r["steps"] for n in BPR_KERNELS}:
+        low = int(np.ceil((1 - PROFILER_RECORD_LOSS) * r["steps"]))
+        if on_card and not all(low <= r["bpr_profiled"].get(n, 0) <= r["steps"]
+                               for n in BPR_KERNELS):
             raise AssertionError(f"the profiler saw BPR kernels {r['bpr_profiled']}, "
-                                 f"expected each {r['steps']} times")
+                                 f"expected each {r['steps']} times (at least "
+                                 f"{low}: it loses some records)")
     per_step = sum(steps) if on_card else 0
     if launches != {"bpr_fwd": per_step, "bpr_bwd": per_step}:
         raise AssertionError(f"expected {per_step} launches of each BPR "
@@ -2095,7 +2473,7 @@ def main(argv=None) -> int:
 
     checks = kernel_phase(paths, device, args.seed)
     torch.cuda.empty_cache()
-    serve = serve_phase(paths, data, device)
+    serve, pipe = serve_phase(paths, data, device)
     print(json.dumps({"serve": serve, "card": card}), flush=True)
     torch.cuda.empty_cache()
     profile_phase(paths, data, device)
@@ -2105,10 +2483,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     checks_i8, _ = int8_kernel_phase(paths, device, args.seed)
     torch.cuda.empty_cache()
-    serve_i8 = serve_phase(paths, data, device, dtype="int8")
+    serve_i8, pipe_i8 = serve_phase(paths, data, device, dtype="int8")
     print(json.dumps({"serve_int8": serve_i8, "card": card}), flush=True)
     torch.cuda.empty_cache()
     profile_phase(paths, data, device, dtype="int8")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    http = http_phase(pipe, pipe_i8, device, seed=args.seed)
+    print(json.dumps({"http": http, "http_s": time.perf_counter() - t0,
+                      "card": card}), flush=True)
+    del pipe, pipe_i8
     torch.cuda.empty_cache()
 
     checks_qm = qm_window_phase(paths, device, args.seed)
@@ -2159,6 +2544,8 @@ def main(argv=None) -> int:
     kernels = [{
         "name": "window_mips", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": serve["launches"]["window_mips"],
+        "http_launches": sum(lv["launches"]["window_mips"]
+                             for lv in http["bf16"]["levels"]),
         "max_abs_err": max(c["window_max_abs_err"] for c in checks),
         "ms": main_q["kernel_ms"], "plain_ms": main_q["twin_ms"],
         "bound": window_bound(main_q, 2, 4, "bf16"), "library_ms": None,
@@ -2171,6 +2558,8 @@ def main(argv=None) -> int:
     }, {
         "name": "window_mips_i8", "source": I8_SOURCE, "replaces": I8_REPLACES,
         "launches": serve_i8["launches"]["window_mips_i8"],
+        "http_launches": sum(lv["launches"]["window_mips_i8"]
+                             for lv in http["int8"]["levels"]),
         "max_abs_err": max(c["window_max_abs_err"] for c in checks_i8),
         "ms": main_i8["kernel_ms"], "plain_ms": main_i8["twin_ms"],
         "bound": window_bound(main_i8, 1, 1, "int8", scales=True),

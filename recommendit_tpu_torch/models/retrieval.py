@@ -234,3 +234,21 @@ class MIPSIndex:
         # a fused-mode file already carries JAX's block padding
         idx._place(rows.to(idx.device), scales.to(idx.device))
         return idx
+
+    # --- introspection --------------------------------------------------- #
+
+    def stats(self) -> dict:
+        """The JAX index's ``stats()`` keys. ``recall`` is 1.0 for an exact
+        f32/bf16 index and None otherwise (int8, approx, fused)."""
+        return {
+            "index_type": "exact-mips",
+            "n_total": self.n_total,
+            "embedding_dim": self.embedding_dim,
+            "block_size": self.block_size,
+            "mode": self.mode,
+            "dtype": self.dtype,
+            "has_bias": self.has_bias,
+            "recall": 1.0
+            if self.mode in ("exact", "verified") and self.dtype != "int8"
+            else None,
+        }

@@ -36,6 +36,17 @@ build_seconds: Dict[str, float] = {}
 ptxas_logs: Dict[str, str] = {}   # ptxas -v's report of each loaded library
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(counts: Dict[str, int], name: str) -> None:
+    """Add one to ``counts[name]`` (a module's ``LAUNCHES``) under a lock:
+    HTTP, batcher and calibration threads may launch at once, and ctypes
+    releases the GIL during a launch."""
+    with _count_lock:
+        counts[name] += 1
+
+
 def _nvcc() -> str:
     cands = [shutil.which("nvcc")]
     for env in ("CUDA_HOME", "CUDA_PATH"):

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from recommendit_tpu_torch.ops._build import count_launch
 from recommendit_tpu_torch.ops.topk import full_f32_matmul
 
 # Kernel launches since the last reset, by kernel name. Only the CUDA
@@ -149,7 +150,7 @@ def bpr_forward_cuda(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                                     b, d, stream)
     if rc != 0:
         raise RuntimeError(f"bpr forward launch failed: CUDA error {rc}")
-    LAUNCHES["bpr_fwd"] += 1
+    count_launch(LAUNCHES, "bpr_fwd")
     return row_loss.mean()
 
 
@@ -169,7 +170,7 @@ def bpr_backward_cuda(u: torch.Tensor, v: torch.Tensor, g: torch.Tensor):
             dv.data_ptr(), scratch.data_ptr(), b, d, stream)
     if rc != 0:
         raise RuntimeError(f"bpr backward launch failed: CUDA error {rc}")
-    LAUNCHES["bpr_bwd"] += 1
+    count_launch(LAUNCHES, "bpr_bwd")
     return du, dv
 
 

@@ -20,6 +20,8 @@ import ctypes
 
 import torch
 
+from recommendit_tpu_torch.ops._build import count_launch
+
 # Kernel launches since the last reset. Only the CUDA wrapper adds to it.
 LAUNCHES = {"gather_rows": 0}
 
@@ -69,7 +71,7 @@ def _gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                 table.shape[0], table.shape[1] * table.element_size(), stream)
     if rc != 0:
         raise RuntimeError(f"gather_rows launch failed: CUDA error {rc}")
-    LAUNCHES["gather_rows"] += 1
+    count_launch(LAUNCHES, "gather_rows")
     return out
 
 

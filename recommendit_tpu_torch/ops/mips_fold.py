@@ -33,6 +33,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from recommendit_tpu_torch.ops._build import count_launch
 from recommendit_tpu_torch.ops.mips_window import pad_columns
 from recommendit_tpu_torch.ops.topk import fast_topk, full_f32_matmul
 
@@ -161,7 +162,7 @@ def _split_queries_cuda(q: torch.Tensor) -> torch.Tensor:
         rc = fn(q.data_ptr(), pieces.data_ptr(), q.numel(), stream)
     if rc != 0:
         raise RuntimeError(f"fold_split launch failed: CUDA error {rc}")
-    LAUNCHES["fold_split"] += 1
+    count_launch(LAUNCHES, "fold_split")
     return pieces
 
 
@@ -231,7 +232,7 @@ def _fold_candidates_cuda(queries: torch.Tensor, items: torch.Tensor,
                 items.shape[1], bn, out, pad_score(items.dtype), stream)
     if rc != 0:
         raise RuntimeError(f"fold_mips launch failed: CUDA error {rc}")
-    LAUNCHES["fold_mips"] += 1
+    count_launch(LAUNCHES, "fold_mips")
     LAST_BODY["fold_mips"] = body
     return vals, ids
 

@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from recommendit_tpu_torch.ops._build import count_launch
 from recommendit_tpu_torch.ops.topk import (
     INT8_MAX_DIM,
     INT8_ROW_ALIGN,
@@ -199,7 +200,7 @@ def _window_candidates_cuda(queries: torch.Tensor, items: torch.Tensor,
     name = "window_mips_qm" if queries_major else "window_mips"
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return vals, args
 
 
@@ -353,7 +354,7 @@ def _window_candidates_i8_cuda(q_i8: torch.Tensor, items_i8: torch.Tensor,
                 stream)
     if rc != 0:
         raise RuntimeError(f"window_mips_i8 launch failed: CUDA error {rc}")
-    LAUNCHES["window_mips_i8"] += 1
+    count_launch(LAUNCHES, "window_mips_i8")
     LAST_BODY["window_mips_i8"] = body
     return vals, args
 

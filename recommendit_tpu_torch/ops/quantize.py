@@ -32,6 +32,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from recommendit_tpu_torch.ops._build import count_launch
 from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 _M32 = 0xFFFFFFFF
@@ -195,7 +196,7 @@ def _quantize_hash_cuda(x: torch.Tensor, seed: int):
                 seed & _M32, stream)
     if rc != 0:
         raise RuntimeError(f"quantize_i8 launch failed: CUDA error {rc}")
-    LAUNCHES["quantize_i8"] += 1
+    count_launch(LAUNCHES, "quantize_i8")
     return vals, scales
 
 

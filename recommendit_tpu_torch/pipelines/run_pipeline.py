@@ -86,6 +86,7 @@ class PipelineOrchestrator:
         features_dir: str = "data/features",
         synthetic: bool = False,
         eval_users: int = 200,
+        respect_cfg_paths: bool = False,
         device=DEFAULT_DEVICE,
     ):
         self.cfg = cfg or default_settings
@@ -102,12 +103,18 @@ class PipelineOrchestrator:
         # the ranker stage's trainer (its holdout frame and report)
         self.ranker_trainer = None
         self._data: Optional[MovieLensData] = None
-        # the artifacts go into models_dir
-        self.cfg = self.cfg.replace(
-            EMBEDDING_MODEL_PATH=str(self.models_dir / "two_tower.npz"),
-            INDEX_PATH=str(self.models_dir / "mips.index.npz"),
-            RANKER_MODEL_PATH=str(self.models_dir / "ranker.npz"),
-            DATA_DIR=self.data_dir)
+        # the artifacts go into models_dir; respect_cfg_paths=True keeps any
+        # path the caller set away from its Settings default
+        remap = {
+            "EMBEDDING_MODEL_PATH": str(self.models_dir / "two_tower.npz"),
+            "INDEX_PATH": str(self.models_dir / "mips.index.npz"),
+            "RANKER_MODEL_PATH": str(self.models_dir / "ranker.npz"),
+        }
+        if respect_cfg_paths:
+            defaults = Settings()
+            remap = {k: v for k, v in remap.items()
+                     if getattr(self.cfg, k) == getattr(defaults, k)}
+        self.cfg = self.cfg.replace(**remap, DATA_DIR=self.data_dir)
 
     # ------------------------------------------------------------------ #
 
@@ -180,10 +187,10 @@ class PipelineOrchestrator:
                                    *tables)
         logger.info("Store stats: %s", store.stats())
 
-    def run_embeddings(self):
+    def run_embeddings(self, resume: bool = True):
         """Train the towers on the train view, saving the train state at
-        every best epoch and resuming from ``two_tower_ckpt/best`` when it
-        exists. Host-table training (``HOST_TABLE``) is not ported and
+        every best epoch and, with ``resume``, resuming from
+        ``two_tower_ckpt/best`` when it exists. Host-table training (``HOST_TABLE``) is not ported and
         raises."""
         from recommendit_tpu_torch.training.train_embeddings import EmbeddingTrainer
 
@@ -197,7 +204,7 @@ class PipelineOrchestrator:
                                    ckpt_dir=str(ckpt_dir), device=self.device)
         resume_from = None
         best = ckpt_dir / "best"
-        if best.exists():
+        if resume and best.exists():
             logger.info("Found checkpoint at %s — resuming", best)
             resume_from = str(best)
         trainer.train(resume_from=resume_from)
@@ -369,6 +376,7 @@ def main(argv=None):
                         help="generate synthetic MovieLens-format data")
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--eval-users", type=int, default=200)
+    parser.add_argument("--log-level", default=None)
     parser.add_argument("--device", default=DEFAULT_DEVICE,
                         help="where the stages run (default: the card)")
     args = parser.parse_args(argv)
@@ -376,7 +384,7 @@ def main(argv=None):
     cfg = default_settings
     if args.epochs:
         cfg = cfg.replace(TRAIN_EPOCHS=args.epochs)
-    setup_logging(cfg.LOG_LEVEL)
+    setup_logging(args.log_level or cfg.LOG_LEVEL)
     orch = PipelineOrchestrator(
         cfg=cfg,
         data_dir=args.data_dir,

@@ -11,7 +11,10 @@ batches of 384 users or more through the window kernel
 ``load`` needs no pandas: it takes the port's ``MovieLensData`` — whose
 ratings the packed feature tables are recomputed from when no fresh
 snapshot is in ``features_dir`` — or plain arrays (:class:`ServeData`),
-which need the snapshots.
+which need the snapshots; with neither it reads ``data_dir`` (or makes the
+synthetic set). Online feature updates write the packed rows in place on
+the device, and :meth:`RecommendationPipeline.enable_micro_batching`
+coalesces concurrent requests into padded ``serve_batch`` buckets.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from recommendit_tpu_torch.config import Settings, settings as default_settings
-from recommendit_tpu_torch.data.movielens import MovieLensData
+from recommendit_tpu_torch.data.movielens import MovieLensData, load_or_synthesize
 from recommendit_tpu_torch.features.engineering import (
     ITEM_SNAPSHOT,
     USER_FILE,
@@ -36,20 +39,30 @@ from recommendit_tpu_torch.features.engineering import (
 )
 from recommendit_tpu_torch.features.schema import (
     assemble_packed,
+    item_dict_to_packed,
     pack_item_features,
     pack_user_features,
     pad_packed_width,
+    user_dict_to_packed,
 )
 from recommendit_tpu_torch.features.store import FeatureStore
 from recommendit_tpu_torch.models import MIPSIndex, TwoTower, load_ranker
 from recommendit_tpu_torch.ops.seen import SeenSet, seen_mask
 from recommendit_tpu_torch.ops.topk import fast_topk
+from recommendit_tpu_torch.serving.batcher import MicroBatcher, QueueFullError
 from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from recommendit_tpu_torch.utils.latency import LatencyTracker
 
 logger = logging.getLogger(__name__)
 
 MAX_K = 100  # API cap (reference app.py:32 k<=100)
+BUCKETS = (8, 32, 256, 1024)   # the micro-batcher's padded batch sizes
+
+
+def micro_batch_buckets(max_batch: int) -> List[int]:
+    """The padded batch sizes of a micro-batcher of ``max_batch``: each
+    bucket up to it, or ``max_batch`` alone below the smallest."""
+    return [b for b in BUCKETS if b <= max_batch] or [max_batch]
 
 
 @dataclasses.dataclass
@@ -140,6 +153,8 @@ class RecommendationPipeline:
     def __init__(self, model_path: Optional[str] = None,
                  index_path: Optional[str] = None,
                  ranker_path: Optional[str] = None,
+                 redis_url: Optional[str] = None,
+                 data_dir: Optional[str] = None,
                  features_dir: Optional[str] = None,
                  top_k_candidates: Optional[int] = None,
                  cfg: Optional[Settings] = None,
@@ -148,6 +163,8 @@ class RecommendationPipeline:
         self.model_path = model_path or self.cfg.EMBEDDING_MODEL_PATH
         self.index_path = index_path or self.cfg.INDEX_PATH
         self.ranker_path = ranker_path or self.cfg.RANKER_MODEL_PATH
+        self.redis_url = redis_url or self.cfg.REDIS_URL
+        self.data_dir = data_dir or self.cfg.DATA_DIR
         self.features_dir = features_dir
         self.top_k_candidates = top_k_candidates or self.cfg.TOP_K_CANDIDATES
         self.device = resolve_device(device)
@@ -172,20 +189,37 @@ class RecommendationPipeline:
         self._calls_since_recal = 0
         self._recal_thread: Optional[threading.Thread] = None
         self._recal_lock = threading.Lock()
+        self._batcher: Optional[MicroBatcher] = None
+        # the micro-batcher's warm-up and its first live batch (host ms, the
+        # copy to the host included)
+        self._batch_timing: Dict[str, Any] = {}
 
     # --- load ------------------------------------------------------------ #
 
-    def load(self, data) -> None:
+    def load(self, data=None) -> None:
         """Load the model files and build the serve path. ``data``: a
-        ``MovieLensData`` or a :class:`ServeData`."""
+        ``MovieLensData`` or a :class:`ServeData`; by default the dataset
+        in ``data_dir``, or the synthetic set where there is none (JAX's
+        ``load_or_synthesize``). A ``features.fsnap`` in ``features_dir``
+        backs the feature store."""
         t0 = time.time()
-        source = data
-        if not isinstance(data, ServeData):
-            data = ServeData.from_movielens(data)
         self.model = TwoTower.load(self.model_path, device=self.device)
         self.index = MIPSIndex.load(self.index_path, device=self.device)
         self.ranker = load_ranker(self.ranker_path, device=self.device)
-        self.feature_store = FeatureStore()
+        self.feature_store = FeatureStore(
+            redis_url=self.redis_url, ttl=self.cfg.FEATURE_CACHE_TTL_SECONDS)
+        if self.features_dir:
+            fsnap = Path(self.features_dir) / "features.fsnap"
+            if fsnap.exists():
+                from recommendit_tpu_torch.features.snapshot import FeatureSnapshot
+
+                self.feature_store.attach_snapshot(FeatureSnapshot(str(fsnap)))
+                logger.info("Feature store backed by snapshot %s", fsnap)
+        if data is None:
+            data = load_or_synthesize(self.data_dir, seed=self.cfg.SEED)
+        source = data
+        if not isinstance(data, ServeData):
+            data = ServeData.from_movielens(data)
         self._item_titles = dict(data.titles)
         self._item_genres = dict(data.genres)
         self._popularity_fallback = popularity_order(data.item_id).tolist()
@@ -376,6 +410,95 @@ class RecommendationPipeline:
                 target=self.recalibrate_stage_split, daemon=True)
             self._recal_thread.start()
 
+    # --- online feature updates ------------------------------------------ #
+
+    def update_user_features(self, user_id: int, features: Dict[str, Any]) -> None:
+        """Write the user's features to the store and their packed row on the
+        device, and drop their cached recommendations: the next request
+        scores with the new features."""
+        self.feature_store.store_user_features(user_id, features)
+        if 0 <= user_id <= self._n_users:
+            self._write_row(self._user_packed, user_id,
+                            user_dict_to_packed(features))
+        self.feature_store.invalidate_recommendations(user_id)
+
+    def update_item_features(self, item_id: int, features: Dict[str, Any]) -> None:
+        """Write the item's features to the store and its packed row."""
+        self.feature_store.store_item_features(item_id, features)
+        if 0 <= item_id < self._item_packed.shape[0]:
+            self._write_row(self._item_packed, item_id, pad_packed_width(
+                item_dict_to_packed(features), self._item_packed.shape[1]))
+
+    @torch.no_grad()
+    def _write_row(self, table: torch.Tensor, row: int, vec: np.ndarray) -> None:
+        """Overwrite ``table[row]`` in place, on the current stream, after
+        every serve call queued before it (JAX swaps in a new array)."""
+        table[row] = torch.as_tensor(vec, dtype=table.dtype, device=table.device)
+
+    # --- micro-batching ---------------------------------------------------- #
+
+    def enable_micro_batching(self, max_batch: int = 256, max_wait_ms: float = 2.0,
+                              warm_buckets: bool = True) -> None:
+        """Coalesce concurrent requests into one ``serve_batch`` call.
+
+        Each batch is padded with user 1 to the smallest bucket of
+        (8, 32, 256, 1024) up to ``max_batch`` that holds it; only the
+        1,024 bucket is large enough for the window kernel (batches of 384
+        or more). Its rows come back as numpy arrays after one copy to the
+        host. With ``warm_buckets`` every bucket runs once on the dispatch
+        thread before the batcher takes requests: PyTorch gives each thread
+        its own cuBLAS handle and workspace, so a warm-up on the calling
+        thread would leave them to the first live batch."""
+        buckets = micro_batch_buckets(max_batch)
+        warm = object()
+        timing: Dict[str, Any] = {"warm_s": None, "warm_thread": None,
+                                  "first_live_batch_ms": None,
+                                  "first_live_batch_size": None}
+
+        def warm_up() -> None:
+            t0 = time.perf_counter()
+            for b in buckets:
+                self._serve_rows([1] * b)
+            timing["warm_s"] = time.perf_counter() - t0
+            timing["warm_thread"] = threading.current_thread().name
+
+        def batch_fn(user_ids):
+            if user_ids and user_ids[0] is warm:
+                warm_up()
+                return [None] * len(user_ids)
+            n = len(user_ids)
+            bucket = next((b for b in buckets if b >= n), buckets[-1])
+            t0 = time.perf_counter()
+            rows = self._serve_rows(list(user_ids) + [1] * (bucket - n))
+            if timing["first_live_batch_ms"] is None:
+                timing["first_live_batch_ms"] = (time.perf_counter() - t0) * 1e3
+                timing["first_live_batch_size"] = n
+            ids, scores, rvals = rows
+            return [(ids[i], scores[i], rvals[i]) for i in range(n)]
+
+        batcher = MicroBatcher(batch_fn, max_batch, max_wait_ms)
+        if warm_buckets:
+            try:
+                batcher.submit(warm, timeout=3600.0)
+            except BaseException:
+                batcher.close()
+                raise
+            batcher.batches_dispatched = batcher.requests_served = 0
+            logger.info("Warmed %d batch buckets in %.1fs on the dispatch thread",
+                        len(buckets), timing["warm_s"])
+        self._batch_timing = timing
+        self._batcher = batcher
+        logger.info("Micro-batching enabled (max_batch=%d, wait=%.1fms)",
+                    max_batch, max_wait_ms)
+
+    def _serve_rows(self, user_ids):
+        """``serve_batch`` brought to the host in one copy: (ids, scores,
+        retrieval scores) as numpy arrays. The ids and the f32 scores are
+        exact in f64."""
+        packed = torch.stack([t.double() for t in self.serve_batch(user_ids)])
+        ids, scores, rvals = packed.cpu().numpy()
+        return ids.astype(np.int64), scores.astype(np.float32), rvals.astype(np.float32)
+
     # --- inference ------------------------------------------------------- #
 
     def _result(self, iid: int, score: float, rank: int,
@@ -404,9 +527,15 @@ class RecommendationPipeline:
 
         t_dev = time.time()
         try:
-            ids, scores, retr = (t.cpu().numpy() for t in self.serve(user_id))
+            if self._batcher is not None:
+                ids, scores, retr = self._batcher.submit(user_id)
+            else:
+                ids, scores, retr = (t.cpu().numpy() for t in self.serve(user_id))
+        except QueueFullError:
+            # backpressure is a load signal, not a failure: the HTTP layer
+            # answers 429
+            raise
         except Exception:
-            # QueueFullError is re-raised here once the micro-batcher is ported
             logger.exception("Serve path failed for user %d", user_id)
             return self._popularity_recommendations(k)
         device_ms = (time.time() - t_dev) * 1000
@@ -491,4 +620,6 @@ class RecommendationPipeline:
             "ranking_p99_ms": round(self.ranking_latency.p99, 2),
             "stage_split": self._stage_calibration,
             "device": str(self.device),
+            **({"micro_batcher": {**self._batcher.stats, **self._batch_timing}}
+               if self._batcher is not None else {}),
         }

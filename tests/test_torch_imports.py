@@ -34,6 +34,14 @@ MODULES = [
     "recommendit_tpu_torch.models.retrieval",
     "recommendit_tpu_torch.models.ranker",
     "recommendit_tpu_torch.serving.recommender",
+    "recommendit_tpu_torch.serving",
+    "recommendit_tpu_torch.serving.batcher",
+    "recommendit_tpu_torch.serving.middleware",
+    "recommendit_tpu_torch.serving.app",
+    "recommendit_tpu_torch.serving.asgi",
+    "recommendit_tpu_torch.serving.asgi_server",
+    "recommendit_tpu_torch.scripts.serve_bench",
+    "recommendit_tpu_torch.scripts.load_test",
     "recommendit_tpu_torch.ops.bpr",
     "recommendit_tpu_torch.data",
     "recommendit_tpu_torch.data.movielens",
@@ -149,7 +157,7 @@ import chip_smoke
 paths, data = chip_smoke.make_artifacts(
     Path({str(tmp_path)!r}), seed=1, device="cpu", n_users=120, n_items=3000,
     dim=16, hidden=16, n_ratings=4000, block_size=512)
-out = chip_smoke.serve_phase(paths, data, "cpu", n_batch_users=200,
+out, _ = chip_smoke.serve_phase(paths, data, "cpu", n_batch_users=200,
                              batch=100, n_requests=3, k=5)
 assert out["requests"] == 3, out
 print("served", out["batch_users"])
@@ -182,3 +190,19 @@ print("pipeline", rec["eval_users"], rec["skew"]["max_kl"], sorted(rec["stage_s"
     assert "pipeline" in proc.stdout and " 0.0 " in proc.stdout
     assert ("['data', 'embeddings', 'evaluate', 'features', 'index', 'load_features', "
             "'ranker', 'skew'] 3 True") in proc.stdout
+
+
+def test_app_serves_metrics_without_prometheus_client():
+    """The card's machine has no prometheus_client: the port's middleware
+    takes the JAX module's no-op branch and ``/metrics`` still answers."""
+    code = """
+sys.modules["prometheus_client"] = None
+from recommendit_tpu_torch.serving import middleware
+from recommendit_tpu_torch.serving.app import RecommendItApp
+assert not middleware.PROMETHEUS_AVAILABLE
+app = RecommendItApp(pipeline=None)
+print(app.handle("GET", "/health")[0], app.handle("GET", "/metrics"))
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "200 (200, '# prometheus_client unavailable\\n', 'text/plain')" in proc.stdout

@@ -353,3 +353,72 @@ def test_embeddings_stage_refuses_what_is_not_ported(tmp_path):
                                 models_dir=str(tmp_path), synthetic=True, device="cpu")
     with pytest.raises(ValueError, match="Orbax"):
         orch.run_embeddings()
+
+
+CUSTOM_RANKER = "elsewhere/ranker_variant.npz"
+
+
+@pytest.mark.parametrize("respect", [False, True], ids=["remapped", "respected"])
+def test_respect_cfg_paths_is_the_jax_rule(tmp_path, respect):
+    """A ``RANKER_MODEL_PATH`` set away from its default is kept only with
+    ``respect_cfg_paths=True``; the default paths go into models_dir either
+    way, as in the JAX orchestrator."""
+    import recommendit_tpu.pipelines.run_pipeline as jrp
+
+    kw = dict(models_dir=str(tmp_path / "models"), data_dir=str(tmp_path / "ml"),
+              respect_cfg_paths=respect)
+    ours = PipelineOrchestrator(cfg=Settings(RANKER_MODEL_PATH=CUSTOM_RANKER),
+                                device="cpu", **kw).cfg
+    theirs = jrp.PipelineOrchestrator(
+        cfg=JaxSettings(RANKER_MODEL_PATH=CUSTOM_RANKER), **kw).cfg
+    keys = ("EMBEDDING_MODEL_PATH", "INDEX_PATH", "RANKER_MODEL_PATH", "DATA_DIR")
+    assert [getattr(ours, k) for k in keys] == [getattr(theirs, k) for k in keys]
+    assert (ours.RANKER_MODEL_PATH == CUSTOM_RANKER) is respect
+    assert ours.EMBEDDING_MODEL_PATH == str(tmp_path / "models" / "two_tower.npz")
+
+
+def test_embeddings_resume_false_trains_afresh_as_jax(tmp_path):
+    """Beside a checkpoint of the last (best) epoch, ``resume=True`` takes
+    no step and ``resume=False`` trains every epoch again, in both
+    packages."""
+    import recommendit_tpu.pipelines.run_pipeline as jrp
+
+    small = dict(CFG, SYNTH_USERS=60, SYNTH_ITEMS=50, SYNTH_RATINGS=2_000,
+                 TRAIN_EPOCHS=1)
+    common = dict(data_dir=str(tmp_path / "ml"), synthetic=True)
+    jorch = jrp.PipelineOrchestrator(cfg=JaxSettings(**small),
+                                     models_dir=str(tmp_path / "jax"), **common)
+    jorch.run_stage("data")
+    ours = PipelineOrchestrator(cfg=Settings(**small),
+                                models_dir=str(tmp_path / "port"), device="cpu",
+                                **common)
+    runs = {}
+    for name, orch in (("jax", jorch), ("port", ours)):
+        first = orch.run_embeddings()
+        resumed = orch.run_embeddings()
+        again = orch.run_embeddings(resume=False)
+        runs[name] = [[h["epoch"] for h in hist] for hist in (first, resumed, again)]
+        assert np.isfinite(again[0]["loss"]), name
+    assert runs["port"] == runs["jax"] == [[1], [], [1]]
+
+
+def test_cli_takes_log_level_as_jax(tmp_path):
+    """``--log-level DEBUG`` parses and sets the logging level, in both
+    CLIs."""
+    import recommendit_tpu.pipelines.run_pipeline as jrp
+
+    levels = {}
+    small = {"SYNTH_USERS": 40, "SYNTH_ITEMS": 30, "SYNTH_RATINGS": 500}
+    args = ["--stage", "data", "--synthetic", "--log-level", "DEBUG",
+            "--models-dir", str(tmp_path / "models")]
+    with pytest.MonkeyPatch.context() as mp:
+        for name, mod, cfg in (("jax", jrp, JaxSettings(**small)),
+                               ("port", run_pipeline, Settings(**small))):
+            mp.setattr(mod, "default_settings", cfg)
+            mp.setattr(mod, "setup_logging",
+                       lambda level, name=name: levels.__setitem__(name, level))
+        jrp.main(args + ["--data-dir", str(tmp_path / "jax_ml")])
+        run_pipeline.main(args + ["--data-dir", str(tmp_path / "ml"),
+                                  "--device", "cpu"])
+    assert levels == {"jax": "DEBUG", "port": "DEBUG"}
+    assert (tmp_path / "ml" / "ratings.dat").exists()

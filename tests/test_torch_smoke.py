@@ -134,8 +134,9 @@ def test_profile_names_and_groups(name, short, group):
 
 def test_serve_phase_checks_pass(small_artifacts):
     paths, data = small_artifacts
-    out = chip_smoke.serve_phase(paths, data, "cpu", n_batch_users=600,
-                                 batch=400, n_requests=5, k=10)
+    out, pipe = chip_smoke.serve_phase(paths, data, "cpu", n_batch_users=600,
+                                       batch=400, n_requests=5, k=10)
+    assert pipe._loaded and pipe.index.dtype == "bfloat16"
     assert out["batch_users"] == 600 and out["requests"] == 5
     assert out["retrieval_score_abs_err"] <= 1e-3
     assert out["batch_vs_single_top_k_agreement"] == 1.0
@@ -195,8 +196,10 @@ def test_int8_kernel_phase_on_the_twin(small_artifacts):
 
 def test_int8_serve_phase_checks_pass(small_artifacts):
     paths, data = small_artifacts
-    out = chip_smoke.serve_phase(paths, data, "cpu", n_batch_users=600,
-                                 batch=400, n_requests=5, k=10, dtype="int8")
+    out, pipe = chip_smoke.serve_phase(paths, data, "cpu", n_batch_users=600,
+                                       batch=400, n_requests=5, k=10,
+                                       dtype="int8")
+    assert pipe._loaded and pipe.index.dtype == "int8"
     assert out["index_dtype"] == "int8" and out["batch_users"] == 600
     assert out["retrieval_score_abs_err"] <= 1e-3
     assert out["batch_vs_single_top_k_agreement"] == 1.0
@@ -431,3 +434,37 @@ def test_exits_nonzero_without_a_gpu(tmp_path):
     assert proc.returncode != 0
     assert proc.stdout == ""
     assert "no CUDA device" in proc.stderr
+
+
+def test_http_phase_checks_pass(small_artifacts):
+    """The HTTP phase at a small size: the bf16 and int8 pipelines behind
+    the port's app, micro-batching in buckets of 8 and 32 with a 200 ms
+    wait, closed-loop clients at 1, 8 and 24 in flight; every list equal to
+    its direct bucket's, a dispatch of more than 8 requests into the 32
+    bucket, no popularity answer, the extra routes."""
+    paths, data = small_artifacts
+    pipes = [chip_smoke.load_pipeline(paths, data, "cpu", dtype)
+             for dtype in ("bfloat16", "int8")]
+    out = chip_smoke.http_phase(*pipes, "cpu", levels=((1, 4), (8, 16), (24, 48)),
+                                k=10, max_batch=32, wait_ms=200.0)
+    for label, n_levels in (("bf16", 3), ("int8", 1)):
+        rec = out[label]
+        assert [lv["requests"] for lv in rec["levels"]] == [4, 16, 48][-n_levels:]
+        assert all(lv["lists_checked"] == lv["requests"] for lv in rec["levels"])
+        assert rec["big_bucket_dispatches"] >= 1 and rec["warm_on_dispatch_thread"]
+        assert rec["levels"][-1]["max_batch_size"] > 8
+        assert all(set(lv["launches"].values()) == {0} for lv in rec["levels"])
+    assert out["bf16"]["feature_update_user"] >= 1
+    assert out["bf16"]["batch_route_users"] == 100
+    assert all(p._batcher._thread.is_alive() is False for p in pipes)
+
+
+def test_check_list_ties_and_differences():
+    chip_smoke.check_list([3, 1, 2], [0.9, 0.5, 0.5 + 5e-5], [3, 2, 1],
+                          [0.9, 0.5, 0.5])
+    inf = float("-inf")
+    chip_smoke.check_list([4, 7, 9], [0.1, inf, inf], [4, 9, 7], [0.1, inf, inf])
+    with pytest.raises(AssertionError, match="ids differ"):
+        chip_smoke.check_list([1, 2], [0.9, 0.5], [2, 1], [0.9, 0.5])
+    with pytest.raises(AssertionError, match="scores differ"):
+        chip_smoke.check_list([1, 2], [0.9, 0.5], [1, 2], [0.9, 0.4])
