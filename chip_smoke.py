@@ -14,7 +14,9 @@ the int8 window kernel for batches of 1,024 users); then the request path:
 both pipelines behind the port's HTTP app and micro-batcher
 (``serving/app.py``, ``MICRO_BATCH_MAX=1024``), driven over the loopback by
 closed-loop clients, so that live ``/recommend`` traffic reaches the window
-kernels in 1,024-user dispatches; and the int8 capacity
+kernels in 1,024-user dispatches; the bf16 serve path again with the
+histogram GBDT ranker (``RANKER_TYPE=gbdt``, 200 trees of depth 6, random
+from ``--seed``); and the int8 capacity
 shape of ``scripts/capacity_30m.py``: 30,000,000 random unit rows x 128,
 window 512, k=500, Q=1024.
 
@@ -34,7 +36,9 @@ data (1,000,209 ratings requested) made from ``--seed``; then the pipeline
 CLI's ``all`` on the same data (the ML-1M shape: 6,040 users, 3,952 items;
 2 tower epochs, not 60): data, features, embeddings, index, ranker (two
 inner towers, the LambdaRank MLP (128, 64) over 52 features trained),
-load_features, skew, evaluate.
+load_features, skew, evaluate; then ``ranker`` with ``RANKER_TYPE=gbdt``
+(its own two inner towers, the GBDT trained on the card) and ``evaluate``
+again.
 
 Phases (each failure raises, so the exit code is not 0):
 
@@ -90,7 +94,18 @@ Phases (each failure raises, so the exit code is not 0):
    first live batch's time and a fresh thread's first and second
    1,024-user batch. Then the 512 level once over the int8 serve phase's
    pipeline (kernel 3);
-9. queries-major window phase: at Q in {256, 1024} over the saved bf16
+9. GBDT serve phase: the bf16 serve path with a random GBDT ranker in
+   JAX's format (``write_random_gbdt``: 200 full trees of depth 6 over the
+   52 columns, 64 bins whose edges are quantiles of rows assembled from
+   the packed tables; ``RANKER_TYPE=gbdt``'s defaults): ``batch_recommend``
+   for 1,024 users at batch 1,024 (one kernel-1 launch) and 20 single
+   requests (none), counted around exactly that run; every list against a
+   reference from the same candidates scored by the GBDT's host
+   ``predict`` (in spawned processes), the same blend and seen mask,
+   scores within 1e-4; the device scores within rtol 1e-4 / atol 1e-5 of
+   the host's; ``torch.profiler`` over 5 batches, the tree descent alone
+   by CUDA events, the batch's peak memory;
+10. queries-major window phase: at Q in {256, 1024} over the saved bf16
    corpus, W=64, the queries-major kernel against its twin (maxima within
    1e-3, top-500 id overlap >= 0.99) and against the items-major kernel
    (maxima and positions equal to its transpose); then Q=1024 at W=128, its
@@ -98,7 +113,7 @@ Phases (each failure raises, so the exit code is not 0):
    then the router's two routes (``mips_topk_fused_route``: the dense scan
    and the window kernel) timed at Q in {1, 16, 64, ..., 1024} beside the
    route the router takes (its constants unchanged);
-10. fold phase: ``mips_topk_fused`` at Q=1024 over the valid rows, block
+11. fold phase: ``mips_topk_fused`` at Q=1024 over the valid rows, block
    2048, R=64: the tensor-core body (``tc_route``: the f32 queries split
    into three bf16 pieces by the split kernel, equal to its twin bit for
    bit) with candidates within 1e-4 (relative to the largest) of the twin,
@@ -113,19 +128,19 @@ Phases (each failure raises, so the exit code is not 0):
    body and through the CUDA-core entry; the times of the kernel, its twin,
    the CUDA-core body (``cuda_cores_ms``), the kernel at R=32 and the
    split; ptxas's registers and spills of the fold library;
-11. gather phase: ``gather_rows`` of a (1024, 500) int64 index into the
+12. gather phase: ``gather_rows`` of a (1024, 500) int64 index into the
    packed item table (1,000,001 x 64 f32) — the counted run — equal to the
    twin, and with out-of-range and int32 indices, a 23-wide f32 and a bf16
    table; the times of the kernel, the twin and ``torch.index_select``;
-12. probe phase: the kernel probe's four variants in-process at N=1M,
+13. probe phase: the kernel probe's four variants in-process at N=1M,
    D=128, Q=1024, k=500, block 2048, W=64, bf16, each exiting 0, with the
    window and fold launch counts read around exactly that run;
-13. capacity phase: 30M x 128 random unit rows made and quantised on the
+14. capacity phase: 30M x 128 random unit rows made and quantised on the
    card in chunks, the int8 window kernel (the tensor-core body) at Q=1024
    and W=512 (windows wider than a tile) timed, and on 64 queries its
    maxima and positions equal to the twin's and recall@500 >= 0.98 against
    int8-exact;
-14. BPR kernel phase: at B=1024 and a ragged B=1000, D=64 f32, the forward
+15. BPR kernel phase: at B=1024 and a ragged B=1000, D=64 f32, the forward
    and backward kernels against their twins — the loss within 1e-5
    relative, du and dv within 1e-4 of the twin's largest entry, a second
    call equal bit for bit — all four times by CUDA events and, since by
@@ -134,17 +149,17 @@ Phases (each failure raises, so the exit code is not 0):
    line reports), ``gemm_only_ms`` (``u @ v.T`` in full f32: a yardstick
    the port never calls), the bounds (f32, and 3xTF32 at the TF32 peak)
    and the bpr library's ptxas registers and spills;
-15. train phase: the synthetic data, its 0.9 temporal train view, 2 epochs
+16. train phase: the synthetic data, its 0.9 temporal train view, 2 epochs
    of in-batch BPR (the loss finite, falling, below ln 2; one forward and
    one backward kernel launch per step, counted around exactly that run),
    then 1 epoch of the default softmax loss (no BPR launch); then
    ``torch.profiler`` over a 67-step in-batch epoch with the kernels and
    with the twins: device µs per step by kernel group, host ms per step;
-16. index phase: ``IndexBuilder`` on the in-batch model (exact f32 index),
+17. index phase: ``IndexBuilder`` on the in-batch model (exact f32 index),
    ``batch_search`` for 1,024 users with held-out positives: valid ids,
    and Recall@20 of the held-out 10 % positives (train items filtered)
    above a random ranking's;
-17. pipeline phase: the pipeline CLI's ``all``
+18. pipeline phase: the pipeline CLI's ``all``
    (``recommendit_tpu_torch.pipelines.run_pipeline``) on the train phase's
    data written as ML-1M ``.dat`` files (read back equal; the ``data``
    stage finds them): ``features``; ``embeddings`` (Settings defaults but
@@ -173,6 +188,21 @@ Phases (each failure raises, so the exit code is not 0):
    epoch and epochs run, the three rows (full, popularity,
    retrieval-only) of each report with the paired NDCG@10 full minus
    retrieval-only, and int8 minus bf16 of the retrieval-only row.
+19. GBDT pipeline phase: ``--stage ranker`` with ``RANKER_TYPE=gbdt`` at
+   the GBDT defaults (200 trees, depth 6, 64 bins, learning rate 0.1,
+   subsample and colsample 0.8), then ``--stage evaluate``, on the
+   pipeline phase's data and directories: the device backend; its own two
+   inner towers with one launch of each BPR kernel a step, as many steps
+   as the MLP ranker stage's; trees, a best iteration, finite validation
+   NDCG@10; the holdout NDCG@10 above a random scorer's; the device scorer
+   against the host ``predict`` on every holdout row (rtol 1e-4, atol
+   1e-5); ``save`` → ``load_ranker`` → ``predict`` equal; the first tree
+   grown again from the same inputs on the CPU (any differing split a
+   near-tie within its f32 bound) and twice on the card (whether repeat
+   runs agree is printed); the evaluate report checked as in 18, its full
+   row printed beside the MLP's, popularity's and retrieval-only's; the
+   stage's parts (inner towers, candidate builds, binning, boosting, the
+   grower's ms a tree, the host's validation a round).
 
 Usage, from the repository root: ``python3 chip_smoke.py [--seed N]``.
 After the build it prints ptxas's registers, spills and shared memory of
@@ -264,6 +294,15 @@ HTTP_BATCH_USERS = 100            # the /recommend/batch check
 HTTP_TOL = 1e-4
 SERVE_KERNELS = {"bfloat16": "window_mips", "int8": "window_mips_i8"}
 
+# the GBDT ranker (RANKER_TYPE=gbdt) at the JAX package's defaults
+# (config.py GBDT_*): 200 trees of depth 6 over 64 bins, learning rate 0.1
+GBDT_TREES, GBDT_DEPTH, GBDT_BINS, GBDT_LR = 200, 6, 64, 0.1
+GBDT_EDGE_ROWS = 65_536           # (user, item) rows whose quantiles are the edges
+GBDT_RTOL, GBDT_ATOL = 1e-4, 1e-5  # host predict vs the device scorer (test_gbdt.py)
+GBDT_ROUND_TRIP_ROWS = 20_000     # rows predicted again from the saved file
+GBDT_SERVE_USERS = 1024           # one batch of the kernel route
+GBDT_HOST_WORKERS = 8             # processes of the host-predict reference
+
 # the int8 kernel's extra check: the dp4a body where the wrapper takes it
 # (rows past the tensor cores' 384 columns)
 WIDE_I8_DIM, WIDE_I8_ROWS = 400, 262_144
@@ -350,14 +389,77 @@ def write_random_ranker(path: str, rng, device) -> None:
     ranker.save(path)
 
 
+def _random_tree(rng, n_feat: int, n_bins: int, depth: int):
+    """A full tree of ``depth`` in the numpy grower's layout (node ids
+    allocated depth-first): random split features, thresholds and gains,
+    standard-normal leaf values."""
+    import itertools
+
+    from recommendit_tpu_torch.models.gbdt import _Tree
+
+    n_split = (1 << depth) - 1
+    splits = iter(zip(rng.integers(0, n_feat, n_split), rng.integers(0, n_bins - 1, n_split),
+                      rng.random(n_split)))
+    leaves = iter(rng.standard_normal(1 << depth).astype(np.float32))
+    ids = itertools.count(1)
+    tree = _Tree(1 << (depth + 1))
+
+    def emit(node: int, d: int):
+        if d == depth:
+            tree.value[node] = next(leaves)
+            return
+        left, right = next(ids), next(ids)
+        tree.feature[node], tree.bin_threshold[node], tree.gain[node] = next(splits)
+        tree.left[node], tree.right[node] = left, right
+        emit(left, d + 1)
+        emit(right, d + 1)
+
+    emit(0, 0)
+    return tree
+
+
+def write_random_gbdt(path: str, rng, user_packed, item_packed,
+                      n_trees: int = GBDT_TREES, depth: int = GBDT_DEPTH,
+                      n_bins: int = GBDT_BINS) -> None:
+    """The serve configuration's GBDT ranker, random, in JAX's file format:
+    ``n_trees`` full trees of ``depth`` (no depth cut) over the 50 features
+    and the two retrieval columns. Bin edges are the quantiles of
+    ``GBDT_EDGE_ROWS`` rows assembled from the packed tables (random user
+    and item rows), a standard-normal retrieval score and the log rank of a
+    top-500 position; split features, thresholds and leaf values are drawn
+    from ``rng``."""
+    from recommendit_tpu_torch.features.schema import FEATURE_COLUMNS, assemble_packed
+    from recommendit_tpu_torch.models import HistGBDTRanker
+
+    names = FEATURE_COLUMNS + ["retrieval_score", "retrieval_rank"]
+    users = rng.integers(0, len(user_packed), GBDT_EDGE_ROWS)
+    items = rng.integers(0, len(item_packed), GBDT_EDGE_ROWS)
+    rows = assemble_packed(torch.as_tensor(np.asarray(user_packed[users])),
+                           torch.as_tensor(np.asarray(item_packed[items]))[:, None, :])
+    X = np.concatenate([
+        rows[:, 0].numpy(),
+        rng.standard_normal((GBDT_EDGE_ROWS, 1), np.float32),
+        np.log1p(rng.integers(0, TOP_K_CANDIDATES, (GBDT_EDGE_ROWS, 1))).astype(np.float32),
+    ], axis=1)
+    ranker = HistGBDTRanker(n_estimators=n_trees, learning_rate=GBDT_LR,
+                            max_depth=depth, n_bins=n_bins, device="cpu")
+    ranker._bin(X, fit=True)
+    ranker.feature_names = names
+    ranker.trees = [_random_tree(rng, len(names), n_bins, depth) for _ in range(n_trees)]
+    ranker.best_iteration = n_trees
+    ranker._trained = True
+    ranker.save(path)
+
+
 def make_artifacts(workdir: Path, seed: int, device, n_users: int = N_USERS,
                    n_items: int = N_ITEMS, dim: int = DIM,
                    hidden: int = HIDDEN, n_ratings: int = N_RATINGS,
-                   block_size: int = INDEX_BLOCK):
-    """Random two-tower, fused bf16 and int8 indexes, ranker, packed
-    feature tables and ratings, in the JAX package's formats, and the
-    catalog's augmented f32 rows (normalised embedding and bias column) as
-    ``catalog.npy``. Returns (paths, ServeData)."""
+                   block_size: int = INDEX_BLOCK, gbdt_trees: int = GBDT_TREES):
+    """Random two-tower, fused bf16 and int8 indexes, rankers (the MLP and,
+    drawn last, the GBDT of ``gbdt_trees`` trees), packed feature tables
+    and ratings, in the JAX package's formats, and the catalog's augmented
+    f32 rows (normalised embedding and bias column) as ``catalog.npy``.
+    Returns (paths, ServeData)."""
     from recommendit_tpu_torch.features.schema import (
         GENRES,
         ITEM_PACKED_DIM,
@@ -391,6 +493,7 @@ def make_artifacts(workdir: Path, seed: int, device, n_users: int = N_USERS,
              "index_i8_path": str(workdir / "mips_i8.index.npz"),
              "catalog_path": str(workdir / "catalog.npy"),
              "ranker_path": str(workdir / "ranker.npz"),
+             "gbdt_path": str(workdir / "ranker_gbdt.npz"),
              "features_dir": str(workdir / "features")}
     model.save(paths["model_path"])
 
@@ -417,10 +520,10 @@ def make_artifacts(workdir: Path, seed: int, device, n_users: int = N_USERS,
 
     feats = Path(paths["features_dir"])
     feats.mkdir(parents=True, exist_ok=True)
-    np.save(feats / "user_packed.npy",
-            rng.standard_normal((n_users + 1, USER_PACKED_DIM), np.float32))
-    np.save(feats / "item_packed.npy",
-            rng.standard_normal((n_items + 1, ITEM_PACKED_DIM), np.float32))
+    user_packed = rng.standard_normal((n_users + 1, USER_PACKED_DIM), np.float32)
+    item_packed = rng.standard_normal((n_items + 1, ITEM_PACKED_DIM), np.float32)
+    np.save(feats / "user_packed.npy", user_packed)
+    np.save(feats / "item_packed.npy", item_packed)
 
     # ratings: half uniform over the catalog, half on a popular head
     head = max(1, n_items // 50)
@@ -433,6 +536,8 @@ def make_artifacts(workdir: Path, seed: int, device, n_users: int = N_USERS,
     item_genres = {int(i): [] for i in item_ids}
     for row, g in zip(*np.nonzero(genres)):
         item_genres[int(item_ids[row])].append(GENRES[g])
+    write_random_gbdt(paths["gbdt_path"], rng, user_packed, item_packed,
+                      n_trees=gbdt_trees)
     return paths, ServeData(user_id=users, item_id=items, n_users=n_users,
                             n_items=n_items, titles=titles, genres=item_genres)
 
@@ -578,8 +683,9 @@ def kernel_phase(paths, device, seed: int, qs=KERNEL_QS, k=TOP_K_CANDIDATES,
 
 
 def load_pipeline(paths, data, device, dtype: str = "bfloat16",
-                  k: int = REQUEST_K):
-    """The port's pipeline over the fused index of ``dtype``, loaded."""
+                  k: int = REQUEST_K, ranker: str = "ranker_path"):
+    """The port's pipeline over the fused index of ``dtype`` with the ranker
+    at ``paths[ranker]``, loaded."""
     from recommendit_tpu_torch.config import Settings
     from recommendit_tpu_torch.serving.recommender import RecommendationPipeline
 
@@ -588,10 +694,10 @@ def load_pipeline(paths, data, device, dtype: str = "bfloat16",
                    TOP_K_RESULTS=k, FILTER_SEEN=True,
                    RANKER_BLEND_RETRIEVAL=1.0, RANKER_QUERY_NORM=True,
                    STAGE_RECAL_EVERY=0)
-    files = {key: paths[key] for key in ("model_path", "ranker_path",
-                                         "features_dir")}
-    pipe = RecommendationPipeline(cfg=cfg, device=device,
-                                  index_path=paths[INDEX_PATHS[dtype]], **files)
+    pipe = RecommendationPipeline(cfg=cfg, device=device, model_path=paths["model_path"],
+                                  ranker_path=paths[ranker],
+                                  features_dir=paths["features_dir"],
+                                  index_path=paths[INDEX_PATHS[dtype]])
     pipe.load(data)
     return pipe
 
@@ -698,6 +804,152 @@ def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
         "stage_split": pipe.get_stats()["stage_split"],
         "launches": launches,
     }, pipe
+
+
+def _predict_rows(job):
+    """One worker's share of the host reference: the saved GBDT's host
+    ``predict`` of ``rows``."""
+    from recommendit_tpu_torch.models import HistGBDTRanker
+
+    path, rows = job
+    return HistGBDTRanker.load(path, device="cpu").predict(rows)
+
+
+def host_predict(path: str, rows: np.ndarray, workers: int = GBDT_HOST_WORKERS):
+    """The GBDT at ``path``'s host ``predict`` of ``rows`` (n, F), split
+    over ``workers`` spawned processes (threads would share one interpreter
+    lock); the rows are independent, so the result is that of one call."""
+    if workers <= 1 or len(rows) < 2 * workers:
+        return _predict_rows((path, rows))
+    from concurrent.futures import ProcessPoolExecutor
+
+    # a worker that dies raises here (BrokenProcessPool) instead of hanging
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = list(pool.map(_predict_rows,
+                              [(path, r) for r in np.array_split(rows, workers)]))
+    return np.concatenate(parts)
+
+
+def serve_inputs(pipe, users):
+    """The first half of ``serve_batch`` for ``users``: the candidates,
+    their retrieval scores, the seen mask and the (B, C, F) ranker
+    features, as the pipeline builds them."""
+    from recommendit_tpu_torch.features.schema import assemble_packed
+    from recommendit_tpu_torch.ops.seen import seen_mask
+    from recommendit_tpu_torch.serving.recommender import _with_extras
+
+    uids = torch.as_tensor(users, device=pipe.device).long()
+    rvals, pos = pipe._retrieve(pipe.model.user_tower(uids))
+    cand = pipe._item_ids_dev[pos]
+    feats = assemble_packed(pipe._user_packed[uids], pipe._item_packed[cand])
+    indptr, cols = pipe._seen_dev
+    seen = seen_mask(indptr, cols, pipe._seen_steps, uids[:, None], cand)
+    return _with_extras(feats, rvals, ~seen, pipe._extra_feats), rvals, seen, cand
+
+
+def gbdt_serve_phase(paths, data, device, n_batch_users: int = GBDT_SERVE_USERS,
+                     batch: int = BATCH, n_requests: int = N_REQUESTS,
+                     k: int = REQUEST_K, workers: int = GBDT_HOST_WORKERS,
+                     profile_calls: int = 5):
+    """The bf16 serve path with the random GBDT (``paths["gbdt_path"]``) as
+    its ranker: ``batch_recommend`` for ``n_batch_users`` users at
+    ``batch`` and ``n_requests`` single requests, the launch counts read
+    around exactly that run (one kernel-1 launch per batch on the card,
+    none for the single requests). Then each batch's ranked lists against a
+    reference built from the same candidates: the GBDT's host ``predict``
+    of the same features, the same blend and the same seen mask — scores
+    within 1e-4 and ids equal up to ties within 1e-4 (``check_list``) —
+    and the device scorer's raw scores against the host's (rtol 1e-4, atol
+    1e-5). On the card: ``torch.profiler`` over ``profile_calls`` batches,
+    the tree descent alone by CUDA events (its share of the batch) and the
+    batch's peak memory above what the pipeline holds."""
+    from recommendit_tpu_torch.models import HistGBDTRanker
+    from recommendit_tpu_torch.ops import mips_window as mw
+    from recommendit_tpu_torch.serving.recommender import _blend
+
+    t0 = time.perf_counter()
+    pipe = load_pipeline(paths, data, device, "bfloat16", k, ranker="gbdt_path")
+    load_s = time.perf_counter() - t0
+    ranker = pipe.ranker
+    if not isinstance(ranker, HistGBDTRanker):
+        raise AssertionError(f"the GBDT file loaded as {type(ranker).__name__}")
+    n_users = pipe._n_users
+    rng = np.random.default_rng(13)
+    users = rng.choice(np.arange(1, n_users + 1), size=n_batch_users,
+                       replace=n_batch_users > n_users).tolist()
+    pipe.serve_batch(users[:batch])      # warm, outside the counted run
+
+    for name in mw.LAUNCHES:
+        mw.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    recs = pipe.batch_recommend(users, k=k, batch_size=batch)
+    batch_s = time.perf_counter() - t0
+    batch_launches = dict(mw.LAUNCHES)
+    lat = []
+    for u in users[:n_requests]:
+        t0 = time.perf_counter()
+        got = pipe.get_recommendations(u, k=k, use_cache=False)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if len(got) != k or len({r.item_id for r in got}) != k:
+            raise AssertionError(f"user {u}: {len(got)} items, expected {k}")
+    launches = dict(mw.LAUNCHES)
+    n_batches = -(-len(users) // batch)
+    expect = {name: 0 for name in mw.LAUNCHES}
+    if torch.device(device).type == "cuda":
+        expect["window_mips"] = n_batches
+    if batch_launches != expect or launches != expect:
+        raise AssertionError(
+            f"expected launches {expect} ({n_batches} batches, none for the "
+            f"single requests), got {batch_launches} after the batches and "
+            f"{launches} after the requests")
+    if len(recs) != len(set(users)) or any(len(v) != k for v in recs.values()):
+        raise AssertionError("batch_recommend returned short lists")
+
+    t0 = time.perf_counter()
+    raw_err = 0.0
+    rows_checked = 0
+    for b0 in range(0, len(users), batch):
+        ub = users[b0:b0 + batch]
+        ids, scores, _ = pipe.serve_batch(ub)
+        feats, rvals, seen, cand = serve_inputs(pipe, ub)
+        dev_raw = pipe._score_fn(feats).cpu().numpy().astype(np.float64)
+        host = host_predict(paths["gbdt_path"], feats.reshape(-1, feats.shape[-1])
+                            .cpu().numpy(), workers).reshape(dev_raw.shape)
+        if not np.allclose(dev_raw, host, rtol=GBDT_RTOL, atol=GBDT_ATOL):
+            raise AssertionError(f"device GBDT scores off the host's by "
+                                 f"{np.abs(dev_raw - host).max()}")
+        raw_err = max(raw_err, float(np.abs(dev_raw - host).max()))
+        ref = _blend(torch.as_tensor(host, dtype=torch.float32, device=rvals.device),
+                     rvals, ~seen, pipe._beta).masked_fill(seen, float("-inf"))
+        ref_scores, sel = torch.topk(ref, ids.shape[1])
+        ref_ids = torch.gather(cand, 1, sel).cpu().numpy()
+        ids, scores, ref_scores = (t.cpu().numpy() for t in (ids, scores, ref_scores))
+        for r in range(len(ub)):
+            check_list(ids[r].tolist(), scores[r], ref_ids[r].tolist(), ref_scores[r],
+                       tol=HTTP_TOL)
+        rows_checked += len(ub)
+    rec = {"load_s": load_s, "trees": len(ranker.trees), "depth": ranker.max_depth,
+           "bins": ranker.n_bins, "features": ranker.n_features,
+           "batch_users": len(users), "batch_size": batch, "batch_s": batch_s,
+           "users_per_s": len(users) / batch_s, "requests": len(lat),
+           "request_p50_ms": float(np.median(lat)), "request_max_ms": float(np.max(lat)),
+           "launches": launches, "users_checked": rows_checked,
+           "raw_score_max_abs_err": raw_err, "reference_s": time.perf_counter() - t0}
+    if torch.device(device).type == "cuda":
+        prof = profile_phase(paths, data, device, n_calls=profile_calls, batch=batch,
+                             pipe=pipe, label="serve_profile_gbdt")
+        feats, _, _, _ = serve_inputs(pipe, users[:batch])
+        descent_ms = cuda_ms(lambda: pipe._score_fn(feats), reps=profile_calls)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pipe.serve_batch(users[:batch])
+        torch.cuda.synchronize()
+        rec.update(device_ms_per_batch=prof["device_ms_per_call"],
+                   descent_ms=descent_ms,
+                   descent_share=descent_ms / prof["device_ms_per_call"],
+                   peak_mb_above_pipeline=(torch.cuda.max_memory_allocated() - base) / 2**20)
+    return rec, pipe
 
 
 class _ErrorRecords(logging.Handler):
@@ -1316,16 +1568,18 @@ def _short_kernel_name(name: str) -> str:
 
 
 def profile_phase(paths, data, device, n_calls: int = 10, batch: int = BATCH,
-                  top: int = 12, dtype: str = "bfloat16"):
+                  top: int = 12, dtype: str = "bfloat16", pipe=None,
+                  label: str = None):
     """``torch.profiler`` over ``n_calls`` ``serve_batch`` calls of
-    ``batch`` users over the fused index of ``dtype``, after a warm one:
-    device time per call by kernel group and by kernel (the ``top``
-    largest), all device kernels, the host clock per call and the share of
-    it the device is idle. Printed as ``serve_profile`` (bf16) or
-    ``serve_profile_int8``."""
+    ``batch`` users over the fused index of ``dtype`` (of ``pipe`` where
+    given), after a warm one: device time per call by kernel group and by
+    kernel (the ``top`` largest), all device kernels, the host clock per
+    call and the share of it the device is idle. Printed as ``label``, by
+    default ``serve_profile`` (bf16) or ``serve_profile_int8``."""
     from torch.profiler import ProfilerActivity, profile
 
-    pipe = load_pipeline(paths, data, device, dtype)
+    if pipe is None:
+        pipe = load_pipeline(paths, data, device, dtype)
     rng = np.random.default_rng(11)
     users = rng.integers(1, pipe._n_users + 1, batch).tolist()
     pipe.serve_batch(users)
@@ -1353,8 +1607,8 @@ def profile_phase(paths, data, device, n_calls: int = 10, batch: int = BATCH,
            "groups_ms_per_call": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
            "kernels_ms_per_call": dict(sorted(kernels.items(),
                                               key=lambda kv: -kv[1])[:top])}
-    key = "serve_profile_int8" if dtype == "int8" else "serve_profile"
-    print(json.dumps({key: rec}), flush=True)
+    label = label or ("serve_profile_int8" if dtype == "int8" else "serve_profile")
+    print(json.dumps({label: rec}), flush=True)
     if device_ms <= 0:
         raise AssertionError("the profiler saw no device time")
     return rec
@@ -2090,13 +2344,15 @@ class _TowerTrainings:
     its seconds and, on the card under ``torch.profiler``, the launches of
     each BPR kernel it recorded and the seconds the profiler took to
     collect and sum its trace after the training (``profiler_s``, which
-    the stage times include and the net times take out)."""
+    the stage times include and the net times take out); with ``profile``
+    false, no profiler."""
 
-    def __init__(self, device):
+    def __init__(self, device, profile: bool = True):
         from recommendit_tpu_torch.training.train_embeddings import EmbeddingTrainer
 
         self.cls, self.train = EmbeddingTrainer, EmbeddingTrainer.train
         self.on_card = torch.device(device).type == "cuda"
+        self.profile = profile
         self.runs = []
 
     def __enter__(self):
@@ -2107,7 +2363,7 @@ class _TowerTrainings:
         def train(trainer, *args, **kwargs):
             counts = {}
             t0 = time.perf_counter()
-            if outer.on_card:
+            if outer.on_card and outer.profile:
                 torch.cuda.synchronize()
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     model = outer.train(trainer, *args, **kwargs)
@@ -2119,6 +2375,8 @@ class _TowerTrainings:
                         counts[name] = counts.get(name, 0) + count
             else:
                 model = outer.train(trainer, *args, **kwargs)
+                if outer.on_card:
+                    torch.cuda.synchronize()
                 t_train = time.perf_counter()
             outer.runs.append({"steps": sum(h["steps"] for h in trainer.history),
                                "losses": [h["loss"] for h in trainer.history],
@@ -2137,21 +2395,26 @@ class _TowerTrainings:
 
 class _MethodTimes:
     """Host seconds and calls of each named method while installed, the
-    card synchronised around each call: where the ranker stage's time
-    goes."""
+    card synchronised around each call, and each method's last result
+    (``last``): where the ranker stage's time goes."""
 
     def __init__(self, device, targets):
         self.on_card = torch.device(device).type == "cuda"
         self.targets = targets          # {label: (class, method name)}
         self.seconds = {label: 0.0 for label in targets}
         self.calls = {label: 0 for label in targets}
+        self.durations = {label: [] for label in targets}
+        self.last = {}
         self._saved = {}
 
     def __enter__(self):
         for label, (cls, name) in self.targets.items():
-            fn = getattr(cls, name)
-            self._saved[label] = (cls, name, fn)
-            setattr(cls, name, self._wrap(label, fn))
+            raw = cls.__dict__[name]
+            self._saved[label] = (cls, name, raw)
+            if isinstance(raw, staticmethod):
+                setattr(cls, name, staticmethod(self._wrap(label, raw.__func__)))
+            else:
+                setattr(cls, name, self._wrap(label, raw))
         return self
 
     def _wrap(self, label, fn):
@@ -2162,14 +2425,128 @@ class _MethodTimes:
             out = fn(*args, **kwargs)
             if self.on_card:
                 torch.cuda.synchronize()
-            self.seconds[label] += time.perf_counter() - t0
+            self.durations[label].append(time.perf_counter() - t0)
+            self.seconds[label] += self.durations[label][-1]
             self.calls[label] += 1
+            self.last[label] = out
             return out
         return timed
 
     def __exit__(self, *exc):
         for cls, name, fn in self._saved.values():
             setattr(cls, name, fn)
+
+
+class _GrowerCalls:
+    """While installed, each device tree grower the GBDT builds
+    (``models/gbdt.py::_make_grow_tree_device``) times its calls, the card
+    synchronised around each (``ms``), and keeps the first call's inputs
+    (``first``) and the factory's arguments (``args``)."""
+
+    def __init__(self, device):
+        self.on_card = torch.device(device).type == "cuda"
+        self.ms, self.first, self.args = [], None, None
+
+    def __enter__(self):
+        from recommendit_tpu_torch.models import gbdt
+
+        self.module, self.make = gbdt, gbdt._make_grow_tree_device
+        outer = self
+
+        def make(*args):
+            grow = outer.make(*args)
+            outer.args = args
+
+            def timed(*inputs):
+                if outer.first is None:
+                    outer.first = tuple(t.clone() for t in inputs)
+                if outer.on_card:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = grow(*inputs)
+                if outer.on_card:
+                    torch.cuda.synchronize()
+                outer.ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return timed
+
+        gbdt._make_grow_tree_device = make
+        return self
+
+    def __exit__(self, *exc):
+        self.module._make_grow_tree_device = self.make
+
+
+def _levels_np(levels):
+    return [{k: v.cpu().numpy() for k, v in lv.items()} for lv in levels]
+
+
+def _levels_equal(a, b) -> bool:
+    return all(np.array_equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
+
+
+def _split_gap(inputs, args, card, cpu):
+    """Where the card's and the CPU's first tree (``_levels_np``) from the
+    same inputs first choose differently: at that depth, for each node
+    whose split differs, the exact (f64) gain of each side's choice over
+    the node's rows and its f32 error bound; the two are a near-tie that
+    summation order may flip when their gap is within the sum of the
+    bounds. Each histogram sum of a node of n rows is within
+    ε = 2(n−1)·2⁻²⁴ of Σ|g| (or Σh) of its exact value (ROADMAP C.22); a
+    term S²/(Q+λ) then moves by at most (2|S|ΔS + ΔS²)/(Q+λ−ΔQ) +
+    S²ΔQ/((Q+λ)(Q+λ−ΔQ)), and each of the gain's four roundings by 2⁻²⁴ of
+    its terms. Returns (depth or None, [per-node records])."""
+    n_feat, n_bins, max_depth, min_child, lam = args
+    binned, grad, hess, row_mask, _ = (t.cpu().numpy() for t in inputs)
+    g = grad.astype(np.float64) * row_mask
+    h = hess.astype(np.float64) * row_mask
+    n = len(g)
+    node = np.zeros(n, np.int64)
+    frozen = np.zeros(n, bool)
+    for depth, (c, p) in enumerate(zip(card, cpu)):
+        keys = ("best_f", "best_b", "do_split")
+        differ = np.nonzero(~np.all([c[k] == p[k] for k in keys], axis=0))[0]
+        if len(differ):
+            out = []
+            for pos in differ.tolist():
+                rows = ~frozen & (node == pos)
+                gs, hs, cnt = g[rows], h[rows], int(row_mask[rows].sum())
+                eps = 2 * max(cnt - 1, 0) * 2.0 ** -24
+                dg, dh = eps * np.abs(gs).sum(), eps * hs.sum()
+
+                def term(sg, sh):
+                    q = sh + lam
+                    return (sg * sg / q, (2 * abs(sg) * dg + dg * dg) / max(q - dh, 1e-30)
+                            + sg * sg * dh / (q * max(q - dh, 1e-30)))
+
+                def exact(lv):
+                    if not lv["do_split"][pos]:
+                        return 0.0, 0.0
+                    f, b = int(lv["best_f"][pos]), int(lv["best_b"][pos])
+                    left = binned[f, rows] <= b
+                    parts = [term(gs[m].sum(), hs[m].sum()) for m in (left, ~left)]
+                    parent = term(gs.sum(), hs.sum())
+                    gain = parts[0][0] + parts[1][0] - parent[0]
+                    size = parts[0][0] + parts[1][0] + parent[0]
+                    return gain, parts[0][1] + parts[1][1] + parent[1] + 4 * 2.0 ** -24 * size
+
+                (gc, bc), (gp, bp) = exact(c), exact(p)
+                out.append({"node": pos, "rows": cnt,
+                            "card": [int(c["best_f"][pos]), int(c["best_b"][pos]),
+                                     float(c["gain"][pos])],
+                            "cpu": [int(p["best_f"][pos]), int(p["best_b"][pos]),
+                                    float(p["gain"][pos])],
+                            "exact_card": gc, "exact_cpu": gp, "gap": abs(gc - gp),
+                            "bound": bc + bp, "within": abs(gc - gp) <= bc + bp})
+            return depth, out
+        if depth == max_depth:
+            break
+        split = p["do_split"][node] & ~frozen
+        frozen |= ~frozen & ~p["do_split"][node]
+        f_row = np.maximum(p["best_f"][node], 0)
+        right = binned[f_row, np.arange(n)] > p["best_b"][node]
+        node = np.where(split, 2 * node + right, node)
+    return None, []
 
 
 class _RandomScorer:
@@ -2431,6 +2808,183 @@ def pipeline_phase(data, device, seed: int, workdir: Path, card: str,
     return rec
 
 
+def gbdt_pipeline_phase(data, device, seed: int, workdir: Path, card: str, mlp,
+                        epochs: int = TRAIN_EPOCHS, dim: int = TRAIN_DIM,
+                        hidden: int = TRAIN_HIDDEN, batch: int = TRAIN_BATCH,
+                        ranker_cfg=None):
+    """``--stage ranker`` with ``RANKER_TYPE=gbdt`` at the GBDT defaults,
+    then ``--stage evaluate``, on the pipeline phase's data and models
+    directory (``mlp`` is that phase's record), as the CLI runs them. The
+    ranker stage trains its own two inner towers: one launch of each BPR
+    kernel per step, and as many steps as the MLP ranker stage's. Checks:
+    on the card the device backend; trees grown, a best iteration, every
+    validation NDCG@10 finite; the holdout NDCG@10 above a seeded random
+    scorer's; the device scorer against the host ``predict`` on every
+    holdout row (rtol 1e-4, atol 1e-5); ``load_ranker`` of the saved file
+    predicting the same on ``GBDT_ROUND_TRIP_ROWS`` rows; the first tree
+    grown again from the same inputs by the same grower on the CPU, any
+    differing split a near-tie within its f32 bound (``_split_gap``), and
+    twice more on the device (repeat-run equality, written down, not
+    held); the evaluate report finite over every user with held-out
+    positives and its lists as ``check_eval_lists`` holds them. Prints the
+    full row beside the MLP's, popularity's and retrieval-only's, and the
+    stage's parts."""
+    from recommendit_tpu_torch.config import Settings
+    from recommendit_tpu_torch.models import HistGBDTRanker, gbdt, load_ranker
+    from recommendit_tpu_torch.models.ranker import feature_matrix
+    from recommendit_tpu_torch.ops import bpr
+    from recommendit_tpu_torch.pipelines.run_pipeline import PipelineOrchestrator
+    from recommendit_tpu_torch.training.train_ranker import RankerTrainer
+
+    root = workdir / "pipeline"
+    on_card = torch.device(device).type == "cuda"
+    cfg = Settings(LOSS_MODE="in_batch", TRAIN_EPOCHS=epochs, SEED=seed,
+                   EMBEDDING_DIM=dim, HIDDEN_DIM=hidden, BATCH_SIZE=batch,
+                   RANKER_TYPE="gbdt", **(ranker_cfg or {}))
+    orch = PipelineOrchestrator(cfg=cfg, data_dir=str(root / "ml"),
+                                models_dir=str(root / "models"),
+                                features_dir=str(root / "features"),
+                                eval_users=data.n_users + 1, device=device)
+    parts = {"fold_frames": (RankerTrainer, "_fold_candidate_frames"),
+             "gbdt_train": (HistGBDTRanker, "train"),
+             "binning": (HistGBDTRanker, "_bin"),
+             "gradients": (HistGBDTRanker, "_round_grad"),
+             "valid_ndcg": (HistGBDTRanker, "_ndcg10"),
+             "predict_tree": (HistGBDTRanker, "_predict_tree"),
+             "host_predict": (HistGBDTRanker, "predict"),
+             "holdout": (RankerTrainer, "_evaluate_holdout")}
+    for name in bpr.LAUNCHES:
+        bpr.LAUNCHES[name] = 0
+    with _TowerTrainings(device, profile=False) as towers, \
+            _MethodTimes(device, parts) as times, _GrowerCalls(device) as grower:
+        hold = orch.run_stage("ranker")
+    launches = dict(bpr.LAUNCHES)
+    trainer = orch.ranker_trainer
+    ranker = trainer.ranker
+    steps = [r["steps"] for r in towers.runs]
+    evals = ranker.evals_result
+    rec = {"backend": ranker.backend_used, "trees": len(ranker.trees),
+           "best_iteration": ranker.best_iteration,
+           "rounds": len(evals["valid_ndcg@10"]),
+           "features": ranker.n_features,
+           "tower_steps": steps, "bpr_launches": launches,
+           "holdout": {k: hold.get(k) for k in HOLDOUT_KEYS},
+           "valid_ndcg@10": evals["valid_ndcg@10"],
+           "train_ndcg@10": evals["train_ndcg@10"]}
+    if on_card and ranker.backend_used != "device":
+        raise AssertionError(f"the GBDT took the {ranker.backend_used} backend on "
+                             "the card")
+    if len(steps) != cfg.RANKER_CAND_FOLDS or sum(steps) != sum(mlp["tower_steps"][1:]):
+        raise AssertionError(f"inner tower steps {steps}, the MLP ranker stage's "
+                             f"{mlp['tower_steps'][1:]}")
+    per_step = sum(steps) if on_card else 0
+    if launches != {"bpr_fwd": per_step, "bpr_bwd": per_step}:
+        raise AssertionError(f"expected {per_step} launches of each BPR wrapper "
+                             f"({steps} inner-tower steps), got {launches}")
+    if not (ranker.trees and ranker.best_iteration >= 1
+            and np.isfinite(evals["valid_ndcg@10"]).all()):
+        raise AssertionError(f"GBDT training: {len(ranker.trees)} trees, best "
+                             f"{ranker.best_iteration}, {evals['valid_ndcg@10']}")
+    rand = trainer._evaluate_holdout(_RandomScorer(seed + 7), trainer.test_feats,
+                                     trainer.feature_cols)
+    rec["random_ndcg@10"] = rand["ndcg@10"]
+    if not (hold["n_queries"] > 0 and hold["ndcg@10"] > rand["ndcg@10"]):
+        raise AssertionError(f"holdout {hold} does not beat a random scorer's "
+                             f"NDCG@10 {rand['ndcg@10']}")
+
+    # the holdout's host scores (the trainer's own predict) against the
+    # device scorer on the same rows
+    x = feature_matrix(trainer.test_feats, ranker.feature_names)
+    host = times.last["host_predict"]
+    if host.shape != (len(x),):
+        raise AssertionError("the last host predict was not the holdout's")
+    t0 = time.perf_counter()
+    dev = ranker.make_device_scorer()(torch.as_tensor(x, device=device)).cpu().numpy()
+    rec["device_score_s"] = time.perf_counter() - t0
+    rec["holdout_rows"] = len(x)
+    rec["host_device_max_abs_err"] = float(np.abs(dev - host).max())
+    if not np.allclose(dev, host, rtol=GBDT_RTOL, atol=GBDT_ATOL):
+        raise AssertionError(f"device and host GBDT scores differ by "
+                             f"{rec['host_device_max_abs_err']}")
+    back = load_ranker(orch.cfg.RANKER_MODEL_PATH, device=device)
+    n_rt = min(len(x), GBDT_ROUND_TRIP_ROWS)
+    if not (isinstance(back, HistGBDTRanker)
+            and np.array_equal(back.predict(x[:n_rt]), host[:n_rt])):
+        raise AssertionError("save -> load_ranker -> predict changed the scores")
+
+    # the first tree again: on the CPU from the same inputs, and twice on
+    # the device
+    if grower.first is None:
+        raise AssertionError("no device tree grower ran")
+    rec["train_rows"] = int(grower.first[0].shape[1])
+    make = grower.make
+    t0 = time.perf_counter()
+    cpu_levels, cpu_rv = make(*grower.args)(*(t.cpu() for t in grower.first))
+    rec["cpu_tree_s"] = time.perf_counter() - t0
+    runs = [make(*grower.args)(*grower.first) for _ in range(2)]
+    on_dev = [_levels_np(lv) for lv, _ in runs]
+    cpu = _levels_np(cpu_levels)
+    depth, gaps = _split_gap(grower.first, grower.args, on_dev[0], cpu)
+    rec["first_tree"] = {
+        "splits_equal_cpu": depth is None, "differs_at_depth": depth, "gaps": gaps,
+        "leaf_max_abs_diff_cpu": max(float(np.abs(a["leaf_value"] - b["leaf_value"]).max())
+                                     for a, b in zip(on_dev[0], cpu)),
+        "repeat_levels_equal": _levels_equal(on_dev[0], on_dev[1]),
+        "repeat_splits_equal": all(
+            np.array_equal(a[k], b[k]) for a, b in zip(on_dev[0], on_dev[1])
+            for k in ("best_f", "best_b", "do_split")),
+        "repeat_row_value_equal": bool(torch.equal(runs[0][1], runs[1][1])),
+        "training_tree_equals_repeat": all(
+            np.array_equal(getattr(ranker.trees[0], a), getattr(t, a))
+            for t in [gbdt._tree_from_levels(on_dev[0], ranker.max_depth)]
+            for a in ("feature", "bin_threshold", "left", "right", "value", "gain")),
+        "cpu_row_value_max_abs_diff": float((runs[0][1].cpu() - cpu_rv).abs().max())}
+    if not all(gap["within"] for gap in gaps):
+        raise AssertionError(f"the first tree's splits differ from the CPU's beyond "
+                             f"the f32 bound: {gaps}")
+
+    ts = times.seconds
+    tower_s = sum(r["train_s"] for r in towers.runs)
+    rec["stage_s"] = orch.stage_times["ranker"]
+    rec["parts_s"] = {
+        "inner_towers": tower_s, "candidate_builds": ts["fold_frames"] - tower_s,
+        "gbdt_train": ts["gbdt_train"], "binning": ts["binning"],
+        # train's own binning: the train and the valid frame, its first calls
+        "boosting": ts["gbdt_train"] - sum(times.durations["binning"][:2]),
+        "gradients": ts["gradients"], "grower": sum(grower.ms) / 1e3,
+        "valid_ndcg": ts["valid_ndcg"], "predict_tree": ts["predict_tree"],
+        "holdout": ts["holdout"]}
+    rec["grower_ms_per_tree"] = float(np.mean(grower.ms))
+    rec["gradients_ms_per_round"] = ts["gradients"] * 1e3 / max(1, times.calls["gradients"])
+    rec["valid_ndcg_ms_per_round"] = ts["valid_ndcg"] * 1e3 / max(1, rec["rounds"])
+
+    view = orch._train_view()
+    seen = np.zeros((data.n_users + 1, data.n_items + 1), dtype=bool)
+    seen[view.user_id, view.item_id] = True
+    truth = _held_out_truth(orch._load_data())
+    report = orch.run_stage("evaluate")
+    rec["evaluate_s"] = orch.stage_times["evaluate"]
+    bad = [k for k, v in report.items() if not isinstance(v, list) and not np.isfinite(v)]
+    if bad or report["n_users"] != len(truth):
+        raise AssertionError(f"GBDT evaluate: non-finite {bad}, {report['n_users']} "
+                             f"users of {len(truth)}")
+    check_eval_lists(orch, seen, truth, device, seed)
+    mlp_rows = mlp["reports"]["exact_float32"]["rows"]
+    rec["rows"] = {"gbdt_full": {k: report[k] for k in REPORT_ROWS["full"]},
+                   "mlp_full": mlp_rows["full"], "popularity": mlp_rows["popularity"],
+                   "retrieval_only": mlp_rows["retrieval_only"]}
+    rec["paired_ndcg10_full_minus_retrieval"] = report.get(
+        "paired_ndcg10_full_minus_retrieval")
+    print(json.dumps({"gbdt_pipeline": rec, "card": card}), flush=True)
+    print(f"gbdt ranker ({card}): backend {rec['backend']}, "
+          f"{rec['trees']} trees, best {rec['best_iteration']} of {rec['rounds']} rounds; "
+          f"holdout ndcg@10={hold['ndcg@10']:.5f} (random {rand['ndcg@10']:.5f}); "
+          + "; ".join(f"{row} " + ", ".join(f"{k.split('_')[-1]}={v:.5f}"
+                                           for k, v in vals.items())
+                      for row, vals in rec["rows"].items()), flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2495,6 +3049,12 @@ def main(argv=None) -> int:
                       "card": card}), flush=True)
     del pipe, pipe_i8
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gbdt_serve, pipe = gbdt_serve_phase(paths, data, device)
+    print(json.dumps({"serve_gbdt": gbdt_serve, "serve_gbdt_s": time.perf_counter() - t0,
+                      "card": card}), flush=True)
+    del pipe
+    torch.cuda.empty_cache()
 
     checks_qm = qm_window_phase(paths, device, args.seed)
     torch.cuda.empty_cache()
@@ -2534,6 +3094,10 @@ def main(argv=None) -> int:
                       "pipeline_bpr_launches": pipeline["bpr_launches"],
                       "pipeline_tower_steps": pipeline["tower_steps"]}),
           flush=True)
+    t0 = time.perf_counter()
+    gbdt_pipe = gbdt_pipeline_phase(data, device, args.seed, workdir, card, pipeline)
+    print(json.dumps({"gbdt_pipeline_s": time.perf_counter() - t0,
+                      "gbdt_bpr_launches": gbdt_pipe["bpr_launches"]}), flush=True)
 
     print(json.dumps({"total_s": time.perf_counter() - t_start}), flush=True)
     main_q = checks[-1]
@@ -2546,6 +3110,7 @@ def main(argv=None) -> int:
         "launches": serve["launches"]["window_mips"],
         "http_launches": sum(lv["launches"]["window_mips"]
                              for lv in http["bf16"]["levels"]),
+        "gbdt_launches": gbdt_serve["launches"]["window_mips"],
         "max_abs_err": max(c["window_max_abs_err"] for c in checks),
         "ms": main_q["kernel_ms"], "plain_ms": main_q["twin_ms"],
         "bound": window_bound(main_q, 2, 4, "bf16"), "library_ms": None,
@@ -2584,6 +3149,7 @@ def main(argv=None) -> int:
         "name": "bpr_fwd", "source": BPR_SOURCE, "replaces": BPR_REPLACES["bpr_fwd"],
         "launches": train["launches"]["bpr_fwd"],
         "pipeline_launches": pipeline["bpr_launches"]["bpr_fwd"],
+        "gbdt_pipeline_launches": gbdt_pipe["bpr_launches"]["bpr_fwd"],
         "max_abs_err": max(abs(c["loss"] - c["twin_loss"]) for c in bpr_checks),
         "ms": main_b["fwd_device_ms"], "plain_ms": main_b["twin_fwd_device_ms"],
         # the (B, B) score matrix; the softplus per pair is not counted
@@ -2592,6 +3158,7 @@ def main(argv=None) -> int:
         "name": "bpr_bwd", "source": BPR_SOURCE, "replaces": BPR_REPLACES["bpr_bwd"],
         "launches": train["launches"]["bpr_bwd"],
         "pipeline_launches": pipeline["bpr_launches"]["bpr_bwd"],
+        "gbdt_pipeline_launches": gbdt_pipe["bpr_launches"]["bpr_bwd"],
         "max_abs_err": max(c["grad_max_abs_err"] for c in bpr_checks),
         "ms": main_b["bwd_device_ms"], "plain_ms": main_b["twin_bwd_device_ms"],
         # the scores, then du = G V and dv = G^T U

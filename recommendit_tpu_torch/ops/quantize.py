@@ -8,6 +8,9 @@ Two quantizers, each the counterpart of one JAX function, bit for bit:
   default) is a pure counter function of the key and the flat element
   index; :func:`threefry_uniform` computes it in plain torch, so the port
   builds the same int8 corpus as JAX for the same seed, on any device.
+  The same stream gives :func:`threefry_split` and :func:`threefry_bernoulli`
+  (``jax.random.split`` and ``bernoulli``), which the GBDT's device backend
+  draws its row subsamples from (``models/gbdt.py``).
 * :func:`quantize_int8_hash` — ``quantize_int8_pallas(x, seed)`` (the Pallas
   ``_quantize_kernel``): the same per-row scales, with an xorshift-multiply
   counter hash for the uniform draw. On a CUDA tensor it launches
@@ -44,7 +47,7 @@ _CHUNK_ELEMS = 1 << 24   # elements per chunk: each int64 temporary ≤ 128 MB
 LAUNCHES = {"quantize_i8": 0}
 
 
-def _key_words(seed: int) -> Tuple[int, int]:
+def prng_key(seed: int) -> Tuple[int, int]:
     """``jax.random.key_data(jax.random.PRNGKey(seed))`` with 64-bit mode
     off: the seed is an int32, its high word (a logical shift by 32) is 0
     and its low word is the seed modulo 2^32."""
@@ -73,18 +76,48 @@ def threefry2x32(k1: int, k2: int, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
+def threefry_bits(key: Tuple[int, int], n: int, offset: int = 0,
+                  device=DEFAULT_DEVICE) -> torch.Tensor:
+    """Elements ``offset … offset + n − 1`` of the flat uint32 array
+    ``jax.random.bits(key, shape)`` (as int64) for any shape with at least
+    ``offset + n`` elements: the counter is the flat index (high word, low
+    word) and the bits are the xor of threefry's two outputs. ``key`` is
+    the key's two words, ``jax.random.key_data(key)``."""
+    k1, k2 = key
+    i = torch.arange(offset, offset + n, dtype=torch.int64,
+                     device=resolve_device(device))
+    b0, b1 = threefry2x32(k1, k2, i >> 32, i & _M32)
+    return b0 ^ b1
+
+
+def _unit_float(bits: torch.Tensor) -> torch.Tensor:
+    """JAX's uniform in [0, 1) from 32 random bits: the top 23 bits become
+    the mantissa of a float in [1, 2), minus 1."""
+    return (bits >> 9).to(torch.float32) * (1.0 / (1 << 23))
+
+
 def threefry_uniform(seed: int, n: int, offset: int = 0,
                      device=DEFAULT_DEVICE) -> torch.Tensor:
     """Elements ``offset … offset + n − 1`` of the flat f32 array
     ``jax.random.uniform(jax.random.PRNGKey(seed), shape)`` for any shape
-    with at least ``offset + n`` elements: the counter is the flat index
-    (high word, low word), the bits are the xor of threefry's two outputs,
-    and the top 23 bits become the mantissa of a float in [1, 2), minus 1."""
-    k1, k2 = _key_words(seed)
-    i = torch.arange(offset, offset + n, dtype=torch.int64,
-                     device=resolve_device(device))
-    b0, b1 = threefry2x32(k1, k2, i >> 32, i & _M32)
-    return ((b0 ^ b1) >> 9).to(torch.float32) * (1.0 / (1 << 23))
+    with at least ``offset + n`` elements."""
+    return _unit_float(threefry_bits(prng_key(seed), n, offset, device))
+
+
+def threefry_split(key: Tuple[int, int]) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """``jax.random.split(key)`` (partitionable threefry): new key j is
+    threefry's two outputs at the counter (0, j)."""
+    b0, b1 = threefry2x32(key[0], key[1], torch.zeros(2, dtype=torch.int64),
+                          torch.arange(2, dtype=torch.int64))
+    return tuple((int(b0[j]), int(b1[j])) for j in range(2))
+
+
+def threefry_bernoulli(key: Tuple[int, int], p: float, n: int,
+                       device=DEFAULT_DEVICE) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, (n,))`` with ``p`` a Python float:
+    the f32 uniform draws below ``float32(p)``."""
+    u = _unit_float(threefry_bits(key, n, 0, device))
+    return u < torch.tensor(np.float32(p), device=u.device)
 
 
 def row_scales(x: torch.Tensor) -> torch.Tensor:
@@ -159,7 +192,7 @@ def quantize_int8_hash_ref(x: torch.Tensor,
     seed)`` for any row block — the element index is ``row·D + col`` over
     the unpadded rows, modulo 2^32."""
     _check_2d_float(x)
-    _key_words(seed)   # the JAX wrapper passes the seed as an int32
+    prng_key(seed)   # the JAX wrapper passes the seed as an int32
     n, d = x.shape
     scales = row_scales(x)
     out = torch.empty((n, d), dtype=torch.int8, device=x.device)
@@ -206,7 +239,7 @@ def quantize_int8_hash(x: torch.Tensor,
     ``quantize_int8_pallas(x, seed)``: the CUDA kernel for a tensor on the
     card, the plain twin for one on the CPU."""
     _check_2d_float(x)
-    _key_words(seed)
+    prng_key(seed)
     if x.device.type == "cpu":
         return quantize_int8_hash_ref(x, seed)
     if x.device.type != "cuda":

@@ -33,8 +33,9 @@ frames equal JAX's given the same towers:
   subsample and tail negatives.
 
 ``RANKER_FOLD_CACHE_DIR`` caches a fold's frame as ``.npz`` (the GPU
-machine has no pyarrow for JAX's parquet). ``RANKER_TYPE=gbdt`` raises:
-the GBDT ranker is not ported (ROADMAP.md, queue A, A.8).
+machine has no pyarrow for JAX's parquet). ``RANKER_TYPE=gbdt`` trains the
+histogram GBDT (``models/gbdt.py``) on the same frames in place of the
+MLP, with JAX's ``GBDT_*`` settings.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ import hashlib
 import json
 import logging
 from pathlib import Path
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -59,6 +60,7 @@ from recommendit_tpu_torch.features.schema import (
     pack_item_features,
     pack_user_features,
 )
+from recommendit_tpu_torch.models.gbdt import HistGBDTRanker
 from recommendit_tpu_torch.models.ranker import LambdaRankScorer
 from recommendit_tpu_torch.models.retrieval import MIPSIndex
 from recommendit_tpu_torch.models.two_tower import TwoTower
@@ -119,17 +121,13 @@ class RankerTrainer:
         self.device = resolve_device(device)
         self.holdout_metrics: Dict[str, float] = {}
         # after run: the ranker, its holdout frame and its columns
-        self.ranker: Optional[LambdaRankScorer] = None
+        self.ranker: Optional[Union[LambdaRankScorer, HistGBDTRanker]] = None
         self.test_feats: Optional[Columns] = None
         self.feature_cols: List[str] = []
         self._tower_cache = None
 
-    def run(self) -> LambdaRankScorer:
+    def run(self) -> Union[LambdaRankScorer, HistGBDTRanker]:
         cfg = self.cfg
-        if cfg.RANKER_TYPE == "gbdt":
-            raise NotImplementedError(
-                "RANKER_TYPE=gbdt: the GBDT ranker is not ported yet "
-                "(ROADMAP.md, queue A, A.8, models/gbdt.py)")
         fe = self.fe
         if fe is None:
             fe = FeatureEngineer(seed=cfg.SEED)
@@ -172,19 +170,31 @@ class RankerTrainer:
         is_valid = np.isin(train_feats["query_id"], queries[:n_valid])
         valid_df, fit_df = take(train_feats, is_valid), take(train_feats, ~is_valid)
 
-        ranker = LambdaRankScorer(
-            hidden_dims=cfg.RANKER_HIDDEN_DIMS,
-            learning_rate=cfg.RANKER_LEARNING_RATE,
-            epochs=cfg.RANKER_EPOCHS,
-            group_size=cfg.RANKER_GROUP_SIZE,
-            label_gain=cfg.RANKER_LABEL_GAIN,
-            eval_at=cfg.RANKER_EVAL_AT,
-            early_stop_rounds=cfg.RANKER_EARLY_STOP_ROUNDS,
-            seed=cfg.SEED,
-            loss_type=cfg.RANKER_LOSS_TYPE,
-            query_norm=cfg.RANKER_QUERY_NORM,
-            device=self.device,
-        )
+        if cfg.RANKER_TYPE == "gbdt":
+            ranker = HistGBDTRanker(
+                n_estimators=cfg.GBDT_N_ESTIMATORS,
+                learning_rate=cfg.GBDT_LEARNING_RATE,
+                max_depth=cfg.GBDT_MAX_DEPTH,
+                n_bins=cfg.GBDT_N_BINS,
+                label_gain=cfg.RANKER_LABEL_GAIN,
+                early_stop_rounds=max(10, cfg.RANKER_EARLY_STOP_ROUNDS * 4),
+                seed=cfg.SEED,
+                device=self.device,
+            )
+        else:
+            ranker = LambdaRankScorer(
+                hidden_dims=cfg.RANKER_HIDDEN_DIMS,
+                learning_rate=cfg.RANKER_LEARNING_RATE,
+                epochs=cfg.RANKER_EPOCHS,
+                group_size=cfg.RANKER_GROUP_SIZE,
+                label_gain=cfg.RANKER_LABEL_GAIN,
+                eval_at=cfg.RANKER_EVAL_AT,
+                early_stop_rounds=cfg.RANKER_EARLY_STOP_ROUNDS,
+                seed=cfg.SEED,
+                loss_type=cfg.RANKER_LOSS_TYPE,
+                query_norm=cfg.RANKER_QUERY_NORM,
+                device=self.device,
+            )
         ranker.train(fit_df, cols, valid_df=valid_df)
 
         self.ranker, self.test_feats, self.feature_cols = ranker, test_feats, cols

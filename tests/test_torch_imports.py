@@ -33,6 +33,7 @@ MODULES = [
     "recommendit_tpu_torch.models.two_tower",
     "recommendit_tpu_torch.models.retrieval",
     "recommendit_tpu_torch.models.ranker",
+    "recommendit_tpu_torch.models.gbdt",
     "recommendit_tpu_torch.serving.recommender",
     "recommendit_tpu_torch.serving",
     "recommendit_tpu_torch.serving.batcher",
@@ -156,10 +157,13 @@ from pathlib import Path
 import chip_smoke
 paths, data = chip_smoke.make_artifacts(
     Path({str(tmp_path)!r}), seed=1, device="cpu", n_users=120, n_items=3000,
-    dim=16, hidden=16, n_ratings=4000, block_size=512)
+    dim=16, hidden=16, n_ratings=4000, block_size=512, gbdt_trees=10)
 out, _ = chip_smoke.serve_phase(paths, data, "cpu", n_batch_users=200,
                              batch=100, n_requests=3, k=5)
 assert out["requests"] == 3, out
+gbdt, _ = chip_smoke.gbdt_serve_phase(paths, data, "cpu", n_batch_users=100,
+                                      batch=100, n_requests=3, k=5, workers=1)
+assert gbdt["users_checked"] == 100, gbdt
 print("served", out["batch_users"])
 """
     proc = _run(code)

@@ -137,11 +137,25 @@ def test_ranker_round_trip(rankers, tmp_path):
         json.loads(open(str(path) + ".meta.json").read())
 
 
-def test_gbdt_ranker_raises(tmp_path):
-    p = tmp_path / "gbdt.npz"
-    (tmp_path / "gbdt.npz.meta.json").write_text(json.dumps({"n_trees": 3}))
-    with pytest.raises(NotImplementedError, match="GBDT"):
-        load_ranker(str(p), device="cpu")
+def test_load_ranker_serves_a_jax_gbdt(tmp_path):
+    """A GBDT the JAX package trained and saved: ``load_ranker`` dispatches
+    on ``n_trees`` and returns the port's booster, whose host predict is
+    JAX's bit for bit."""
+    from recommendit_tpu.models.gbdt import HistGBDTRanker as JaxGBDT
+    from recommendit_tpu_torch.models import HistGBDTRanker
+    from tests.test_ranker import FEATURES, make_ranker_data
+
+    df = make_ranker_data(n_queries=20, group=25)
+    jr = JaxGBDT(n_estimators=8, max_depth=3, n_bins=16, seed=1)
+    jr.train(df, FEATURES)
+    jr.save(str(tmp_path / "gbdt.npz"))
+    got = load_ranker(str(tmp_path / "gbdt.npz"), device="cpu")
+    assert isinstance(got, HistGBDTRanker) and got.device.type == "cpu"
+    assert len(got.trees) == 8 and got.feature_names == FEATURES
+    x = df[FEATURES].values.astype(np.float32)
+    np.testing.assert_array_equal(got.predict(x), jr.predict(x))
+    with pytest.raises(FileNotFoundError, match="meta"):
+        load_ranker(str(tmp_path / "absent.npz"), device="cpu")
 
 
 def _catalog(n=3000, d=16, seed=7):

@@ -118,6 +118,124 @@ def test_ranker_stage_writes_a_trained_ranker(runs):
     assert orch.stage_times["ranker"] > 0
 
 
+GBDT_CFG = dict(CFG, RANKER_TYPE="gbdt", GBDT_N_ESTIMATORS=10, GBDT_MAX_DEPTH=3)
+
+
+@pytest.fixture(scope="module")
+def gbdt_runs(runs):
+    """``RANKER_TYPE=gbdt`` (the counterpart of ``test_pipeline_e2e.py``'s
+    ``test_gbdt_ranker_serves``): the port's ``ranker`` stage trains a GBDT
+    into a copy of the models directory (the JAX stages' towers and
+    index), then the JAX and the port's ``evaluate`` serve it."""
+    import shutil
+
+    import recommendit_tpu.pipelines.run_pipeline as jrp
+
+    tmp = runs["tmp"]
+    models = tmp / "models_gbdt"
+    models.mkdir()
+    for name in ("two_tower.npz", "mips.index.npz"):
+        for f in (name, name + ".meta.json"):
+            shutil.copy(tmp / "models" / f, models / f)
+    common = dict(data_dir=str(tmp / "ml"), models_dir=str(models),
+                  synthetic=True, eval_users=EVAL_USERS)
+    orch = PipelineOrchestrator(cfg=Settings(**GBDT_CFG),
+                                features_dir=str(tmp / "port_features"),
+                                device="cpu", **common)
+    orch.run_stage("ranker")
+    report = orch.run_stage("evaluate")
+    jorch = jrp.PipelineOrchestrator(cfg=JaxSettings(**GBDT_CFG),
+                                     features_dir=str(tmp / "jax_features"), **common)
+    jax_lists = []
+    real = jrp.evaluate_model
+
+    def spy(recs, truth, **kw):
+        jax_lists.append(recs)
+        return real(recs, truth, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jrp, "evaluate_model", spy)
+        jax_report = jorch.run_stage("evaluate")
+    return dict(orch=orch, report=report, jax_report=jax_report,
+                jax_lists=jax_lists, models=models)
+
+
+def test_gbdt_ranker_stage_trains_a_gbdt(gbdt_runs):
+    from recommendit_tpu.models import load_ranker as jax_load_ranker
+    from recommendit_tpu.models.gbdt import HistGBDTRanker as JaxGBDT
+
+    orch = gbdt_runs["orch"]
+    ranker = orch.ranker_trainer.ranker
+    assert ranker.model_info()["model_type"] == "hist-gbdt-lambdarank"
+    assert ranker.best_iteration >= 1 and len(ranker.feature_names) == 52
+    assert orch.ranker_trainer.holdout_metrics["n_queries"] > 0
+    back = jax_load_ranker(orch.cfg.RANKER_MODEL_PATH)
+    assert isinstance(back, JaxGBDT) and back.model_info() == ranker.model_info()
+
+
+def test_gbdt_evaluate_lists_identical(gbdt_runs):
+    """The same ranked lists in every report row, and every metric within
+    1e-6, from the GBDT both packages serve through the fused path."""
+    lists = gbdt_runs["orch"].eval_lists
+    full, pop, retr = gbdt_runs["jax_lists"]
+    assert lists["full"] == full
+    assert lists["popularity"] == pop
+    assert lists["retrieval_only"] == retr
+    assert len(full) == EVAL_USERS and full != retr
+    want, got = gbdt_runs["jax_report"], gbdt_runs["report"]
+    assert list(got) == list(want)
+    for key, v in want.items():
+        if isinstance(v, list):
+            assert got[key] == v
+        else:
+            np.testing.assert_allclose(got[key], v, atol=1e-6, rtol=0, err_msg=key)
+
+
+def test_gbdt_serve_batch_and_model_info_equal(gbdt_runs):
+    """Both packages' ``RecommendationPipeline`` over the GBDT models
+    directory: ``serve_batch`` of every user gives identical ids after
+    ``canonical_tie_order`` with scores within 1e-5 (the descent's f32
+    sums over 10 trees, C.22, then the blend's standardisation), and both
+    apps' ``/model/info`` carry the same model and ranker fields."""
+    import jax.numpy as jnp
+
+    from recommendit_tpu.serving import app as jax_app
+    from recommendit_tpu.serving.recommender import RecommendationPipeline as JaxPipeline
+    from recommendit_tpu_torch.ops.topk import canonical_tie_order
+    from recommendit_tpu_torch.serving import app as port_app
+    from recommendit_tpu_torch.serving.recommender import RecommendationPipeline
+
+    models, tmp = gbdt_runs["models"], gbdt_runs["models"].parent
+    paths = dict(model_path=str(models / "two_tower.npz"),
+                 index_path=str(models / "mips.index.npz"),
+                 ranker_path=str(models / "ranker.npz"), data_dir=str(tmp / "ml"),
+                 redis_url="redis://localhost:9999")
+    jp = JaxPipeline(cfg=JaxSettings(**GBDT_CFG), features_dir=str(tmp / "jax_features"),
+                     **paths)
+    jp.load()
+    tp = RecommendationPipeline(cfg=Settings(**GBDT_CFG), device="cpu",
+                                features_dir=str(tmp / "port_features"), **paths)
+    tp.load()
+    users = np.arange(1, CFG["SYNTH_USERS"] + 1)
+    j_ids, j_scores, _ = (torch.as_tensor(np.array(a)) for a in
+                          jp._serve_batch_fn(jnp.asarray(users, jnp.int32)))
+    t_ids, t_scores, _ = tp.serve_batch(users)
+    j_scores, j_ids = canonical_tie_order(j_scores, j_ids.long())
+    t_scores, t_ids = canonical_tie_order(t_scores, t_ids.long())
+    assert torch.equal(t_ids, j_ids)
+    assert torch.equal(torch.isinf(t_scores), torch.isinf(j_scores))
+    fin = torch.isfinite(j_scores)
+    np.testing.assert_allclose(t_scores[fin].numpy(), j_scores[fin].numpy(),
+                               rtol=0, atol=1e-5)
+    got = port_app.RecommendItApp(pipeline=tp).handle("GET", "/model/info")
+    want = jax_app.RecommendItApp(pipeline=jp).handle("GET", "/model/info")
+    assert got[0] == want[0] == 200
+    for key in ("model_version", "embedding_dim", "n_users", "n_items",
+                "index_stats", "ranker_info"):
+        assert got[1][key] == want[1][key], key
+    assert got[1]["ranker_info"]["model_type"] == "hist-gbdt-lambdarank"
+
+
 def test_feature_snapshots_open_in_the_other_package(runs):
     from recommendit_tpu.features.snapshot import FeatureSnapshot as JaxSnapshot
     from recommendit_tpu_torch.features.snapshot import FeatureSnapshot
@@ -422,3 +540,25 @@ def test_cli_takes_log_level_as_jax(tmp_path):
                                   "--device", "cpu"])
     assert levels == {"jax": "DEBUG", "port": "DEBUG"}
     assert (tmp_path / "ml" / "ratings.dat").exists()
+
+
+def test_cli_reads_ranker_type_from_the_environment(tmp_path):
+    """``RANKER_TYPE=gbdt`` (and the ``GBDT_*`` knobs) reach both CLIs'
+    settings through ``Settings.from_env`` at import."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = ("import recommendit_tpu.pipelines.run_pipeline as j, "
+            "recommendit_tpu_torch.pipelines.run_pipeline as t\n"
+            "for m in (j, t):\n"
+            "    c = m.default_settings\n"
+            "    print(c.RANKER_TYPE, c.GBDT_N_ESTIMATORS, c.GBDT_MAX_DEPTH)\n")
+    env = dict(os.environ, RANKER_TYPE="gbdt", GBDT_N_ESTIMATORS="17",
+               GBDT_MAX_DEPTH="4", JAX_PLATFORMS="cpu",
+               PYTHONPATH=str(Path(__file__).resolve().parent.parent))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=tmp_path, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[:2] == ["gbdt 17 4", "gbdt 17 4"]

@@ -41,7 +41,7 @@ def small_artifacts(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("chip_smoke")
     return chip_smoke.make_artifacts(
         tmp, seed=0, device="cpu", n_users=300, n_items=5000, dim=16,
-        hidden=32, n_ratings=20_000, block_size=1024)
+        hidden=32, n_ratings=20_000, block_size=1024, gbdt_trees=20)
 
 
 def test_artifacts_load_in_the_jax_formats(small_artifacts):
@@ -468,3 +468,113 @@ def test_check_list_ties_and_differences():
         chip_smoke.check_list([1, 2], [0.9, 0.5], [2, 1], [0.9, 0.5])
     with pytest.raises(AssertionError, match="scores differ"):
         chip_smoke.check_list([1, 2], [0.9, 0.5], [1, 2], [0.9, 0.4])
+
+
+# --- the GBDT phases -------------------------------------------------------- #
+
+def test_random_gbdt_loads_in_jax(small_artifacts):
+    """``write_random_gbdt`` writes JAX's format: JAX's booster reads it and
+    predicts as the port's; full trees of depth 6 over the 52 columns."""
+    from recommendit_tpu.models.gbdt import HistGBDTRanker as JaxGBDT
+    from recommendit_tpu_torch.models import load_ranker
+
+    paths, _ = small_artifacts
+    jr = JaxGBDT.load(paths["gbdt_path"])
+    tr = load_ranker(paths["gbdt_path"], device="cpu")
+    assert len(jr.trees) == 20 and jr.max_depth == 6 and jr.n_bins == 64
+    assert jr.feature_names[-2:] == ["retrieval_score", "retrieval_rank"]
+    assert jr.bin_edges.shape == (52, 63)
+    assert all(int((t.feature >= 0).sum()) == 63 for t in jr.trees)
+    x = np.random.default_rng(1).normal(size=(300, 52)).astype(np.float32)
+    np.testing.assert_array_equal(tr.predict(x), jr.predict(x))
+
+
+def test_gbdt_serve_phase_checks_pass(small_artifacts):
+    paths, data = small_artifacts
+    out, pipe = chip_smoke.gbdt_serve_phase(paths, data, "cpu", n_batch_users=400,
+                                            batch=200, n_requests=5, k=10, workers=1)
+    assert pipe.ranker.model_info()["model_type"] == "hist-gbdt-lambdarank"
+    assert out["users_checked"] == 400 and out["requests"] == 5
+    assert out["raw_score_max_abs_err"] <= 1e-5
+    assert out["launches"] == {"window_mips": 0,   # the CPU runs the twins
+                               "window_mips_qm": 0, "window_mips_i8": 0}
+
+
+def test_host_predict_in_processes_equals_one_call(small_artifacts):
+    from recommendit_tpu_torch.models import load_ranker
+
+    paths, _ = small_artifacts
+    x = np.random.default_rng(2).normal(size=(120, 52)).astype(np.float32)
+    want = load_ranker(paths["gbdt_path"], device="cpu").predict(x)
+    np.testing.assert_array_equal(chip_smoke.host_predict(paths["gbdt_path"], x, 2), want)
+
+
+@pytest.fixture(scope="module")
+def gbdt_pipeline(tmp_path_factory):
+    """The pipeline phase at 600 users x 400 items, then the GBDT pipeline
+    phase on its directories (6 trees), the booster forced onto its device
+    backend, which ``auto`` takes only on a GPU."""
+    from recommendit_tpu_torch.models import HistGBDTRanker
+
+    tmp = tmp_path_factory.mktemp("gbdt_pipeline")
+    data, _ = chip_smoke.make_train_data(0, 600, 400, 40_000)
+    small = dict(epochs=4, dim=16, hidden=32, batch=256)
+    mlp = chip_smoke.pipeline_phase(data, "cpu", 0, tmp, "cpu", **small,
+                                    ranker_cfg=dict(RANKER_EPOCHS=3,
+                                                    RANKER_HIDDEN_DIMS=(16, 8)))
+    real = HistGBDTRanker.__init__
+
+    def on_device_backend(self, *args, **kwargs):
+        real(self, *args, **dict(kwargs, backend="device"))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(HistGBDTRanker, "__init__", on_device_backend)
+        rec = chip_smoke.gbdt_pipeline_phase(data, "cpu", 0, tmp, "cpu", mlp, **small,
+                                             ranker_cfg=dict(GBDT_N_ESTIMATORS=6))
+    return mlp, rec
+
+
+def test_gbdt_pipeline_phase_checks_pass(gbdt_pipeline):
+    mlp, rec = gbdt_pipeline
+    assert rec["backend"] == "device" and rec["trees"] >= rec["best_iteration"] >= 1
+    assert rec["tower_steps"] == mlp["tower_steps"][1:]
+    assert rec["bpr_launches"] == {"bpr_fwd": 0, "bpr_bwd": 0}   # twins on the CPU
+    assert rec["holdout"]["ndcg@10"] > rec["random_ndcg@10"]
+    assert rec["host_device_max_abs_err"] <= 1e-5
+    first = rec["first_tree"]
+    assert first["splits_equal_cpu"] and first["repeat_levels_equal"]
+    assert first["training_tree_equals_repeat"]
+    assert set(rec["rows"]) == {"gbdt_full", "mlp_full", "popularity", "retrieval_only"}
+    assert rec["rows"]["mlp_full"] == mlp["reports"]["exact_float32"]["rows"]["full"]
+    assert rec["grower_ms_per_tree"] > 0 and len(rec["valid_ndcg@10"]) == rec["rounds"]
+
+
+def _small_grow(seed=0, n=4000, n_feat=5, n_bins=16, depth=3):
+    from recommendit_tpu_torch.models import gbdt
+
+    rng = np.random.default_rng(seed)
+    inputs = (torch.as_tensor(rng.integers(0, n_bins, (n_feat, n)).astype(np.uint8)),
+              torch.as_tensor(rng.normal(size=n).astype(np.float32)),
+              torch.as_tensor(rng.random(n).astype(np.float32)),
+              torch.ones(n), torch.ones(n_feat, dtype=torch.bool))
+    args = (n_feat, n_bins, depth, 20, 0.1)
+    levels, _ = gbdt._make_grow_tree_device(*args)(*inputs)
+    return inputs, args, chip_smoke._levels_np(levels)
+
+
+def test_split_gap_on_equal_trees():
+    inputs, args, levels = _small_grow()
+    assert chip_smoke._split_gap(inputs, args, levels, levels) == (None, [])
+
+
+def test_split_gap_flags_a_split_no_rounding_explains():
+    """A node given another threshold than the best split is no near-tie:
+    its exact gain falls short by far more than the f32 bound."""
+    inputs, args, levels = _small_grow(1)
+    other = [{k: v.copy() for k, v in lv.items()} for lv in levels]
+    pos = int(np.flatnonzero(other[1]["do_split"])[0])
+    other[1]["best_b"][pos] = (other[1]["best_b"][pos] + 7) % 15
+    depth, gaps = chip_smoke._split_gap(inputs, args, other, levels)
+    assert depth == 1 and [g["node"] for g in gaps] == [pos]
+    assert not gaps[0]["within"] and gaps[0]["gap"] > 10 * gaps[0]["bound"] > 0
+    assert gaps[0]["exact_cpu"] > gaps[0]["exact_card"]

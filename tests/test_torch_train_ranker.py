@@ -252,9 +252,37 @@ def test_fold_cache_round_trip(data, inner_towers, tmp_path, monkeypatch):
             np.testing.assert_array_equal(a[c], b[c])
 
 
-def test_gbdt_ranker_raises(data):
-    with pytest.raises(NotImplementedError, match="A.8"):
-        RankerTrainer(data[1], Settings(**CFG, RANKER_TYPE="gbdt"), device="cpu").run()
+GBDT_CFG = dict(CFG, RANKER_TYPE="gbdt", GBDT_N_ESTIMATORS=12, GBDT_MAX_DEPTH=3,
+                GBDT_N_BINS=16)
+
+
+def test_gbdt_run_matches_jax(data, inner_towers, tmp_path):
+    """``RANKER_TYPE=gbdt``: both trainers boost on their (equal) candidate
+    frames and give the same trees, best iteration and holdout report;
+    leaf values within 1e-6 (the gradients are f32 in two frameworks)."""
+    from recommendit_tpu.models.gbdt import HistGBDTRanker as JaxGBDT
+    from recommendit_tpu_torch.models import HistGBDTRanker
+
+    jt = JaxRankerTrainer(data[0], JaxSettings(**GBDT_CFG),
+                          ranker_output_path=str(tmp_path / "jax.npz"))
+    jranker = jt.run()
+    tt = RankerTrainer(data[1], Settings(**GBDT_CFG),
+                       ranker_output_path=str(tmp_path / "port.npz"), device="cpu")
+    ranker = tt.run()
+    assert isinstance(jranker, JaxGBDT) and isinstance(ranker, HistGBDTRanker)
+    assert ranker.backend_used == "numpy"          # "auto" on the CPU
+    assert tt.holdout_metrics == pytest.approx(jt.holdout_metrics, rel=1e-9, abs=1e-12)
+    assert ranker.best_iteration == jranker.best_iteration >= 1
+    assert ranker.early_stop_rounds == jranker.early_stop_rounds == 10
+    assert len(ranker.trees) == len(jranker.trees) >= ranker.best_iteration
+    for a, b in zip(jranker.trees, ranker.trees):
+        for attr in ("feature", "bin_threshold", "left", "right"):
+            np.testing.assert_array_equal(getattr(b, attr), getattr(a, attr))
+        np.testing.assert_allclose(b.value, a.value, rtol=0, atol=1e-6)
+    assert ranker.feature_names == jranker.feature_names == tt.feature_cols
+    back = JaxGBDT.load(str(tmp_path / "port.npz"))
+    x = np.stack([tt.test_feats[c] for c in tt.feature_cols], 1).astype(np.float32)
+    np.testing.assert_array_equal(back.predict(x), ranker.predict(tt.test_feats))
 
 
 def test_pandas_order_is_sort_values():
