@@ -28,6 +28,11 @@ serve's packed item table; then the kernel probe
 ``scripts/pallas_probe.py``) in its four variants at 1M x 128, the path
 that drives the queries-major window and fold kernels.
 
+Then the verified index mode (``INDEX_MODE=verified``) over the same 1M
+catalog in f32, and host-table training (``HOST_TABLE=True``) at the
+``ml25m`` configuration of ``scripts/host_table_scale.py`` (dim 256, batch
+2,048: the BPR kernels at their widest rows).
+
 Then two-tower training and the offline pipeline, at the repository's BPR training configuration
 (``bench.py::bench_bpr_train``, ML-1M shape): 6,040 users, 3,952 items,
 towers 64/128, batch 1,024, dropout 0.2, AdamW under a cosine schedule with
@@ -38,7 +43,7 @@ CLI's ``all`` on the same data (the ML-1M shape: 6,040 users, 3,952 items;
 inner towers, the LambdaRank MLP (128, 64) over 52 features trained),
 load_features, skew, evaluate; then ``ranker`` with ``RANKER_TYPE=gbdt``
 (its own two inner towers, the GBDT trained on the card) and ``evaluate``
-again.
+again; then ``embeddings`` and ``index`` with ``HOST_TABLE=True``.
 
 Phases (each failure raises, so the exit code is not 0):
 
@@ -135,12 +140,22 @@ Phases (each failure raises, so the exit code is not 0):
 13. probe phase: the kernel probe's four variants in-process at N=1M,
    D=128, Q=1024, k=500, block 2048, W=64, bf16, each exiting 0, with the
    window and fold launch counts read around exactly that run;
-14. capacity phase: 30M x 128 random unit rows made and quantised on the
+14. verified phase (``INDEX_MODE=verified``): the catalog's augmented f32
+   rows (129 wide, 136 on the card) built into a verified and an exact f32
+   index; at Q in {1, 256, 1024}, k=500, the verified device searcher
+   (``mips_topk_certified``, count method) and the bound method against
+   the exact top-500: values within C.22's bound 2(D−1)·2⁻²⁴·Σ|q_k·x_k|,
+   ids equal after ``canonical_tie_order`` or tied within the bound; the
+   escalations counted (none expected), one forced escalation (a broken
+   engine) equal to exact; ms per call of verified, bound, exact and the
+   fused bf16 route; then a 1,024-user ``serve_batch`` of a verified
+   pipeline against an exact one, every list equal, scores within 1e-4;
+15. capacity phase: 30M x 128 random unit rows made and quantised on the
    card in chunks, the int8 window kernel (the tensor-core body) at Q=1024
    and W=512 (windows wider than a tile) timed, and on 64 queries its
    maxima and positions equal to the twin's and recall@500 >= 0.98 against
    int8-exact;
-15. BPR kernel phase: at B=1024 and a ragged B=1000, D=64 f32, the forward
+16. BPR kernel phase: at B=1024 and a ragged B=1000, D=64 f32, the forward
    and backward kernels against their twins — the loss within 1e-5
    relative, du and dv within 1e-4 of the twin's largest entry, a second
    call equal bit for bit — all four times by CUDA events and, since by
@@ -148,18 +163,28 @@ Phases (each failure raises, so the exit code is not 0):
    ``torch.profiler`` (the kernels' own device time, which the kernels
    line reports), ``gemm_only_ms`` (``u @ v.T`` in full f32: a yardstick
    the port never calls), the bounds (f32, and 3xTF32 at the TF32 peak)
-   and the bpr library's ptxas registers and spills;
-16. train phase: the synthetic data, its 0.9 temporal train view, 2 epochs
+   and the bpr library's ptxas registers and spills; also at (2048, 256),
+   the host-table path's shape;
+17. host-table phase: ``scripts/host_table_scale.py`` at ``ml25m``
+   (162,541 users, 62,423 items, dim 256, hidden 512, batch 2,048, 1M
+   positives from ``--seed``, ``LOSS_MODE=in_batch``, adagrad rows at lr
+   0.05, prefetch 2, dropout 0, 2 epochs), the tables (166 + 64 MB) on the
+   host: one launch of each BPR kernel a step (976), the losses finite and
+   falling, examples/s and the host-clock parts of a step (gather, wait,
+   step, d2h, apply_grad); the catalog streamed through the item head equal
+   to ``to_model()``'s within 1e-6 and an index built from it; then the
+   in-HBM ``EmbeddingTrainer`` on the same stream (``--mode hbm``);
+18. train phase: the synthetic data, its 0.9 temporal train view, 2 epochs
    of in-batch BPR (the loss finite, falling, below ln 2; one forward and
    one backward kernel launch per step, counted around exactly that run),
    then 1 epoch of the default softmax loss (no BPR launch); then
    ``torch.profiler`` over a 67-step in-batch epoch with the kernels and
    with the twins: device µs per step by kernel group, host ms per step;
-17. index phase: ``IndexBuilder`` on the in-batch model (exact f32 index),
+19. index phase: ``IndexBuilder`` on the in-batch model (exact f32 index),
    ``batch_search`` for 1,024 users with held-out positives: valid ids,
    and Recall@20 of the held-out 10 % positives (train items filtered)
    above a random ranking's;
-18. pipeline phase: the pipeline CLI's ``all``
+20. pipeline phase: the pipeline CLI's ``all``
    (``recommendit_tpu_torch.pipelines.run_pipeline``) on the train phase's
    data written as ML-1M ``.dat`` files (read back equal; the ``data``
    stage finds them): ``features``; ``embeddings`` (Settings defaults but
@@ -188,7 +213,7 @@ Phases (each failure raises, so the exit code is not 0):
    epoch and epochs run, the three rows (full, popularity,
    retrieval-only) of each report with the paired NDCG@10 full minus
    retrieval-only, and int8 minus bf16 of the retrieval-only row.
-19. GBDT pipeline phase: ``--stage ranker`` with ``RANKER_TYPE=gbdt`` at
+21. GBDT pipeline phase: ``--stage ranker`` with ``RANKER_TYPE=gbdt`` at
    the GBDT defaults (200 trees, depth 6, 64 bins, learning rate 0.1,
    subsample and colsample 0.8), then ``--stage evaluate``, on the
    pipeline phase's data and directories: the device backend; its own two
@@ -199,10 +224,15 @@ Phases (each failure raises, so the exit code is not 0):
    1e-5); ``save`` → ``load_ranker`` → ``predict`` equal; the first tree
    grown again from the same inputs on the CPU (any differing split a
    near-tie within its f32 bound) and twice on the card (whether repeat
-   runs agree is printed); the evaluate report checked as in 18, its full
+   runs agree is printed); the evaluate report checked as in 20, its full
    row printed beside the MLP's, popularity's and retrieval-only's; the
    stage's parts (inner towers, candidate builds, binning, boosting, the
-   grower's ms a tree, the host's validation a round).
+   grower's ms a tree, the host's validation a round);
+22. host-table pipeline phase: ``--stage embeddings`` and ``--stage index``
+   with ``HOST_TABLE=True`` on the pipeline phase's ``.dat`` files (1
+   epoch, in-batch BPR, the train cell's widths): one launch of each BPR
+   kernel a step, the model and index written, Recall@20 of the index
+   above a random ranking's.
 
 Usage, from the repository root: ``python3 chip_smoke.py [--seed N]``.
 After the build it prints ptxas's registers, spills and shared memory of
@@ -317,9 +347,21 @@ TRAIN_USERS, TRAIN_ITEMS = 6040, 3952
 TRAIN_DIM, TRAIN_HIDDEN, TRAIN_BATCH, TRAIN_DROPOUT = 64, 128, 1024, 0.2
 TRAIN_EPOCHS = 2
 TRAIN_SPLIT = 0.9
-BPR_SHAPES = ((1024, TRAIN_DIM), (1000, TRAIN_DIM))
+# the host-table phase's shape first: its kernels line reports it
+BPR_SHAPES = ((2048, 256), (1024, TRAIN_DIM), (1000, TRAIN_DIM))
 PROFILE_STEPS = 67                # steps of the profiled training epochs
 INDEX_USERS, RECALL_K = 1024, 20
+
+# host-table training: scripts/host_table_scale.py's ml25m configuration
+# (162,541 users, 62,423 items, dim 256, hidden 512, batch 2,048), 1M
+# positives from --seed, in-batch BPR, adagrad rows, prefetch 2, dropout 0
+HOST_SCALE_ARGS = ("--config", "ml25m", "--ratings", "1000000", "--epochs", "2",
+                   "--prefetch", "2", "--loss-mode", "in_batch")
+HOST_CATALOG_TOL = 1e-6           # streamed catalog vs to_model()'s
+HOST_PIPELINE_EPOCHS = 1
+
+# the verified index mode over the serve phase's 1M-item catalog (f32)
+VERIFIED_QS = (1, 256, 1024)
 
 
 def _demangle(symbol: str):
@@ -683,13 +725,15 @@ def kernel_phase(paths, device, seed: int, qs=KERNEL_QS, k=TOP_K_CANDIDATES,
 
 
 def load_pipeline(paths, data, device, dtype: str = "bfloat16",
-                  k: int = REQUEST_K, ranker: str = "ranker_path"):
-    """The port's pipeline over the fused index of ``dtype`` with the ranker
+                  k: int = REQUEST_K, ranker: str = "ranker_path",
+                  mode: str = "fused", index_path=None):
+    """The port's pipeline over the ``mode`` index of ``dtype`` (the fused
+    one of ``paths`` unless ``index_path`` names another) with the ranker
     at ``paths[ranker]``, loaded."""
     from recommendit_tpu_torch.config import Settings
     from recommendit_tpu_torch.serving.recommender import RecommendationPipeline
 
-    cfg = Settings(EMBEDDING_DIM=DIM, HIDDEN_DIM=HIDDEN, INDEX_MODE="fused",
+    cfg = Settings(EMBEDDING_DIM=DIM, HIDDEN_DIM=HIDDEN, INDEX_MODE=mode,
                    INDEX_DTYPE=dtype, TOP_K_CANDIDATES=TOP_K_CANDIDATES,
                    TOP_K_RESULTS=k, FILTER_SEEN=True,
                    RANKER_BLEND_RETRIEVAL=1.0, RANKER_QUERY_NORM=True,
@@ -697,7 +741,7 @@ def load_pipeline(paths, data, device, dtype: str = "bfloat16",
     pipe = RecommendationPipeline(cfg=cfg, device=device, model_path=paths["model_path"],
                                   ranker_path=paths[ranker],
                                   features_dir=paths["features_dir"],
-                                  index_path=paths[INDEX_PATHS[dtype]])
+                                  index_path=index_path or paths[INDEX_PATHS[dtype]])
     pipe.load(data)
     return pipe
 
@@ -2225,12 +2269,22 @@ def index_phase(model, data, view, device, seed: int, workdir: Path,
     users with held-out positives: Recall@k of those positives, the items
     each user rated in the train view filtered out, against a random
     ranking of the same unrated items."""
-    from recommendit_tpu_torch.data.movielens import timestamp_order
     from recommendit_tpu_torch.training import IndexBuilder
 
     cfg = _train_cfg(seed, "in_batch", model.embed_dim, model.hidden_dim, 0)
     index = IndexBuilder(view, cfg, index_output_path=str(workdir / "bpr.index.npz"),
                          device=device).build(model=model)
+    return recall_check(index, model, data, view, device, seed, n_users, k)
+
+
+def recall_check(index, model, data, view, device, seed: int,
+                 n_users: int = INDEX_USERS, k: int = RECALL_K):
+    """``batch_search`` of ``index`` over the whole catalog for users with
+    held-out positives: valid ids, every item once, and Recall@k of the
+    held-out positives (the train view's items filtered) above a seeded
+    random ranking's."""
+    from recommendit_tpu_torch.data.movielens import timestamp_order
+
     n_items = model.n_items
     seen = np.zeros((model.n_users + 1, n_items + 1), dtype=bool)
     seen[view.user_id, view.item_id] = True
@@ -2265,6 +2319,281 @@ def index_phase(model, data, view, device, seed: int, workdir: Path,
            f"recall@{k}": recall(ids), f"random_recall@{k}": recall(rnd)}
     if not rec[f"recall@{k}"] > rec[f"random_recall@{k}"]:
         raise AssertionError(f"retrieval does not beat a random ranking: {rec}")
+    return rec
+
+
+def host_table_phase(device, seed: int, workdir: Path, card: str,
+                     args=HOST_SCALE_ARGS):
+    """Host-table training at the ml25m configuration through
+    ``scripts/host_table_scale.py`` (``--mode host``, then ``--mode hbm``
+    on the same stream): the BPR kernels counted around exactly each run —
+    one forward and one backward launch a step on the card — the losses
+    finite and falling, examples/s and the host-clock parts of a step; then
+    the catalog streamed through the item head as the index stage streams
+    it, equal to ``to_model()``'s within ``HOST_CATALOG_TOL``, and an exact
+    index built from it (``IndexBuilder.build(embeddings=…)``)."""
+    from recommendit_tpu_torch.ops import bpr
+    from recommendit_tpu_torch.scripts import host_table_scale as hts
+    from recommendit_tpu_torch.training import IndexBuilder
+
+    base = [*args, "--seed", str(seed), "--device", str(device)]
+    on_card = torch.device(device).type == "cuda"
+    rec = {}
+    for mode in ("host", "hbm"):
+        for name in bpr.LAUNCHES:
+            bpr.LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        out, trainers = hts.run(hts.parse_args([*base, "--mode", mode]))
+        seconds = time.perf_counter() - t0
+        launches = dict(bpr.LAUNCHES)
+        hist = out[f"{mode}_history"]
+        steps = sum(h["steps"] for h in hist)
+        losses = [h["loss"] for h in hist]
+        rec[mode] = {"seconds": seconds, "steps": steps, "losses": losses,
+                     "examples_per_s": [h["examples_per_s"] for h in hist],
+                     "steady_examples_per_s": out[f"{mode}_ex_per_s"],
+                     "launches": launches}
+        if mode == "host":
+            rec.update({k: out[k] for k in ("config", "table_gib", "batch", "dim")})
+            rec["host"]["parts_ms_per_step"] = [
+                {k: 1e3 * v / h["steps"] for k, v in h["parts_s"].items()} for h in hist]
+            tr = trainers["host"]
+            rec["tables"] = {"users": tr.n_users, "items": tr.n_items,
+                             "positives": len(tr.pos_users),
+                             "host_mb": (tr.user_table.table.nbytes
+                                         + tr.item_table.table.nbytes) / 1e6}
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"{mode} losses {losses}: not finite or not falling")
+        per_step = steps if on_card else 0
+        if launches != {"bpr_fwd": per_step, "bpr_bwd": per_step}:
+            raise AssertionError(f"{mode}: expected {per_step} launches of each BPR "
+                                 f"kernel ({steps} steps), got {launches}")
+        if mode == "host":
+            t0 = time.perf_counter()
+            model = tr.to_model()
+            streamed = tr.embed_catalog()
+            rec["catalog_s"] = time.perf_counter() - t0
+            err = float(np.abs(streamed - model._item_embeddings).max())
+            index = IndexBuilder(tr.data, tr.cfg.replace(INDEX_MODE="exact",
+                                                         INDEX_DTYPE="float32"),
+                                 index_output_path=str(workdir / "host_ml25m.index.npz"),
+                                 device=device).build(embeddings=streamed)
+            rec["catalog_max_abs_err"] = err
+            rec["index_items"] = index.n_total
+            if not err <= HOST_CATALOG_TOL:
+                raise AssertionError(f"the streamed catalog differs from to_model()'s "
+                                     f"by {err} (> {HOST_CATALOG_TOL})")
+            if index.n_total != tr.n_items or index.has_bias:
+                raise AssertionError(f"the streamed index: {index.n_total} items, "
+                                     f"bias {index.has_bias}")
+            del model, streamed, index
+        del trainers
+        torch.cuda.empty_cache()
+    print(json.dumps({"host_table": rec, "card": card}), flush=True)
+    h, m = rec["host"], rec["hbm"]
+    print(f"host-table ml25m ({card}): host {h['steady_examples_per_s']} ex/s, "
+          f"hbm {m['steady_examples_per_s']} ex/s; host losses {h['losses']}; "
+          f"ms a step (last epoch): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in h["parts_ms_per_step"][-1].items())
+          + f"; BPR launches {h['launches']}", flush=True)
+    return rec
+
+
+def host_pipeline_phase(data, device, seed: int, workdir: Path, card: str,
+                        epochs: int = HOST_PIPELINE_EPOCHS, dim: int = TRAIN_DIM,
+                        hidden: int = TRAIN_HIDDEN, batch: int = TRAIN_BATCH):
+    """``--stage embeddings`` and ``--stage index`` with ``HOST_TABLE=True``
+    on the pipeline phase's ML-1M ``.dat`` files (Settings defaults but
+    ``LOSS_MODE=in_batch``, the train cell's widths, ``epochs``): one launch
+    of each BPR kernel a step, the model and the index written, and
+    Recall@20 of the index above a random ranking's."""
+    from recommendit_tpu_torch.config import Settings
+    from recommendit_tpu_torch.models import MIPSIndex, TwoTower
+    from recommendit_tpu_torch.ops import bpr
+    from recommendit_tpu_torch.pipelines.run_pipeline import PipelineOrchestrator
+
+    root = workdir / "pipeline"
+    cfg = Settings(LOSS_MODE="in_batch", TRAIN_EPOCHS=epochs, SEED=seed,
+                   EMBEDDING_DIM=dim, HIDDEN_DIM=hidden, BATCH_SIZE=batch,
+                   HOST_TABLE=True)
+    orch = PipelineOrchestrator(cfg=cfg, data_dir=str(root / "ml"),
+                                models_dir=str(root / "models_host"),
+                                features_dir=str(root / "features"), device=device)
+    for name in bpr.LAUNCHES:
+        bpr.LAUNCHES[name] = 0
+    hist = orch.run_stage("embeddings")
+    orch.run_stage("index")
+    launches = dict(bpr.LAUNCHES)
+    steps = sum(h["steps"] for h in hist)
+    per_step = steps if torch.device(device).type == "cuda" else 0
+    if launches != {"bpr_fwd": per_step, "bpr_bwd": per_step}:
+        raise AssertionError(f"host-table embeddings: expected {per_step} launches "
+                             f"of each BPR kernel, got {launches}")
+    losses = [h["loss"] for h in hist]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"host-table pipeline losses {losses}")
+    model = TwoTower.load(orch.cfg.EMBEDDING_MODEL_PATH, device=device)
+    index = MIPSIndex.load(orch.cfg.INDEX_PATH, device=device)
+    if index.n_total != model.n_items:
+        raise AssertionError(f"the index holds {index.n_total} items, the model "
+                             f"{model.n_items}")
+    rec = {"stage_s": dict(orch.stage_times), "steps": steps, "losses": losses,
+           "launches": launches, "parts_s": [h["parts_s"] for h in hist],
+           "examples_per_s": [h["examples_per_s"] for h in hist],
+           **recall_check(index, model, data, orch._train_view(), device, seed)}
+    print(json.dumps({"host_pipeline": rec, "card": card}), flush=True)
+    return rec
+
+
+def _certified_check(got, want, q, corpus, d_func: int):
+    """A certified top-k (``got``: values, positions) against exact mode's
+    (``want``) over ``q`` · ``corpus``ᵀ: after the canonical tie order the
+    values within C.22's bound 2(D−1)·2⁻²⁴·Σ|q_k·x_k| at every rank, and the
+    positions equal or, where they differ, both rows' f64 scores within
+    twice the bound of the rank's value. Returns the errors."""
+    from recommendit_tpu_torch.ops.topk import canonical_tie_order
+
+    gv, gi = canonical_tie_order(*got)
+    wv, wi = canonical_tie_order(*want)
+
+    def abs_dot(ids):
+        return (q.abs()[:, None, :] * corpus[ids].abs()).sum(-1).double()
+
+    tol = 2 * (d_func - 1) * 2.0 ** -24 * torch.maximum(abs_dot(wi), abs_dot(gi))
+    err = (gv.double() - wv.double()).abs()
+    diff = gi != wi
+    out = {"max_abs_err": float(err.max()), "max_err_over_bound": float((err / tol).max()),
+           "ids_differ": int(diff.sum())}
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"certified values outside C.22's bound: {out}")
+    if out["ids_differ"]:
+        for ids in (gi, wi):
+            true = (corpus[ids].double() * q.double()[:, None, :]).sum(-1)
+            if not bool(((true - wv.double()).abs()[diff] <= 2 * tol[diff]).all()):
+                raise AssertionError(f"certified ids differ beyond a near-tie: {out}")
+    return out
+
+
+class _BrokenEngine:
+    """Within the block, ``topk.<name>`` returns garbage and fails every
+    certificate, so ``mips_topk_certified`` must escalate."""
+
+    def __init__(self, name: str):
+        from recommendit_tpu_torch.ops import topk
+
+        self.mod, self.name = topk, name
+        self.real = getattr(topk, name)
+
+    def __enter__(self):
+        real = self.real
+
+        def broken(*args):
+            v, i, _ = real(*args)
+            return v * 0 - 1.0, i * 0, torch.zeros(v.shape[0], dtype=torch.bool,
+                                                   device=v.device)
+
+        setattr(self.mod, self.name, broken)
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.real)
+
+
+def verified_phase(paths, data, device, seed: int, card: str, qs=VERIFIED_QS,
+                   k: int = TOP_K_CANDIDATES, batch: int = BATCH, timer=cuda_ms):
+    """``INDEX_MODE=verified`` over the serve phase's 1M-item catalog: an f32
+    index of the augmented rows (129 columns, 136 on the card) built in
+    verified mode and, from the same rows, in exact mode. At each Q the
+    device searcher of each (``mips_topk_certified``, count method, and
+    the full-f32 exact top-k) on the user tower's queries: values within
+    C.22's bound, ids tie-aware, the escalations counted (none expected);
+    one forced escalation (a broken engine) equal to exact; the bound
+    method certified at the same shapes; ms per call of verified, bound,
+    exact and the fused bf16 route. Then a 1,024-user ``serve_batch`` of a
+    verified pipeline against an exact one: every list equal, scores within
+    ``HTTP_TOL``."""
+    from recommendit_tpu_torch.models import MIPSIndex, TwoTower
+    from recommendit_tpu_torch.ops import topk
+
+    catalog = np.load(paths["catalog_path"])
+    item_ids = np.arange(1, len(catalog) + 1)
+    dim = catalog.shape[1] - 1                 # the last column is the bias
+    idx, index_paths = {}, {}
+    t0 = time.perf_counter()
+    for mode in ("verified", "exact"):
+        index = MIPSIndex(dim, INDEX_BLOCK, mode, "float32", device=device)
+        index.build(catalog[:, :dim], item_ids, bias=catalog[:, dim])
+        index_paths[mode] = str(Path(paths["index_path"]).with_name(
+            f"mips_{mode}_f32.index.npz"))
+        index.save(index_paths[mode])
+        idx[mode] = index
+    build_s = time.perf_counter() - t0
+    del catalog
+    fused = MIPSIndex.load(paths["index_path"], device=device)
+    model = TwoTower.load(paths["model_path"], device=device)
+    corpus, d_func = idx["verified"]._embs, idx["verified"]._width
+    search = {name: ix.make_device_searcher(k) for name, ix in
+              (("verified", idx["verified"]), ("exact", idx["exact"]), ("fused", fused))}
+    rng = np.random.default_rng(seed + 11)
+    checks = []
+    for n_q in qs:
+        uids = torch.as_tensor(rng.integers(1, model.n_users + 1, n_q), device=device)
+        u = model.user_tower(uids)
+        q = idx["verified"]._augment(u)
+        before = dict(topk.ESCALATIONS)
+        got = search["verified"](u)
+        want = search["exact"](u)
+        bound = topk.mips_topk_certified(q, corpus, k, INDEX_BLOCK, method="bound")
+        rec = {"q": n_q, "n": idx["verified"].n_total, "d": int(corpus.shape[1]),
+               "d_func": d_func, "k": k,
+               "escalations": {m: topk.ESCALATIONS[m] - before[m] for m in before},
+               "count": _certified_check(got, want, q, corpus, d_func),
+               "bound": _certified_check(bound, want, q, corpus, d_func)}
+        with _BrokenEngine("_verified_topk"):
+            forced = search["verified"](u)
+        rec["forced_escalations"] = topk.ESCALATIONS["count"] - before["count"] \
+            - rec["escalations"]["count"]
+        rec["forced"] = _certified_check(forced, want, q, corpus, d_func)
+        reps = 10 if n_q <= 256 else 5
+        before = dict(topk.ESCALATIONS)
+        for name in ("verified", "exact", "fused"):
+            rec[f"{name}_ms"] = timer(lambda: search[name](u), reps)
+        rec["bound_ms"] = timer(lambda: topk.mips_topk_certified(
+            q, corpus, k, INDEX_BLOCK, method="bound"), reps)
+        rec["timed_escalations"] = {m: topk.ESCALATIONS[m] - before[m] for m in before}
+        print(json.dumps({"verified_check": rec}), flush=True)
+        if rec["forced_escalations"] != 1:
+            raise AssertionError(f"the broken engine did not escalate once: {rec}")
+        checks.append(rec)
+        del got, want, bound, forced, q, u
+    torch.cuda.empty_cache()
+
+    users = np.random.default_rng(7).choice(np.arange(1, model.n_users + 1),
+                                            size=min(batch, model.n_users), replace=False)
+    lists = {}
+    before = dict(topk.ESCALATIONS)
+    for mode in ("verified", "exact"):
+        pipe = load_pipeline(paths, data, device, "float32", mode=mode,
+                             index_path=index_paths[mode])
+        ids, scores, _ = pipe.serve_batch(users)
+        lists[mode] = (ids.cpu().numpy(), scores.cpu().numpy())
+        del pipe
+        torch.cuda.empty_cache()
+    for r in range(len(users)):
+        check_list(lists["verified"][0][r], lists["verified"][1][r],
+                   lists["exact"][0][r], lists["exact"][1][r])
+    serve = {"users": len(users), "lists_equal": True,
+             "ids_equal_share": float((lists["verified"][0] == lists["exact"][0]).mean()),
+             "max_score_abs_err": float(np.nanmax(np.abs(
+                 np.where(np.isfinite(lists["exact"][1]),
+                          lists["verified"][1] - lists["exact"][1], 0.0)))),
+             "escalations": {m: topk.ESCALATIONS[m] - before[m] for m in before}}
+    rec = {"build_s": build_s, "checks": checks, "serve": serve}
+    print(json.dumps({"verified": {"build_s": build_s, "serve": serve}, "card": card}),
+          flush=True)
+    print(f"verified index ({card}): " + "; ".join(
+        f"Q={c['q']} verified {c['verified_ms']:.3f} ms, bound {c['bound_ms']:.3f}, "
+        f"exact {c['exact_ms']:.3f}, fused {c['fused_ms']:.3f}, escalations "
+        f"{c['escalations']}" for c in checks), flush=True)
     return rec
 
 
@@ -3067,6 +3396,9 @@ def main(argv=None) -> int:
     probes, probe_launches = probe_phase(device)
     print(json.dumps({"probe_launches": probe_launches, "card": card}),
           flush=True)
+    t0 = time.perf_counter()
+    verified = verified_phase(paths, data, device, args.seed, card)
+    print(json.dumps({"verified_s": time.perf_counter() - t0}), flush=True)
     del paths, data
     torch.cuda.empty_cache()
 
@@ -3075,6 +3407,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     bpr_checks = bpr_kernel_phase(device, args.seed)
+    t0 = time.perf_counter()
+    host = host_table_phase(device, args.seed, workdir, card)
+    print(json.dumps({"host_table_s": time.perf_counter() - t0}), flush=True)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     data, view = make_train_data(args.seed)
     print(json.dumps({"train_data": {
@@ -3098,11 +3434,15 @@ def main(argv=None) -> int:
     gbdt_pipe = gbdt_pipeline_phase(data, device, args.seed, workdir, card, pipeline)
     print(json.dumps({"gbdt_pipeline_s": time.perf_counter() - t0,
                       "gbdt_bpr_launches": gbdt_pipe["bpr_launches"]}), flush=True)
+    t0 = time.perf_counter()
+    host_pipe = host_pipeline_phase(data, device, args.seed, workdir, card)
+    print(json.dumps({"host_pipeline_s": time.perf_counter() - t0,
+                      "host_pipeline_bpr_launches": host_pipe["launches"]}), flush=True)
 
     print(json.dumps({"total_s": time.perf_counter() - t_start}), flush=True)
     main_q = checks[-1]
     main_i8 = checks_i8[-1]
-    main_b = bpr_checks[0]
+    main_b, train_b = bpr_checks[0], bpr_checks[1]   # (2048, 256), (1024, 64)
     main_qm = checks_qm[-1]
     b, d = main_b["b"], main_b["d"]
     kernels = [{
@@ -3147,20 +3487,32 @@ def main(argv=None) -> int:
         "bound": bound(fold["q"] * fold["d"] * (4 + 3 * 2)), "library_ms": None,
     }, {
         "name": "bpr_fwd", "source": BPR_SOURCE, "replaces": BPR_REPLACES["bpr_fwd"],
-        "launches": train["launches"]["bpr_fwd"],
+        # the host-table path at (2048, 256); the earlier paths beside it
+        "launches": host["host"]["launches"]["bpr_fwd"],
+        "hbm_launches": host["hbm"]["launches"]["bpr_fwd"],
+        "host_pipeline_launches": host_pipe["launches"]["bpr_fwd"],
+        "train_launches": train["launches"]["bpr_fwd"],
         "pipeline_launches": pipeline["bpr_launches"]["bpr_fwd"],
         "gbdt_pipeline_launches": gbdt_pipe["bpr_launches"]["bpr_fwd"],
         "max_abs_err": max(abs(c["loss"] - c["twin_loss"]) for c in bpr_checks),
         "ms": main_b["fwd_device_ms"], "plain_ms": main_b["twin_fwd_device_ms"],
+        "ms_1024x64": train_b["fwd_device_ms"],
+        "plain_ms_1024x64": train_b["twin_fwd_device_ms"],
         # the (B, B) score matrix; the softplus per pair is not counted
         "bound": bpr_bounds(b, d)["fwd"], "library_ms": None,
     }, {
         "name": "bpr_bwd", "source": BPR_SOURCE, "replaces": BPR_REPLACES["bpr_bwd"],
-        "launches": train["launches"]["bpr_bwd"],
+        # the host-table path at (2048, 256); the earlier paths beside it
+        "launches": host["host"]["launches"]["bpr_bwd"],
+        "hbm_launches": host["hbm"]["launches"]["bpr_bwd"],
+        "host_pipeline_launches": host_pipe["launches"]["bpr_bwd"],
+        "train_launches": train["launches"]["bpr_bwd"],
         "pipeline_launches": pipeline["bpr_launches"]["bpr_bwd"],
         "gbdt_pipeline_launches": gbdt_pipe["bpr_launches"]["bpr_bwd"],
         "max_abs_err": max(c["grad_max_abs_err"] for c in bpr_checks),
         "ms": main_b["bwd_device_ms"], "plain_ms": main_b["twin_bwd_device_ms"],
+        "ms_1024x64": train_b["bwd_device_ms"],
+        "plain_ms_1024x64": train_b["twin_bwd_device_ms"],
         # the scores, then du = G V and dv = G^T U
         "bound": bpr_bounds(b, d)["bwd"], "library_ms": None,
     }, {

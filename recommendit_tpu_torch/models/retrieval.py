@@ -1,8 +1,9 @@
 """MIPS retrieval index — torch port.
 
 Counterpart of ``recommendit_tpu/models/retrieval.py`` for the modes
-``exact``, ``approx`` and ``fused`` over f32, bf16 and int8 corpora, with the
-same npz + ``.meta.json`` file format.
+``exact``, ``verified``, ``approx`` and ``fused`` over f32, bf16 and int8
+corpora (``verified`` not over int8, as in JAX), with the same npz +
+``.meta.json`` file format.
 
 Device layout: rows are L2-normalised, the optional per-item bias becomes
 one more column (the score ``q·e + b`` is one dot against ``[q, 1]``), and
@@ -27,11 +28,14 @@ import torch
 
 from recommendit_tpu_torch.ops.mips_window import mips_topk_fused_auto
 from recommendit_tpu_torch.ops.quantize import quantize_int8
-from recommendit_tpu_torch.ops.topk import INT8_ROW_ALIGN, mips_topk, mips_topk_int8
+from recommendit_tpu_torch.ops.topk import (
+    INT8_ROW_ALIGN,
+    mips_topk,
+    mips_topk_certified,
+    mips_topk_int8,
+)
 from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
-_ROADMAP_VERIFIED = ("mode='verified' waits for the certified top-k engines "
-                     "(ROADMAP.md, queue A, ops/topk.py remaining engines)")
 COL_ALIGN = {"float32": 8, "bfloat16": 8, "int8": INT8_ROW_ALIGN}
 _DEV_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -63,8 +67,6 @@ class MIPSIndex:
                 "mode='verified' is not available for the int8 corpus "
                 "path (the exactness certificate is defined on f32 "
                 "scores; use exact, approx or fused)")
-        if mode == "verified":
-            raise NotImplementedError(_ROADMAP_VERIFIED)
         self.embedding_dim = embedding_dim
         self.block_size = block_size
         self.mode = mode
@@ -164,9 +166,11 @@ class MIPSIndex:
 
     def make_device_searcher(self, k: int):
         """(Q, D) queries on the device → (scores (Q, k), positions (Q, k)).
-        Exact mode scores f32 corpora in full f32; approx and fused modes at
-        the corpus dtype (``precision="default"``); an int8 corpus scores
-        int8 queries (round to nearest) against its int8 rows."""
+        Exact mode scores f32 corpora in full f32; verified mode is the
+        certified-exact ``mips_topk_certified`` (full f32, values equal to
+        exact mode's); approx and fused modes at the corpus dtype
+        (``precision="default"``); an int8 corpus scores int8 queries
+        (round to nearest) against its int8 rows."""
         embs, scales, block = self._embs, self._scales, self.block_size
         mode, n_valid, aug = self.mode, self.n_total, self._augment
         if mode == "fused":
@@ -175,6 +179,8 @@ class MIPSIndex:
                                                   scales=scales)
         if scales is not None:
             return lambda q: mips_topk_int8(aug(q), embs, scales, k, mode)
+        if mode == "verified":
+            return lambda q: mips_topk_certified(aug(q), embs, k, block)
         return lambda q: mips_topk(aug(q), embs, k, mode, n_valid=n_valid)
 
     def search_device_positions(self, queries: torch.Tensor, k: int):

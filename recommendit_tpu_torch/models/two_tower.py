@@ -14,7 +14,8 @@ Two surfaces:
   JAX-named tensors, differentiable, with dropout from an explicit
   ``torch.Generator`` and an optional reduced-precision compute dtype, as
   the JAX trainer uses them. :func:`from_jax_params` carries the JAX
-  package's params (numpy arrays) into a :class:`TwoTower`.
+  package's params (numpy arrays) into a :class:`TwoTower`, and
+  :func:`dense_from_jax_params` a host-table run's dense params.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ PARAM_NAMES = (
     "user_embed", "item_embed", "user_w1", "user_b1", "user_w2", "user_b2",
     "item_w1", "item_b1", "item_w2", "item_b2", "item_bias",
 )
+TABLE_NAMES = ("user_embed", "item_embed")
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -270,3 +272,15 @@ def from_jax_params(params: Mapping[str, np.ndarray], dropout: float = 0.2,
     return TwoTower.from_numpy({k: np.asarray(v) for k, v in params.items()},
                                n_users, n_items, embed_dim, hidden_dim,
                                dropout, device)
+
+
+def dense_from_jax_params(params: Mapping[str, np.ndarray],
+                          device=DEFAULT_DEVICE) -> Params:
+    """A host-table run's dense params from the JAX package's (numpy arrays,
+    JAX names; ``host_train._init_dense``: the MLP heads, and ``item_bias``
+    in softmax mode) as f32 tensors; the two tables, where present, are
+    dropped (they live on the host). ``HostTableEmbeddingTrainer.train``
+    takes the result as ``init_dense``."""
+    device = resolve_device(device)
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device)
+            for k, v in params.items() if k not in TABLE_NAMES}

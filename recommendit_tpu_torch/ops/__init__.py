@@ -22,5 +22,10 @@ from recommendit_tpu_torch.ops.quantize import (  # noqa: F401
 from recommendit_tpu_torch.ops.topk import (  # noqa: F401
     fast_topk,
     mips_topk,
+    mips_topk_bound_verified,
+    mips_topk_certified,
+    mips_topk_dense,
     mips_topk_int8,
+    mips_topk_numpy,
+    mips_topk_verified,
 )

@@ -190,14 +190,23 @@ class PipelineOrchestrator:
     def run_embeddings(self, resume: bool = True):
         """Train the towers on the train view, saving the train state at
         every best epoch and, with ``resume``, resuming from
-        ``two_tower_ckpt/best`` when it exists. Host-table training (``HOST_TABLE``) is not ported and
-        raises."""
+        ``two_tower_ckpt/best`` when it exists. With ``HOST_TABLE`` the
+        host-table trainer runs instead (tables in host RAM or a memmap, no
+        checkpoints); where its tables exceed the in-HBM budget it writes no
+        model, and ``run_index`` streams the catalog through it."""
         from recommendit_tpu_torch.training.train_embeddings import EmbeddingTrainer
 
         if self.cfg.HOST_TABLE:
-            raise NotImplementedError(
-                "HOST_TABLE training is not ported yet (ROADMAP.md, queue A, "
-                "training/host_train.py)")
+            from recommendit_tpu_torch.training.host_train import (
+                HostTableEmbeddingTrainer,
+            )
+
+            trainer = HostTableEmbeddingTrainer(
+                self._train_view(), self.cfg,
+                model_output_path=self.cfg.EMBEDDING_MODEL_PATH, device=self.device)
+            if trainer.train() is None:
+                self._host_trainer = trainer
+            return trainer.history
         ckpt_dir = self.models_dir / "two_tower_ckpt"
         trainer = EmbeddingTrainer(self._train_view(), self.cfg,
                                    model_output_path=self.cfg.EMBEDDING_MODEL_PATH,
@@ -211,12 +220,22 @@ class PipelineOrchestrator:
         return trainer.history
 
     def run_index(self):
+        """Build the index from the saved model or, after a host-table run
+        with no in-HBM model, from its catalog streamed through the item
+        head (with its raw item bias in softmax mode)."""
         from recommendit_tpu_torch.training.build_index import IndexBuilder
 
-        IndexBuilder(self._train_view(), self.cfg,
-                     model_path=self.cfg.EMBEDDING_MODEL_PATH,
-                     index_output_path=self.cfg.INDEX_PATH,
-                     device=self.device).build()
+        builder = IndexBuilder(self._train_view(), self.cfg,
+                               model_path=self.cfg.EMBEDDING_MODEL_PATH,
+                               index_output_path=self.cfg.INDEX_PATH,
+                               device=self.device)
+        ht = getattr(self, "_host_trainer", None)
+        if ht is None:
+            builder.build()
+            return
+        bias = ht._dense.get("item_bias")
+        builder.build(embeddings=ht.embed_catalog(),
+                      bias=None if bias is None else bias[1:].cpu().numpy())
 
     def run_ranker(self) -> Dict:
         from recommendit_tpu_torch.training.train_ranker import RankerTrainer

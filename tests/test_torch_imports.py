@@ -51,6 +51,9 @@ MODULES = [
     "recommendit_tpu_torch.training.train_embeddings",
     "recommendit_tpu_torch.training.build_index",
     "recommendit_tpu_torch.training.train_ranker",
+    "recommendit_tpu_torch.training.host_table",
+    "recommendit_tpu_torch.training.host_train",
+    "recommendit_tpu_torch.scripts.host_table_scale",
     "recommendit_tpu_torch.utils.checkpoint",
     "recommendit_tpu_torch.features.snapshot",
     "recommendit_tpu_torch.features.engineering",

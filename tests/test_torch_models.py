@@ -231,8 +231,18 @@ def test_search_single_query(tmp_path):
 @pytest.mark.parametrize("kwargs", [dict(dtype="bfloat16", mode="verified"),
                                     dict(mode="verified")])
 def test_unported_index_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MIPSIndex(16, **kwargs, device="cpu")
+    """The verified mode is ported: it builds and returns exact mode's
+    values (its engines against JAX's: ``tests/test_torch_topk_verified.py``);
+    over int8 it raises ``ValueError``, as in JAX."""
+    embs, ids, bias, queries = _catalog()
+    out = []
+    for mode in (kwargs["mode"], "exact"):
+        index = MIPSIndex(16, **{**kwargs, "mode": mode}, device="cpu")
+        index.build(embs, ids, bias=bias)
+        out.append(index.batch_search(queries, 20)[0])
+    np.testing.assert_allclose(out[0], out[1], rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="int8"):
+        MIPSIndex(16, mode="verified", dtype="int8", device="cpu")
 
 
 def test_index_rejects_bad_shapes():

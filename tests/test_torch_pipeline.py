@@ -460,11 +460,15 @@ def test_data_stage_finds_files_placed_by_hand(tmp_path):
 
 
 def test_embeddings_stage_refuses_what_is_not_ported(tmp_path):
+    """``HOST_TABLE`` is ported (it trains: ``tests/test_torch_host_train.py``
+    holds it to JAX); a JAX Orbax checkpoint directory is still refused."""
     small = dict(SYNTH_USERS=40, SYNTH_ITEMS=30, SYNTH_RATINGS=600)
-    orch = PipelineOrchestrator(cfg=Settings(HOST_TABLE=True), models_dir=str(tmp_path),
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match="HOST_TABLE"):
-        orch.run_embeddings()
+    orch = PipelineOrchestrator(cfg=Settings(**small, HOST_TABLE=True, TRAIN_EPOCHS=1,
+                                             HOST_TABLE_PREFETCH=0),
+                                data_dir=str(tmp_path / "ht"), models_dir=str(tmp_path / "ht"),
+                                synthetic=True, device="cpu")
+    orch.run_stage("data")
+    assert len(orch.run_embeddings()) == 1
     # an Orbax checkpoint directory (the JAX package's) is not read
     (tmp_path / "two_tower_ckpt" / "best").mkdir(parents=True)
     orch = PipelineOrchestrator(cfg=Settings(**small), data_dir=str(tmp_path / "ml"),

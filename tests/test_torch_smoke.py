@@ -578,3 +578,63 @@ def test_split_gap_flags_a_split_no_rounding_explains():
     assert depth == 1 and [g["node"] for g in gaps] == [pos]
     assert not gaps[0]["within"] and gaps[0]["gap"] > 10 * gaps[0]["bound"] > 0
     assert gaps[0]["exact_cpu"] > gaps[0]["exact_card"]
+
+
+def test_verified_phase_checks_pass(small_artifacts, monkeypatch):
+    """The verified phase on the CPU: both certified methods equal exact
+    within C.22's bound, no escalation but the forced one, and the verified
+    pipeline's lists equal to the exact one's."""
+    from recommendit_tpu_torch.ops import topk
+
+    paths, data = small_artifacts
+    # blocked passes at this size too (the card's Q=1,024 takes them)
+    monkeypatch.setattr(topk, "_DENSE_LIMIT", 4 * 5000)
+    rec = chip_smoke.verified_phase(paths, data, "cpu", 0, "cpu", qs=(1, 8),
+                                    k=50, batch=64, timer=_host_ms)
+    assert [c["q"] for c in rec["checks"]] == [1, 8]
+    for c in rec["checks"]:
+        assert c["escalations"] == {"count": 0, "bound": 0}
+        assert c["forced_escalations"] == 1 and c["d_func"] == 17
+        assert c["count"]["max_err_over_bound"] <= 1.0
+        assert all(c[f"{m}_ms"] > 0 for m in ("verified", "exact", "fused", "bound"))
+    assert rec["serve"]["lists_equal"] and rec["serve"]["users"] == 64
+    assert rec["serve"]["escalations"] == {"count": 0, "bound": 0}
+
+
+def test_certified_check_catches_a_wrong_value():
+    q = torch.randn(2, 8, generator=torch.Generator().manual_seed(0))
+    corpus = torch.randn(50, 8, generator=torch.Generator().manual_seed(1))
+    v, i = torch.topk(q @ corpus.T, 5)
+    rec = chip_smoke._certified_check((v, i), (v, i), q, corpus, 8)
+    assert rec["ids_differ"] == 0 and rec["max_abs_err"] == 0.0
+    with pytest.raises(AssertionError, match="bound"):
+        chip_smoke._certified_check((v + 1e-3, i), (v, i), q, corpus, 8)
+
+
+def test_host_table_phase_checks_pass(tmp_path):
+    """The host-table phase through the scale script at a tiny size: no BPR
+    launch on the CPU, the streamed catalog equal to the model's."""
+    args = ("--config", "ml1m", "--ratings", "3000", "--epochs", "2", "--batch", "64",
+            "--dim", "8", "--prefetch", "2", "--loss-mode", "in_batch")
+    rec = chip_smoke.host_table_phase("cpu", 0, tmp_path, "cpu", args=args)
+    for mode in ("host", "hbm"):
+        assert rec[mode]["steps"] == 2 * (3000 // 64)
+        assert rec[mode]["launches"] == {"bpr_fwd": 0, "bpr_bwd": 0}
+    assert rec["catalog_max_abs_err"] <= chip_smoke.HOST_CATALOG_TOL
+    assert rec["index_items"] == 3952 and (rec["batch"], rec["dim"]) == (64, 8)
+    assert set(rec["host"]["parts_ms_per_step"][0]) == {
+        "gather", "wait", "step", "d2h", "apply_grad"}
+
+
+def test_host_pipeline_phase_checks_pass(trained):
+    """``embeddings`` and ``index`` with ``HOST_TABLE=True`` on the train
+    data's ``.dat`` files: Recall@20 above random."""
+    from recommendit_tpu_torch.data.movielens import save_movielens
+
+    data, _, _, _, tmp = trained
+    save_movielens(data, str(tmp / "pipeline" / "ml"))
+    rec = chip_smoke.host_pipeline_phase(data, "cpu", 0, tmp, "cpu", epochs=4,
+                                         dim=16, hidden=32, batch=256)
+    assert rec["launches"] == {"bpr_fwd": 0, "bpr_bwd": 0} and rec["steps"] > 0
+    assert rec["recall@20"] > rec["random_recall@20"]
+    assert set(rec["stage_s"]) == {"embeddings", "index"}

@@ -203,9 +203,15 @@ def test_trained_model_saves_in_the_jax_format(data, tmp_path):
 
 
 def test_unported_options_raise(data, tmp_path):
+    """Building from streamed embeddings is ported (a host-table run's
+    index; ``tests/test_torch_host_train.py`` holds it to JAX's files): the
+    rows 1-based, the raw bias scaled by the temperature."""
     td = data[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IndexBuilder(td, _cfg(), device="cpu").build(embeddings=np.zeros((3, DIM), np.float32))
+    embs = np.random.default_rng(0).normal(size=(3, DIM)).astype(np.float32)
+    index = IndexBuilder(td, _cfg(), index_output_path=str(tmp_path / "e.npz"),
+                         device="cpu").build(embeddings=embs, bias=np.ones(3, np.float32))
+    assert index.n_total == 3 and index.item_ids.tolist() == [1, 2, 3]
+    np.testing.assert_allclose(index._bias_np, _cfg().SOFTMAX_TEMPERATURE)
 
 
 def test_checkpoint_resume_matches_jax(data, tmp_path):
