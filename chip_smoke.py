@@ -45,6 +45,13 @@ load_features, skew, evaluate; then ``ranker`` with ``RANKER_TYPE=gbdt``
 (its own two inner towers, the GBDT trained on the card) and ``evaluate``
 again; then ``embeddings`` and ``index`` with ``HOST_TABLE=True``.
 
+Last, the Criteo-style CTR family at ``make ctr``'s configuration
+(``scripts/ctr_train.py``: 500,000 synthetic impressions from ``--seed``
+over 20,000 users x 5,000 items, 5 epochs, batch 4,096, embed 16,
+retrieval 32, top (256, 128), the sparse table mode; a 26,660-row stacked
+table), joint and plain, and the table-scale shape of RESULTS.md's CTR rows
+(1,101,660 rows x 32 at batch 8,192, one epoch).
+
 Phases (each failure raises, so the exit code is not 0):
 
 1. build the CUDA kernels from ``recommendit_tpu_torch/csrc`` (one nvcc per
@@ -233,6 +240,18 @@ Phases (each failure raises, so the exit code is not 0):
    epoch, in-batch BPR, the train cell's widths): one launch of each BPR
    kernel a step, the model and index written, Recall@20 of the index
    above a random ranking's.
+23. CTR phase: (a) ``make ctr`` through the port's ``ctr_train`` code,
+   joint and plain: the losses finite and falling, AUC above 0.55 and
+   logloss below the constant predictor's + 0.05 (``tests/test_ctr.py``'s
+   limits), joint recall@10 and @50 above a seeded random ranking's;
+   examples/s per epoch and ms a step; (b) the first 3 sparse joint steps
+   on the card and on the CPU from the same params and batches
+   (``ctr_card_vs_cpu``: each param's, the table's and the accumulator's
+   L2 distance within 5 % of its move, the losses within 1e-6); (c) ``torch.profiler``
+   over 20 sparse joint steps: launches and device µs a step by part of
+   the step, the top kernels, the device's idle share; (d) one epoch in
+   each table mode (sparse, dense) at 1,101,660 x 32, batch 8,192: ms a
+   step, examples/s, peak device memory, dense over sparse.
 
 Usage, from the repository root: ``python3 chip_smoke.py [--seed N]``.
 After the build it prints ptxas's registers, spills and shared memory of
@@ -362,6 +381,24 @@ HOST_PIPELINE_EPOCHS = 1
 
 # the verified index mode over the serve phase's 1M-item catalog (f32)
 VERIFIED_QS = (1, 256, 1024)
+
+# the CTR family: `make ctr` (scripts/ctr_train.py: 500,000 impressions over
+# 20,000 users x 5,000 items, 5 epochs, batch 4,096; Settings' CTR defaults:
+# embed 16, retrieval 32, top (256, 128), joint, sparse table mode)
+CTR_TRAIN_ARGS = ("--examples", "500000", "--users", "20000", "--items", "5000",
+                  "--epochs", "5", "--batch-size", "4096")
+CTR_MIN_AUC, CTR_LOGLOSS_SLACK = 0.55, 0.05   # tests/test_ctr.py's limits
+CTR_RECALL_KS = (10, 50)
+CTR_CHECK_STEPS = 3               # sparse joint steps, the card against the CPU
+# the card against the CPU after those steps (see ctr_card_vs_cpu): each
+# tensor's distance from the CPU's within CTR_REL_L2 of its move, the
+# losses within CTR_LOSS_RTOL; entries beyond CTR_TIGHT_TOL are counted
+CTR_REL_L2, CTR_LOSS_RTOL, CTR_TIGHT_TOL = 0.05, 1e-6, 1e-5
+CTR_PROFILE_STEPS = 20
+# the table-scale shape of RESULTS.md's CTR rows: a 1,101,660-row stacked
+# table x 32 at batch 8,192, 26 fields, one epoch a table mode
+CTR_SCALE_DATA = dict(n_examples=1_000_000, n_users=1_000_000, n_items=100_000)
+CTR_SCALE_DIM, CTR_SCALE_BATCH = 32, 8192
 
 
 def _demangle(symbol: str):
@@ -608,10 +645,12 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
 
 def device_events(prof):
     """(name, device µs, launches) of each device kernel a
-    ``torch.profiler`` run recorded."""
+    ``torch.profiler`` run recorded (``record_function`` ranges, which the
+    profiler also lists on the device, left out)."""
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", 0.0)
-        if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+        if (dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
             yield evt.key, dev_us, evt.count
 
 
@@ -2445,6 +2484,254 @@ def host_pipeline_phase(data, device, seed: int, workdir: Path, card: str,
     return rec
 
 
+def _ctr_profile_groups(prof):
+    """Device µs of a profiled CTR run by part of the step: the kernels
+    launched in each outermost ``ctr::`` range of the port's step (gather,
+    towers, mlp, interaction, softmax, loss, adamw, sparse_update) and by
+    the autograd engine's functions (backward); the ranges' own spans on
+    the device (user annotations, which include the gaps between their
+    kernels) are left out."""
+    def kernel_us(evt):        # the kernels it and its children launched
+        return (sum(k.duration for k in evt.kernels if not k.name.startswith("ctr::"))
+                + sum(kernel_us(child) for child in evt.cpu_children))
+
+    groups = {}
+    for evt in prof.events():
+        name = evt.name
+        if name.startswith("ctr::"):
+            parent = evt.cpu_parent
+            while parent is not None and not parent.name.startswith("ctr::"):
+                parent = parent.cpu_parent
+            if parent is not None:
+                continue
+            group = name[len("ctr::"):]
+        elif name.startswith("autograd::engine::evaluate_function") and evt.cpu_parent is None:
+            group = "backward"
+        else:
+            continue
+        groups[group] = groups.get(group, 0.0) + kernel_us(evt)
+    return groups
+
+
+def _ctr_steps(data, cfg, device, init, seed: int, steps: int, profile: bool = False):
+    """``steps`` joint steps of the port's trainer (``cfg``'s table mode)
+    from ``init`` over the epoch batches of ``np.random.default_rng(seed)``:
+    the final state, the losses and, with ``profile``, the profiler and the
+    host seconds."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    from recommendit_tpu_torch.training.train_ctr import CTRTrainer
+
+    tr = CTRTrainer(data, cfg=cfg, joint=True, device=device)
+    state = tr.start(init)
+    batches = tr.epoch_batches(np.random.default_rng(seed), tr.batch_size())
+    decay = cfg.CTR_EPOCHS * batches[0].shape[0]
+    on_card = torch.device(device).type == "cuda"
+    prof, seconds = None, None
+    if profile:
+        for s in range(2):                 # warm-up steps outside the window
+            tr.step(state, [b[s] for b in batches], decay)
+        if on_card:
+            torch.cuda.synchronize()
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+        with profiler(activities=acts) as prof:
+            t0 = time.perf_counter()
+            losses = [tr.step(state, [b[2 + s] for b in batches], decay)
+                      for s in range(steps)]
+            if on_card:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    else:
+        losses = [tr.step(state, [b[s] for b in batches], decay) for s in range(steps)]
+    return state, torch.stack(losses).cpu().numpy(), prof, seconds
+
+
+def ctr_card_vs_cpu(data, cfg, device, seed: int, steps: int):
+    """``steps`` joint steps of the port's trainer on ``device`` and on the
+    CPU from the same params (``init_ctr_params`` from ``seed``) and
+    batches, then each param, the table and the accumulator compared.
+
+    The step is not smooth and not well conditioned entry by entry: a
+    pre-activation within rounding of 0 takes the other side of a ReLU on
+    the other device, which moves that example's gradient by a step, and
+    AdamW and adagrad divide by the gradient's own size, so an entry whose
+    gradient is small or cancelling turns a small difference into a visible
+    share of its move (ROADMAP C.53). A tolerance on every entry either
+    fails or says nothing. So the bound is on each tensor as a whole: the
+    L2 distance between the card's and the CPU's values within
+    ``CTR_REL_L2`` of the L2 length of the CPU's move from ``init`` (of the
+    accumulator's values, for the accumulator), and the losses within
+    ``CTR_LOSS_RTOL``; a fault of a kernel or of the update's semantics
+    moves a whole tensor by about its move. Entries beyond
+    ``CTR_TIGHT_TOL`` are counted. Raises otherwise."""
+    from recommendit_tpu_torch.models.ctr import init_ctr_params
+
+    init = init_ctr_params(torch.Generator().manual_seed(seed), data.vocab_sizes,
+                           cfg.CTR_EMBED_DIM, top_hidden=cfg.CTR_TOP_HIDDEN,
+                           retrieval_dim=cfg.CTR_RETRIEVAL_DIM, device="cpu")
+    (card, card_losses, _, _), (cpu, cpu_losses, _, _) = (
+        _ctr_steps(data, cfg, dev, init, seed, steps) for dev in (device, "cpu"))
+    pairs = {k: (card.params[k].detach().cpu(), v.detach(), init[k])
+             for k, v in cpu.params.items()}
+    if cpu.accum is not None:
+        pairs["accum"] = (card.accum.cpu(), cpu.accum, torch.zeros_like(cpu.accum))
+    rec = {"steps": steps, "mode": cfg.CTR_TABLE_UPDATE, "losses": card_losses.tolist(),
+           "cpu_losses": cpu_losses.tolist(), "tensors": {}}
+    bad = []
+    for name, (got, want, start) in pairs.items():
+        err = (got - want).abs()
+        rel_l2 = float(torch.linalg.vector_norm(err)
+                       / torch.linalg.vector_norm(want - start))
+        rec["tensors"][name] = {"rel_l2": rel_l2, "max_abs_err": float(err.max()),
+                                "max_move": float((want - start).abs().max()),
+                                "entries": err.numel(),
+                                "beyond_tight": int((err > CTR_TIGHT_TOL).sum())}
+        if not rel_l2 <= CTR_REL_L2:
+            bad.append(name)
+    loss_err = float(np.max(np.abs(card_losses / cpu_losses - 1)))
+    rec["loss_max_rel_err"] = loss_err
+    if bad or not loss_err <= CTR_LOSS_RTOL:
+        raise AssertionError(f"ctr: {steps} steps on {device} against the CPU, "
+                             f"{bad or 'losses'} outside the bound: {rec}")
+    return rec
+
+
+def ctr_phase(device, seed: int, card: str, train_args=CTR_TRAIN_ARGS,
+              scale_data=CTR_SCALE_DATA, scale_dim: int = CTR_SCALE_DIM,
+              scale_batch: int = CTR_SCALE_BATCH, check_steps: int = CTR_CHECK_STEPS,
+              profile_steps: int = CTR_PROFILE_STEPS):
+    """The CTR family (``make ctr``) through the port's ``ctr_train`` code:
+    (a) train and evaluate, joint and plain: the losses finite and falling,
+    AUC above ``CTR_MIN_AUC``, logloss below the train CTR's constant
+    predictor's + ``CTR_LOGLOSS_SLACK``, joint recall@10 and @50 above a
+    seeded random ranking's (the true item's place drawn uniformly);
+    examples/s per epoch and ms a step. (b) ``check_steps`` sparse joint
+    steps on ``device`` and on the CPU from the same params and batches:
+    every param, the table and the accumulator within the bound of
+    ``ctr_card_vs_cpu``. (c) ``torch.profiler`` over
+    ``profile_steps`` sparse joint steps: launches and device µs a step by
+    part (``_ctr_profile_groups``), the device's idle share. (d) one epoch
+    in each table mode at ``scale_data`` with embed ``scale_dim`` and batch
+    ``scale_batch`` (joint): ms a step, examples/s, peak device memory."""
+    from recommendit_tpu_torch.config import settings
+    from recommendit_tpu_torch.data.ctr import make_ctr_dataset
+    from recommendit_tpu_torch.evaluation.metrics import binary_logloss
+    from recommendit_tpu_torch.scripts import ctr_train
+    from recommendit_tpu_torch.training.train_ctr import CTRTrainer
+
+    on_card = torch.device(device).type == "cuda"
+    args = ctr_train.parse_args([*train_args, "--seed", str(seed), "--device", str(device)])
+    t0 = time.perf_counter()
+    data = make_ctr_dataset(n_examples=args.examples, n_users=args.users,
+                            n_items=args.items, seed=args.seed)
+    rec = {"data_s": time.perf_counter() - t0, "examples": args.examples,
+           "users": args.users, "items": args.items,
+           "table_rows": int(sum(data.vocab_sizes)), "batch": args.batch_size}
+
+    # (a) make ctr, joint and plain
+    for joint in (True, False):
+        args.no_joint = not joint
+        report, tr = ctr_train.run(args, data=data)
+        hist = tr.history
+        n_batches = len(tr.train_data.labels) // tr.batch_size()
+        losses = [h["loss"] for h in hist]
+        const = binary_logloss(tr.test_data.labels, np.full_like(
+            tr.test_data.labels, tr.train_data.labels.mean()))
+        out = {"report": report, "losses": losses, "steps_per_epoch": n_batches,
+               "examples_per_s": [h["examples_per_s"] for h in hist],
+               "ms_per_step": [1e3 * h["seconds"] / n_batches for h in hist],
+               "constant_logloss": const}
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"ctr joint={joint}: losses {losses}")
+        if not report["auc"] > CTR_MIN_AUC:
+            raise AssertionError(f"ctr joint={joint}: AUC {report['auc']}")
+        if not report["logloss"] < const + CTR_LOGLOSS_SLACK:
+            raise AssertionError(f"ctr joint={joint}: logloss {report['logloss']} "
+                                 f"against the constant predictor's {const}")
+        if joint:
+            n_q = int((tr.test_data.labels > 0.5).sum())
+            place = np.random.default_rng(seed).integers(0, data.n_items, size=n_q)
+            for k in CTR_RECALL_KS:
+                out[f"random_recall@{k}"] = float((place < k).mean())
+                if not report[f"recall@{k}"] > out[f"random_recall@{k}"]:
+                    raise AssertionError(f"ctr recall@{k} {report[f'recall@{k}']} "
+                                         f"not above random {out[f'random_recall@{k}']}")
+        rec["joint" if joint else "plain"] = out
+        print(f"ctr {'joint' if joint else 'plain'} ({card}): examples/s per epoch "
+              f"{[round(x) for x in out['examples_per_s']]}, ms a step "
+              f"{[round(x, 3) for x in out['ms_per_step']]}, losses "
+              f"{[round(x, 4) for x in losses]}, {report}", flush=True)
+        del tr
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) the first steps on the card against the same steps on the CPU
+    cfg = settings.replace(CTR_EPOCHS=args.epochs, CTR_BATCH_SIZE=args.batch_size,
+                           SEED=seed)
+    rec["card_vs_cpu"] = ctr_card_vs_cpu(data, cfg, device, seed, check_steps)
+
+    # (c) the profile of the sparse joint step
+    state, _, prof, seconds = _ctr_steps(data, cfg, device, None, seed, profile_steps,
+                                         profile=True)
+    groups = {k: v / profile_steps for k, v in _ctr_profile_groups(prof).items()}
+    kernels = {}
+    for key, dev_us, n in device_events(prof):
+        name = _short_kernel_name(key)
+        us, count = kernels.get(name, (0.0, 0))
+        kernels[name] = (us + dev_us / profile_steps, count + n / profile_steps)
+    device_us = sum(us for us, _ in kernels.values())
+    launches = sum(n for _, n in kernels.values())
+    groups["other"] = device_us - sum(groups.values())
+    host_ms = 1e3 * seconds / profile_steps
+    rec["profile"] = {"steps": profile_steps, "launches_per_step": launches,
+                      "device_us_per_step": device_us, "host_ms_per_step": host_ms,
+                      "device_idle_share": (1 - device_us / 1e3 / host_ms
+                                            if on_card else None),
+                      "groups_us_per_step": dict(sorted(groups.items(),
+                                                        key=lambda kv: -kv[1])),
+                      "top_kernels_us_launches_per_step": dict(sorted(
+                          kernels.items(), key=lambda kv: -kv[1][0])[:12])}
+    if on_card and not (device_us > 0 and launches > 0):
+        raise AssertionError(f"ctr: the profiler saw no device time: {rec['profile']}")
+    print(json.dumps({"ctr_profile": rec["profile"], "card": card}), flush=True)
+    del state, prof, data
+
+    # (d) table scale, one epoch in each table mode
+    t0 = time.perf_counter()
+    big = make_ctr_dataset(**scale_data, seed=seed)
+    rec["scale"] = {"data_s": time.perf_counter() - t0,
+                    "table_rows": int(sum(big.vocab_sizes)), "dim": scale_dim,
+                    "batch": scale_batch, **scale_data}
+    for mode in ("sparse", "dense"):
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        cfg = settings.replace(CTR_EMBED_DIM=scale_dim, CTR_BATCH_SIZE=scale_batch,
+                               CTR_EPOCHS=1, CTR_TABLE_UPDATE=mode, SEED=seed)
+        tr = CTRTrainer(big, cfg=cfg, joint=True, device=device)
+        tr.train()
+        h = tr.history[0]
+        n_batches = len(tr.train_data.labels) // tr.batch_size()
+        rec["scale"][mode] = {
+            "steps": n_batches, "loss": h["loss"], "seconds": h["seconds"],
+            "ms_per_step": 1e3 * h["seconds"] / n_batches,
+            "examples_per_s": h["examples_per_s"],
+            "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                             if on_card else None)}
+        if not np.isfinite(h["loss"]):
+            raise AssertionError(f"ctr scale {mode}: loss {h['loss']}")
+        del tr
+    sc = rec["scale"]
+    sc["dense_over_sparse_ms"] = sc["dense"]["ms_per_step"] / sc["sparse"]["ms_per_step"]
+    print(json.dumps({"ctr": rec, "card": card}), flush=True)
+    print(f"ctr table scale ({card}): {sc['table_rows']} rows x {scale_dim}, batch "
+          f"{scale_batch}: sparse {sc['sparse']['ms_per_step']:.3f} ms a step "
+          f"({sc['sparse']['examples_per_s']:.0f} ex/s), dense "
+          f"{sc['dense']['ms_per_step']:.3f} ms ({sc['dense']['examples_per_s']:.0f} "
+          f"ex/s): dense / sparse {sc['dense_over_sparse_ms']:.2f}", flush=True)
+    return rec
+
+
 def _certified_check(got, want, q, corpus, d_func: int):
     """A certified top-k (``got``: values, positions) against exact mode's
     (``want``) over ``q`` · ``corpus``ᵀ: after the canonical tie order the
@@ -3438,6 +3725,11 @@ def main(argv=None) -> int:
     host_pipe = host_pipeline_phase(data, device, args.seed, workdir, card)
     print(json.dumps({"host_pipeline_s": time.perf_counter() - t0,
                       "host_pipeline_bpr_launches": host_pipe["launches"]}), flush=True)
+    del data, view
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctr_phase(device, args.seed, card)
+    print(json.dumps({"ctr_s": time.perf_counter() - t0}), flush=True)
 
     print(json.dumps({"total_s": time.perf_counter() - t_start}), flush=True)
     main_q = checks[-1]

@@ -11,3 +11,18 @@ the CPU; without a card a call that names no device raises.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """Lazy top-level names, as the JAX package's (importing the package
+    loads nothing else)."""
+    from importlib import import_module
+
+    exports = {
+        "CTRModel": "recommendit_tpu_torch.models.ctr",
+        "CTRTrainer": "recommendit_tpu_torch.training.train_ctr",
+        "make_ctr_dataset": "recommendit_tpu_torch.data.ctr",
+    }
+    if name in exports:
+        return getattr(import_module(exports[name]), name)
+    raise AttributeError(f"module 'recommendit_tpu_torch' has no attribute {name!r}")

@@ -1,15 +1,16 @@
-"""Models of the serve path (torch port): towers, MIPS index, rankers."""
+"""Models of the torch port: towers, MIPS index, rankers, the CTR model."""
 import json
 from pathlib import Path
 from typing import Union
 
+from recommendit_tpu_torch.models.ctr import CTRModel
 from recommendit_tpu_torch.models.gbdt import HistGBDTRanker
 from recommendit_tpu_torch.models.ranker import LambdaRankScorer
 from recommendit_tpu_torch.models.retrieval import MIPSIndex
 from recommendit_tpu_torch.models.two_tower import TwoTower
 from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE
 
-__all__ = ["HistGBDTRanker", "LambdaRankScorer", "MIPSIndex", "TwoTower",
+__all__ = ["CTRModel", "HistGBDTRanker", "LambdaRankScorer", "MIPSIndex", "TwoTower",
            "load_ranker"]
 
 

@@ -4,7 +4,8 @@ Hopper kernels).
 The counterparts of ``recommendit_tpu.ops``'s exports that the port has,
 under the port's names where they differ (``quantize_int8`` is
 ``quantize_int8_jnp``, ``quantize_int8_hash`` is ``quantize_int8_pallas``),
-plus the row gather of ``recommendit_tpu.ops.gather``. Importing this
+plus the row gather of ``recommendit_tpu.ops.gather`` and the CTR table's
+sparse row-adagrad update of ``recommendit_tpu.ops.sparse_embed``. Importing this
 package compiles nothing: each kernel is built on its first launch.
 """
 from recommendit_tpu_torch.ops.bpr import (  # noqa: F401
@@ -18,6 +19,10 @@ from recommendit_tpu_torch.ops.quantize import (  # noqa: F401
     dequantize_int8,
     quantize_int8,
     quantize_int8_hash,
+)
+from recommendit_tpu_torch.ops.sparse_embed import (  # noqa: F401
+    sparse_adagrad_init,
+    sparse_table_update,
 )
 from recommendit_tpu_torch.ops.topk import (  # noqa: F401
     fast_topk,

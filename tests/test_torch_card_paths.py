@@ -14,16 +14,27 @@ conftest.py`` imports jax, which the card's machine does not have).
   1e-4 (3xTF32 products and f32 sums in other orders through 2 epochs).
 * The certified top-k on the card: values within C.22's bound of the
   exact top-k, for both methods, with no escalation.
+* The CTR table's sparse update on the card (``index_add_`` adds
+  duplicates in no fixed order) against the CPU: touched rows within C.22's
+  bound over their terms, untouched rows bit-equal; and three CTR trainer
+  steps on the card against the CPU from the same params and batches, in
+  both table modes, within ``chip_smoke.ctr_card_vs_cpu``'s bound: each
+  tensor's L2 distance from the CPU's within 5 % of its move, the losses
+  within 1e-6 relative.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
 
-from recommendit_tpu_torch.config import Settings
+from recommendit_tpu_torch.config import Settings, settings
+from recommendit_tpu_torch.data.ctr import make_ctr_dataset
 from recommendit_tpu_torch.data.synthetic import make_synthetic_movielens
-from recommendit_tpu_torch.ops import bpr, topk
+from recommendit_tpu_torch.ops import bpr, sparse_embed, topk
 from recommendit_tpu_torch.training.host_table import PrefetchIterator
 from recommendit_tpu_torch.training.host_train import HostTableEmbeddingTrainer
+from recommendit_tpu_torch.training.train_ctr import CTRTrainer
 
 
 @pytest.fixture
@@ -91,3 +102,51 @@ def test_certified_on_the_card(cuda_device, method, n_q):
     assert bool(((v - ev).abs() <= bound).all())
     true = (items[i].double() * q.double()[:, None, :]).sum(-1)
     assert bool(((true - ev.double()).abs() <= 2 * bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vocab", [(5000, 300, 7, 4097), (26, 20000, 97, 5000)])
+def test_sparse_table_update_on_the_card(cuda_device, vocab):
+    rng = np.random.default_rng(len(vocab))
+    b, d = 4096, 16
+    offs = np.concatenate([[0], np.cumsum(vocab)[:-1]])
+    raw = np.stack([rng.integers(0, v, size=b) for v in vocab], 1)
+    raw[1:33] = raw[0]                                  # duplicates in every field
+    ids = torch.tensor(raw + offs[None, :])
+    grads = torch.tensor(rng.standard_normal((b, len(vocab), d)).astype(np.float32))
+    table = torch.tensor(rng.standard_normal((sum(vocab), d)).astype(np.float32))
+    accum = torch.tensor((rng.random(sum(vocab)) * 0.5).astype(np.float32))
+    cpu = [t.clone() for t in (table, accum)]
+    card = [t.to(cuda_device) for t in (table, accum)]
+    sparse_embed.sparse_table_update(*cpu, ids, grads, vocab)
+    sparse_embed.sparse_table_update(*card, ids.to(cuda_device), grads.to(cuda_device), vocab)
+    got_t, got_a = (t.cpu().double() for t in card)
+    want_t, want_a = (t.double() for t in cpu)
+    k = torch.zeros(sum(vocab), dtype=torch.float64).index_add_(
+        0, ids.reshape(-1), torch.ones(ids.numel(), dtype=torch.float64))
+    g_abs = torch.zeros(sum(vocab), d, dtype=torch.float64).index_add_(
+        0, ids.reshape(-1), grads.reshape(-1, d).double().abs())
+    scale = 0.05 / (want_a.sqrt() + 1e-8)
+    eps = 2.0 ** -24
+    t_tol = 2 * (k + 1)[:, None] * eps * (table.double().abs() + scale[:, None] * g_abs)
+    a_tol = 2 * (k + 1) * eps * (accum.double() + 3 * (g_abs ** 2).mean(1))
+    assert bool(((got_t - want_t).abs() <= t_tol).all())
+    assert bool(((got_a - want_a).abs() <= a_tol).all())
+    untouched = k == 0
+    assert bool(untouched.any())
+    assert torch.equal(card[0].cpu()[untouched], table[untouched])
+    assert torch.equal(card[1].cpu()[untouched], accum[untouched])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sparse", "dense"])
+def test_ctr_steps_on_the_card_match_the_cpu(cuda_device, mode):
+    import chip_smoke
+
+    data = make_ctr_dataset(n_examples=20_000, n_users=2_000, n_items=500, seed=3)
+    cfg = settings.replace(CTR_BATCH_SIZE=2048, CTR_TABLE_UPDATE=mode, SEED=3)
+    rec = chip_smoke.ctr_card_vs_cpu(data, cfg, cuda_device, 3, steps=3)
+    print(json.dumps(rec))                  # shown with -rP
+    assert ("accum" in rec["tensors"]) is (mode == "sparse")
+    assert rec["tensors"]["embed"]["max_move"] > 0
+    assert all(t["rel_l2"] <= chip_smoke.CTR_REL_L2 for t in rec["tensors"].values())

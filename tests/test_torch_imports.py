@@ -62,6 +62,12 @@ MODULES = [
     "recommendit_tpu_torch.pipelines",
     "recommendit_tpu_torch.pipelines.run_pipeline",
     "recommendit_tpu_torch.utils.logging",
+    "recommendit_tpu_torch.data.ctr",
+    "recommendit_tpu_torch.ops.sparse_embed",
+    "recommendit_tpu_torch.models.ctr",
+    "recommendit_tpu_torch.training.train_ctr",
+    "recommendit_tpu_torch.scripts.ctr_train",
+    "recommendit_tpu_torch.scripts.ctr_variance",
     "chip_smoke",
 ]
 _BLOCK = ('import sys\nsys.modules["jax"] = None\nsys.modules["pandas"] = None\n'

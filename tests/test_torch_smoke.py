@@ -626,6 +626,37 @@ def test_host_table_phase_checks_pass(tmp_path):
         "gather", "wait", "step", "d2h", "apply_grad"}
 
 
+
+def test_ctr_phase_checks_pass():
+    """The CTR phase at a tiny size on the CPU: (a) both modes trained and
+    evaluated through ``ctr_train`` with the quality checks, (b) the steps
+    "on the card" (here the CPU) against the CPU, equal, (c) the profiled
+    steps grouped by part of the step, (d) both table modes at scale."""
+    rec = chip_smoke.ctr_phase(
+        "cpu", 0, "cpu",
+        train_args=("--examples", "6000", "--users", "200", "--items", "100",
+                    "--epochs", "3", "--batch-size", "512"),
+        scale_data=dict(n_examples=5000, n_users=3000, n_items=500),
+        scale_dim=8, scale_batch=1024, check_steps=2, profile_steps=3)
+    joint, plain = rec["joint"], rec["plain"]
+    assert joint["steps_per_epoch"] == plain["steps_per_epoch"] == 10
+    assert len(joint["losses"]) == len(joint["ms_per_step"]) == 3
+    assert joint["report"]["recall@50"] > joint["random_recall@50"]
+    assert "recall@10" not in plain["report"] and plain["report"]["joint"] is False
+    tensors = rec["card_vs_cpu"]["tensors"]
+    assert {"embed", "top_w1", "accum"} <= set(tensors)
+    assert all(t["max_abs_err"] == 0.0 and t["beyond_tight"] == 0 and t["rel_l2"] == 0.0
+               for t in tensors.values())
+    assert tensors["embed"]["max_move"] > 0
+    assert rec["card_vs_cpu"]["losses"] == rec["card_vs_cpu"]["cpu_losses"]
+    assert {"gather", "towers", "mlp", "interaction", "softmax", "loss", "backward",
+            "adamw", "sparse_update", "other"} == set(rec["profile"]["groups_us_per_step"])
+    assert rec["profile"]["device_idle_share"] is None     # not measured on the CPU
+    sc = rec["scale"]
+    assert sc["table_rows"] == 3000 + 397 + 500 + 1263
+    assert sc["sparse"]["steps"] == sc["dense"]["steps"] == 4
+    assert sc["dense_over_sparse_ms"] > 0
+
 def test_host_pipeline_phase_checks_pass(trained):
     """``embeddings`` and ``index`` with ``HOST_TABLE=True`` on the train
     data's ``.dat`` files: Recall@20 above random."""
