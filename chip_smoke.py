@@ -45,12 +45,21 @@ load_features, skew, evaluate; then ``ranker`` with ``RANKER_TYPE=gbdt``
 (its own two inner towers, the GBDT trained on the card) and ``evaluate``
 again; then ``embeddings`` and ``index`` with ``HOST_TABLE=True``.
 
-Last, the Criteo-style CTR family at ``make ctr``'s configuration
+Then the Criteo-style CTR family at ``make ctr``'s configuration
 (``scripts/ctr_train.py``: 500,000 synthetic impressions from ``--seed``
 over 20,000 users x 5,000 items, 5 epochs, batch 4,096, embed 16,
 retrieval 32, top (256, 128), the sparse table mode; a 26,660-row stacked
 table), joint and plain, and the table-scale shape of RESULTS.md's CTR rows
 (1,101,660 rows x 32 at batch 8,192, one epoch).
+
+Last, the multi-device layer (``recommendit_tpu_torch/parallel``) at world
+size 1 on NCCL (one card cannot hold two NCCL ranks): the sharded
+two-tower step at ``scripts/scale_smoke.py``'s ``ml25m`` widths (the BPR
+kernels at 2,048 x 256), both sharded merges over the 1M-item catalog,
+the sharded serve function on the serve configuration and a joint CTR
+step at ``make ctr``'s widths, each against the port's single-device
+functions, and a CTR checkpoint resumed across a restart of the process
+group.
 
 Phases (each failure raises, so the exit code is not 0):
 
@@ -252,6 +261,29 @@ Phases (each failure raises, so the exit code is not 0):
    the step, the top kernels, the device's idle share; (d) one epoch in
    each table mode (sparse, dense) at 1,101,660 x 32, batch 8,192: ms a
    step, examples/s, peak device memory, dense over sparse.
+24. parallel phase: a process group of one rank (NCCL through a
+   ``file://`` store under the workdir) and a (1, 1) mesh, then (a) 3
+   steps of the sharded two-tower step (``make_sharded_train_step``:
+   162,541 x 62,423 x 256, hidden 512, batch 2,048, dropout 0.2, clipping
+   1.0, AdamW 1e-3 / decay 1e-4, random weights from ``--seed``) against
+   the single-device step composed from the port's towers,
+   ``in_batch_bpr_loss``, ``clip_by_global_norm_`` and ``OptaxAdamW``
+   from the same weights, batches and dropout generator: one launch of
+   each BPR kernel a sharded step (counted around exactly each), the
+   losses within 1e-5 relative, each param's distance within 1 % of its
+   move; ms a step of both in blocks of 10 (sharded, single, single,
+   sharded), then ``torch.profiler`` over 5 steps of each (the host clock,
+   the kernels' device time, launches, idle share); (b) both merges (``canonical=True``) at Q=256, k=500 over the
+   1M x 129 catalog rows, ids and values equal to ``mips_topk`` in
+   ``canonical_tie_order``, the three times; (c) the sharded serve of
+   1,024 users (the two-tower, the catalog's unit rows, the packed tables,
+   a random MLP (128, 64) over the 50 columns; top-500, top-100) against
+   the single-device composition, every list by ``check_list``, both
+   times; (d) one joint CTR step at ``make ctr``'s widths (26,660 x 16,
+   batch 4,096) against the single-device joint step, as (a); (e)
+   ``scripts/multiproc_smoke.py``'s 4 CTR steps with the state saved at
+   step 2, the process group destroyed and made anew, steps 2-3 resumed
+   with losses equal.
 
 Usage, from the repository root: ``python3 chip_smoke.py [--seed N]``.
 After the build it prints ptxas's registers, spills and shared memory of
@@ -399,6 +431,22 @@ CTR_PROFILE_STEPS = 20
 # table x 32 at batch 8,192, 26 fields, one epoch a table mode
 CTR_SCALE_DATA = dict(n_examples=1_000_000, n_users=1_000_000, n_items=100_000)
 CTR_SCALE_DIM, CTR_SCALE_BATCH = 32, 8192
+# the multi-device layer (parallel/*) at world size 1 on NCCL: the sharded
+# two-tower step at scripts/scale_smoke.py's ml25m widths (162,541 users,
+# 62,423 items, dim 256, hidden 512, batch 2,048), dropout 0.2, clipping at
+# 1.0 and AdamW (1e-3, decay 1e-4), against the single-device step
+PAR_TWO_TOWER = (162_541, 62_423, 256, 512, 2048)
+PAR_CHECK_STEPS = 3
+PAR_TIMED_STEPS = 10              # a block; blocks run sharded, single, single, sharded
+PAR_PROFILE_STEPS = 5             # steps of each under torch.profiler
+PAR_LOSS_RTOL = 1e-5              # the sharded loss against the single-device one
+PAR_REL_L2 = 0.01                 # each param's distance within 1 % of its move
+PAR_MERGE_Q = 256                 # both merges over the 1M x 129 catalog rows
+PAR_SERVE_K = 100                 # the serve configuration's top-100 output
+# one joint CTR step at `make ctr`'s widths (20,000 users x 5,000 items:
+# the 26,660-row table; embed 16, retrieval 32, top (256, 128), batch 4,096)
+PAR_CTR = dict(n_users=20_000, n_items=5_000, batch=4096, embed=16,
+               retrieval=32, top=(256, 128))
 
 
 def _demangle(symbol: str):
@@ -3601,6 +3649,393 @@ def gbdt_pipeline_phase(data, device, seed: int, workdir: Path, card: str, mlp,
     return rec
 
 
+def _rel_l2(got: dict, want: dict, start: dict):
+    """Per tensor: the L2 distance of ``got`` from ``want`` over ``want``'s
+    move from ``start``, and the largest absolute difference."""
+    out = {}
+    for k, w in want.items():
+        w = w.detach().float()
+        move = float(torch.linalg.vector_norm(w - start[k].to(w.device)))
+        diff = got[k].detach().float() - w
+        out[k] = {"rel_l2": float(torch.linalg.vector_norm(diff)) / max(move, 1e-30),
+                  "max_abs": float(diff.abs().max()) if diff.numel() else 0.0}
+    return out
+
+
+def _check_rel_l2(name: str, errs: dict, limit: float = PAR_REL_L2):
+    bad = {k: v for k, v in errs.items() if not v["rel_l2"] <= limit}
+    if bad:
+        raise AssertionError(f"{name}: params off the single-device step's: {bad}")
+
+
+def _timed_steps(fn, batches, device) -> float:
+    """ms per call of ``fn(batch)`` over ``batches``, host clock around a
+    synchronised run."""
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    sync()
+    t0 = time.perf_counter()
+    for b in batches:
+        fn(b)
+    sync()
+    return 1e3 * (time.perf_counter() - t0) / len(batches)
+
+
+def _profile_steps(fn, batches):
+    """``torch.profiler`` over ``fn(b)`` for each of ``batches``: per step,
+    the host clock (ms), the device's kernel time (µs) and launches, the
+    idle share, and the 5 kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            fn(b)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    kernels, launches = {}, 0
+    for key, dev_us, count in device_events(prof):
+        name = _short_kernel_name(key)
+        kernels[name] = kernels.get(name, 0.0) + dev_us / len(batches)
+        launches += count
+    device_us = sum(kernels.values())
+    if device_us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return {"host_ms_per_step": host_ms, "device_us_per_step": device_us,
+            "launches_per_step": launches / len(batches),
+            "device_idle_share": 1 - device_us / 1e3 / host_ms,
+            "top_us_per_step": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:5])}
+
+
+def parallel_train_check(mesh, device, seed: int, two_tower=PAR_TWO_TOWER,
+                         steps: int = PAR_CHECK_STEPS, timed: int = PAR_TIMED_STEPS,
+                         profiled: int = PAR_PROFILE_STEPS):
+    """The sharded two-tower step (``parallel.make_sharded_train_step``)
+    against the single-device step composed from the port's functions (the
+    towers, ``in_batch_bpr_loss``, ``clip_by_global_norm_``, ``OptaxAdamW``)
+    from the same weights, batches and dropout generator: ``steps`` steps,
+    the BPR kernels counted around exactly the sharded ones (one of each a
+    step on the card), the losses within ``PAR_LOSS_RTOL``, each param
+    within ``PAR_REL_L2`` of its move; then ms a step of both, in blocks of
+    ``timed`` steps: sharded, single, single, sharded; on the card,
+    :func:`_profile_steps` over ``profiled`` steps of each."""
+    from recommendit_tpu_torch.models.two_tower import init_params, item_tower, user_tower
+    from recommendit_tpu_torch.ops import bpr
+    from recommendit_tpu_torch.ops.topk import full_f32_matmul
+    from recommendit_tpu_torch.parallel import AdamW, init_sharded_state, make_sharded_train_step
+    from recommendit_tpu_torch.parallel.train import dropout_generator
+    from recommendit_tpu_torch.training.train_embeddings import (
+        OptaxAdamW,
+        clip_by_global_norm_,
+    )
+
+    device = torch.device(device)
+    n_users, n_items, dim, hidden, batch = two_tower
+    lr, wd, clip = 1e-3, 1e-4, 1.0
+    start = init_params(torch.Generator().manual_seed(seed), n_users, n_items, dim,
+                        hidden, device="cpu")
+    rng = np.random.default_rng(seed)
+    genre = torch.as_tensor((rng.random((n_items + 1, 18)) < 0.2).astype(np.float32),
+                            device=device)
+    batches = [tuple(torch.as_tensor(rng.integers(1, n + 1, batch), device=device)
+                     for n in (n_users, n_items)) for _ in range(steps + timed)]
+
+    tx = AdamW(lr, weight_decay=wd, clip_norm=clip)
+    sp, so = init_sharded_state(mesh, tx, start)
+    step = make_sharded_train_step(mesh, tx, genre, dropout_rate=TRAIN_DROPOUT)
+    gen_s = dropout_generator(mesh, seed)
+
+    params = {k: v.to(device, copy=True).requires_grad_(True) for k, v in start.items()}
+    plist = list(params.values())
+    opt = OptaxAdamW(plist, [True] * len(plist), wd)
+    gen_1 = torch.Generator(device=device).manual_seed(seed)
+
+    def single_step(b):
+        u, i = b
+        with full_f32_matmul():
+            ue = user_tower(params, u, TRAIN_DROPOUT, gen_1)
+            ie = item_tower(params, i, genre[i], TRAIN_DROPOUT, gen_1)
+            loss = bpr.in_batch_bpr_loss(ue, ie)
+            grads = torch.autograd.grad(loss, plist, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(plist, grads)]
+            clip_by_global_norm_(grads, clip)
+            opt.step(grads, lr)
+        return loss.detach()
+
+    def sharded_step(b):
+        return step(sp, so, b, gen_s)[2]
+
+    losses_s, losses_1 = [], []
+    per_step = 1 if device.type == "cuda" else 0
+    launches = {name: 0 for name in bpr.LAUNCHES}
+    for b in batches[:steps]:
+        for name in bpr.LAUNCHES:
+            bpr.LAUNCHES[name] = 0
+        losses_s.append(float(sharded_step(b)))
+        if bpr.LAUNCHES != {"bpr_fwd": per_step, "bpr_bwd": per_step}:
+            raise AssertionError(f"sharded step: expected {per_step} launch of each "
+                                 f"BPR kernel, got {bpr.LAUNCHES}")
+        for name in launches:
+            launches[name] += bpr.LAUNCHES[name]
+        losses_1.append(float(single_step(b)))
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses_s, losses_1)]
+    errs = _rel_l2(sp, params, start)
+    rec = {"shape": dict(zip(("users", "items", "dim", "hidden", "batch"), two_tower)),
+           "steps": steps, "launches": launches, "losses": losses_s,
+           "single_losses": losses_1, "loss_rel_err": max(rel),
+           "param_rel_l2": max(e["rel_l2"] for e in errs.values()),
+           "param_max_abs": max(e["max_abs"] for e in errs.values())}
+    if not (np.isfinite(losses_s).all() and max(rel) <= PAR_LOSS_RTOL):
+        raise AssertionError(f"sharded losses {losses_s} against {losses_1}")
+    _check_rel_l2("sharded two-tower step", errs)
+    timed_b = batches[steps:]
+    t = [_timed_steps(sharded_step, timed_b, device), _timed_steps(single_step, timed_b, device),
+         _timed_steps(single_step, timed_b, device), _timed_steps(sharded_step, timed_b, device)]
+    ms_s, ms_1 = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    rec.update(ms_blocks=t, sharded_ms=ms_s, single_ms=ms_1,
+               sharded_examples_per_s=batch / ms_s * 1e3,
+               single_examples_per_s=batch / ms_1 * 1e3,
+               sharded_over_single=ms_s / ms_1)
+    if device.type == "cuda":
+        rec["profile"] = {name: _profile_steps(fn, timed_b[:profiled]) for name, fn in
+                          (("sharded", sharded_step), ("single", single_step))}
+    return rec
+
+
+def parallel_merge_check(mesh, paths, device, seed: int, n_q: int = PAR_MERGE_Q,
+                         k: int = TOP_K_CANDIDATES, timer=cuda_ms):
+    """Both merges (``sharded_mips_topk``, ``..._ring``, ``canonical=True``)
+    over the catalog's augmented f32 rows against the port's ``mips_topk``
+    in ``canonical_tie_order``: ids and values equal; the times of all
+    three."""
+    from recommendit_tpu_torch.models import TwoTower
+    from recommendit_tpu_torch.ops.topk import canonical_tie_order, mips_topk
+    from recommendit_tpu_torch.parallel import (
+        row_sharded,
+        sharded_mips_topk,
+        sharded_mips_topk_ring,
+    )
+
+    corpus = torch.from_numpy(np.load(paths["catalog_path"]))
+    items = row_sharded(mesh).shard(corpus)       # this rank's rows: all of them
+    model = TwoTower.load(paths["model_path"], device=device)
+    rng = np.random.default_rng(seed)
+    uids = torch.as_tensor(rng.integers(1, model.n_users + 1, n_q), device=device)
+    with torch.no_grad():
+        q = model.user_tower(uids)
+    q = torch.cat([q, torch.ones_like(q[:, :1])], dim=1)     # the bias column
+    want_v, want_i = canonical_tie_order(*mips_topk(q, items, k))
+    rec = {"n": int(items.shape[0]), "d": int(items.shape[1]), "q": n_q, "k": k}
+    for name, fn in (("allgather", sharded_mips_topk), ("ring", sharded_mips_topk_ring)):
+        v, i = fn(q, items, k, mesh, canonical=True)
+        if not (torch.equal(i, want_i) and torch.equal(v, want_v)):
+            raise AssertionError(f"the {name} merge differs from mips_topk: "
+                                 f"{int((i != want_i).sum())} ids")
+        rec[f"{name}_ms"] = timer(lambda: fn(q, items, k, mesh, canonical=True), 5)
+    rec["mips_topk_ms"] = timer(lambda: canonical_tie_order(*mips_topk(q, items, k)), 5)
+    return rec
+
+
+def parallel_serve_check(mesh, paths, device, seed: int, n_users: int = BATCH,
+                         n_candidates: int = TOP_K_CANDIDATES, k_out: int = PAR_SERVE_K,
+                         timer=cuda_ms):
+    """``parallel.make_sharded_serve_fn`` on the serve configuration (the
+    two-tower, the catalog's unit rows, the packed tables, a random MLP
+    ranker (128, 64) over the 50 assembled columns from ``seed``) for one
+    batch of ``n_users`` users, against the same composition from the
+    port's single-device functions: every list by ``check_list``; the
+    times of both."""
+    from recommendit_tpu_torch.features.schema import assemble_packed
+    from recommendit_tpu_torch.models import TwoTower
+    from recommendit_tpu_torch.models.ranker import init_mlp, mlp_score
+    from recommendit_tpu_torch.models.two_tower import user_tower
+    from recommendit_tpu_torch.ops.topk import fast_topk, full_f32_matmul, mips_topk
+    from recommendit_tpu_torch.parallel import make_sharded_serve_fn, row_sharded
+
+    model = TwoTower.load(paths["model_path"], device=device)
+    params = model.params()
+    corpus = torch.from_numpy(np.load(paths["catalog_path"]))[:, :model.embed_dim]
+    corpus_d = corpus.to(device).contiguous()
+    item_ids = torch.arange(1, corpus.shape[0] + 1, device=device)
+    feats_dir = Path(paths["features_dir"])
+    up = torch.as_tensor(np.load(feats_dir / "user_packed.npy"), device=device)
+    ip = torch.as_tensor(np.load(feats_dir / "item_packed.npy"), device=device)
+    rparams = {k: v.to(device) for k, v in init_mlp(
+        torch.Generator().manual_seed(seed), 50, RANKER_HIDDEN).items()}
+
+    def score_fn(f):
+        return mlp_score(rparams, f)
+
+    serve = make_sharded_serve_fn(mesh, params, row_sharded(mesh).shard(corpus),
+                                  item_ids, up, ip, score_fn, n_candidates, k_out)
+    rng = np.random.default_rng(seed)
+    uids = torch.as_tensor(rng.integers(1, model.n_users + 1, n_users), device=device)
+
+    @torch.no_grad()
+    def reference():
+        with full_f32_matmul():
+            _, pos = mips_topk(user_tower(params, uids), corpus_d, n_candidates)
+            cand = item_ids[pos]
+            scores = score_fn(assemble_packed(up[uids], ip[cand]))
+            top, sel = fast_topk(scores, k_out)
+        return torch.gather(cand, 1, sel), top
+
+    ids, scores, _ = serve(uids)
+    want_ids, want_scores = reference()
+    got_i, got_s = ids.cpu().numpy(), scores.cpu().numpy()
+    want_i, want_s = want_ids.cpu().numpy(), want_scores.cpu().numpy()
+    for row in range(n_users):
+        check_list(got_i[row].tolist(), got_s[row], want_i[row].tolist(), want_s[row])
+    return {"users": n_users, "n_candidates": n_candidates, "k_out": k_out,
+            "identical": bool(np.array_equal(got_i, want_i) and np.array_equal(got_s, want_s)),
+            "score_max_abs_err": float(np.abs(got_s - want_s).max()),
+            "sharded_ms": timer(lambda: serve(uids), 5),
+            "single_ms": timer(reference, 5)}
+
+
+def parallel_ctr_check(mesh, device, seed: int, ctr=PAR_CTR, timed: int = PAR_TIMED_STEPS):
+    """One joint step of ``parallel.make_ctr_sharded_train_step`` at ``make
+    ctr``'s widths against the single-device joint step composed from
+    ``models/ctr`` (``ctr_forward``, ``bce_loss``,
+    ``weighted_in_batch_softmax``) and ``OptaxAdamW`` (adam 1e-3) from the
+    same params and batch: the loss within ``PAR_LOSS_RTOL``, each param
+    within ``PAR_REL_L2`` of its move; then ms a sharded step."""
+    from recommendit_tpu_torch.data.ctr import make_ctr_dataset
+    from recommendit_tpu_torch.models.ctr import (
+        bce_loss,
+        ctr_forward,
+        field_offsets,
+        init_ctr_params,
+        weighted_in_batch_softmax,
+    )
+    from recommendit_tpu_torch.ops.topk import full_f32_matmul
+    from recommendit_tpu_torch.parallel import (
+        AdamW,
+        init_ctr_sharded_state,
+        make_ctr_sharded_train_step,
+    )
+    from recommendit_tpu_torch.training.train_embeddings import OptaxAdamW
+
+    device = torch.device(device)
+    lr = 1e-3
+    data = make_ctr_dataset(n_examples=ctr["batch"], n_users=ctr["n_users"],
+                            n_items=ctr["n_items"], seed=seed)
+    vocab = data.vocab_sizes
+    start = init_ctr_params(torch.Generator().manual_seed(seed), vocab,
+                            embed_dim=ctr["embed"], top_hidden=ctr["top"],
+                            retrieval_dim=ctr["retrieval"], device="cpu")
+    counts = np.bincount(data.item_ids, minlength=ctr["n_items"])
+    log_q = np.log(np.maximum(counts / counts.sum(), 1e-12)).astype(np.float32)
+    batch = tuple(torch.as_tensor(a, device=device) for a in (
+        data.dense, (data.sparse + field_offsets(vocab)[None, :]).astype(np.int64),
+        data.labels, log_q[data.item_ids]))
+
+    tx = AdamW(lr)
+    cp, co = init_ctr_sharded_state(mesh, tx, start)
+    step = make_ctr_sharded_train_step(mesh, tx, n_user_fields=8, joint=True)
+    loss_s = float(step(cp, co, batch)[2])
+
+    params = {k: v.to(device, copy=True).requires_grad_(True) for k, v in start.items()}
+    plist = list(params.values())
+    opt = OptaxAdamW(plist, [True] * len(plist), 0.0)
+    dense, ids, labels, lq = batch
+    with full_f32_matmul():
+        logits, ue, ie = ctr_forward(params, dense, ids, joint=True)
+        loss = (bce_loss(logits, labels)
+                + 0.5 * weighted_in_batch_softmax(ue, ie, labels, lq, temperature=0.1))
+        opt.step(list(torch.autograd.grad(loss, plist)), lr)
+    loss_1 = float(loss.detach())
+    errs = _rel_l2(cp, params, start)
+    rec = {"table_rows": int(start["embed"].shape[0]), "batch": ctr["batch"],
+           "loss": loss_s, "single_loss": loss_1,
+           "loss_rel_err": abs(loss_s - loss_1) / abs(loss_1),
+           "param_rel_l2": max(e["rel_l2"] for e in errs.values()),
+           "param_max_abs": max(e["max_abs"] for e in errs.values())}
+    if not rec["loss_rel_err"] <= PAR_LOSS_RTOL:
+        raise AssertionError(f"sharded CTR loss {loss_s} against {loss_1}")
+    _check_rel_l2("sharded CTR step", errs)
+    ms = _timed_steps(lambda b: step(cp, co, b), [batch] * timed, device)
+    rec.update(sharded_ms=ms, sharded_examples_per_s=ctr["batch"] / ms * 1e3)
+    return rec
+
+
+def parallel_phase(paths, device, seed: int, workdir: Path, card: str,
+                   two_tower=PAR_TWO_TOWER, steps: int = PAR_CHECK_STEPS,
+                   timed: int = PAR_TIMED_STEPS, merge_q: int = PAR_MERGE_Q,
+                   serve_users: int = BATCH, ctr=PAR_CTR, timer=cuda_ms):
+    """The multi-device layer (``recommendit_tpu_torch/parallel``) at world
+    size 1 — NCCL on the card, a ``(1, 1)`` mesh (one card cannot hold two
+    NCCL ranks) — through its entry points: ``distributed_init``,
+    ``create_mesh``, then :func:`parallel_train_check` (kernels 5 and 6 once
+    a sharded step), :func:`parallel_merge_check`,
+    :func:`parallel_serve_check`, :func:`parallel_ctr_check`, and the
+    checkpoint resumed across a restart of the process group
+    (``scripts/multiproc_smoke.py``'s ``ctr_run`` / ``ctr_resume``: 4 CTR
+    steps, the state saved at step 2, the group destroyed and made anew,
+    steps 2-3 again with losses equal)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from recommendit_tpu_torch.parallel import create_mesh, distributed_init
+    from recommendit_tpu_torch.scripts import multiproc_smoke as mps
+
+    store = (workdir / "parallel").resolve()      # file:// takes an absolute path
+    store.mkdir(parents=True, exist_ok=True)
+
+    def new_group(name: str):
+        (store / name).unlink(missing_ok=True)
+        distributed_init(f"file://{store / name}", 1, 0, device)
+        return create_mesh(shape=(1, 1))
+
+    t_phase = time.perf_counter()
+    mesh = new_group("group_a")
+    rec = {"backend": dist.get_backend(), "mesh": {"data": 1, "model": 1}}
+    try:
+        t0 = time.perf_counter()
+        rec["train"] = parallel_train_check(mesh, device, seed, two_tower, steps, timed)
+        rec["train_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        rec["merges"] = parallel_merge_check(mesh, paths, device, seed, merge_q,
+                                             timer=timer)
+        torch.cuda.empty_cache()
+        rec["serve"] = parallel_serve_check(mesh, paths, device, seed, serve_users,
+                                            timer=timer)
+        torch.cuda.empty_cache()
+        rec["ctr"] = parallel_ctr_check(mesh, device, seed, ctr, timed)
+        with tempfile.TemporaryDirectory(dir=store) as ckpt:
+            straight = mps.ctr_run(mesh, ckpt, 0)
+            dist.destroy_process_group()
+            mesh = new_group("group_b")
+            at, resumed = mps.ctr_resume(mesh, ckpt, 0)
+        rec["resume"] = {"straight": straight, "resumed_from": at, "resumed": resumed}
+        if resumed != straight[at:]:
+            raise AssertionError(f"resumed CTR losses {resumed} != {straight[at:]}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"parallel": rec, "card": card}), flush=True)
+    tr = rec["train"]
+    print(f"parallel world 1 ({card}): sharded two-tower step {tr['sharded_ms']:.3f} ms "
+          f"({tr['sharded_examples_per_s']:.0f} ex/s) vs single-device "
+          f"{tr['single_ms']:.3f} ms ({tr['single_examples_per_s']:.0f} ex/s); BPR "
+          f"launches in {tr['steps']} steps {tr['launches']}; merges all-gather "
+          f"{rec['merges']['allgather_ms']:.3f} / ring {rec['merges']['ring_ms']:.3f} / "
+          f"mips_topk {rec['merges']['mips_topk_ms']:.3f} ms; serve "
+          f"{rec['serve']['sharded_ms']:.3f} vs {rec['serve']['single_ms']:.3f} ms; "
+          f"CTR step {rec['ctr']['sharded_ms']:.3f} ms", flush=True)
+    for name, p in tr.get("profile", {}).items():
+        print(f"parallel profile ({card}), {name} step: {p['host_ms_per_step']:.3f} ms "
+              f"host clock, {p['device_us_per_step']:.1f} us of kernels in "
+              f"{p['launches_per_step']:.1f} launches, idle {p['device_idle_share']:.1%}",
+              flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3686,7 +4121,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     verified = verified_phase(paths, data, device, args.seed, card)
     print(json.dumps({"verified_s": time.perf_counter() - t0}), flush=True)
-    del paths, data
+    del data      # the parallel phase, last, reads paths' files again
     torch.cuda.empty_cache()
 
     capacity = capacity_phase(device, args.seed)
@@ -3730,6 +4165,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ctr_phase(device, args.seed, card)
     print(json.dumps({"ctr_s": time.perf_counter() - t0}), flush=True)
+    torch.cuda.empty_cache()
+    par = parallel_phase(paths, device, args.seed, workdir, card)
+    print(json.dumps({"parallel_s": par["seconds"]}), flush=True)
 
     print(json.dumps({"total_s": time.perf_counter() - t_start}), flush=True)
     main_q = checks[-1]
@@ -3786,6 +4224,7 @@ def main(argv=None) -> int:
         "train_launches": train["launches"]["bpr_fwd"],
         "pipeline_launches": pipeline["bpr_launches"]["bpr_fwd"],
         "gbdt_pipeline_launches": gbdt_pipe["bpr_launches"]["bpr_fwd"],
+        "parallel_launches": par["train"]["launches"]["bpr_fwd"],
         "max_abs_err": max(abs(c["loss"] - c["twin_loss"]) for c in bpr_checks),
         "ms": main_b["fwd_device_ms"], "plain_ms": main_b["twin_fwd_device_ms"],
         "ms_1024x64": train_b["fwd_device_ms"],
@@ -3801,6 +4240,7 @@ def main(argv=None) -> int:
         "train_launches": train["launches"]["bpr_bwd"],
         "pipeline_launches": pipeline["bpr_launches"]["bpr_bwd"],
         "gbdt_pipeline_launches": gbdt_pipe["bpr_launches"]["bpr_bwd"],
+        "parallel_launches": par["train"]["launches"]["bpr_bwd"],
         "max_abs_err": max(c["grad_max_abs_err"] for c in bpr_checks),
         "ms": main_b["bwd_device_ms"], "plain_ms": main_b["twin_bwd_device_ms"],
         "ms_1024x64": train_b["bwd_device_ms"],

@@ -68,6 +68,18 @@ MODULES = [
     "recommendit_tpu_torch.training.train_ctr",
     "recommendit_tpu_torch.scripts.ctr_train",
     "recommendit_tpu_torch.scripts.ctr_variance",
+    "recommendit_tpu_torch.parallel",
+    "recommendit_tpu_torch.parallel.mesh",
+    "recommendit_tpu_torch.parallel.embedding",
+    "recommendit_tpu_torch.parallel.retrieval",
+    "recommendit_tpu_torch.parallel.train",
+    "recommendit_tpu_torch.parallel.serve",
+    "recommendit_tpu_torch.parallel.ctr",
+    "recommendit_tpu_torch.parallel.launch",
+    "recommendit_tpu_torch.parallel.parity",
+    "recommendit_tpu_torch.parallel.dryrun",
+    "recommendit_tpu_torch.scripts.multiproc_smoke",
+    "recommendit_tpu_torch.scripts.scale_smoke",
     "chip_smoke",
 ]
 _BLOCK = ('import sys\nsys.modules["jax"] = None\nsys.modules["pandas"] = None\n'
@@ -178,6 +190,32 @@ print("served", out["batch_users"])
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "served 200" in proc.stdout
+
+
+def test_parallel_phase_runs_without_jax_or_pandas(tmp_path):
+    """chip_smoke's parallel phase (the multi-device layer at world size 1:
+    the sharded two-tower step against the single-device one, both merges,
+    the sharded serve, a joint CTR step, the resume across a restart of the
+    process group) at a small size on gloo, with all three blocked."""
+    code = f"""
+from pathlib import Path
+import torch
+import chip_smoke
+torch.set_num_threads(1)
+wd = Path({str(tmp_path)!r})
+paths, _ = chip_smoke.make_artifacts(wd, seed=1, device="cpu", n_users=120,
+    n_items=3000, dim=16, hidden=16, n_ratings=4000, block_size=512, gbdt_trees=10)
+rec = chip_smoke.parallel_phase(
+    paths, "cpu", 0, wd, "cpu", two_tower=(300, 200, 16, 32, 64), timed=2,
+    merge_q=16, serve_users=32, timer=lambda fn, reps: 0.0,
+    ctr=dict(n_users=300, n_items=100, batch=256, embed=8, retrieval=8, top=(32,)))
+assert rec["backend"] == "gloo" and rec["serve"]["identical"], rec
+assert rec["resume"]["resumed"] == rec["resume"]["straight"][2:], rec
+print("parallel", rec["train"]["steps"])
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "parallel 3" in proc.stdout
 
 
 def test_pipeline_runs_without_jax_or_pandas(tmp_path):
