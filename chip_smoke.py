@@ -211,8 +211,9 @@ Phases (each failure raises, so the exit code is not 0):
    stopping); ``load_features`` (the store and ``features.fsnap``);
    ``skew``; ``evaluate``. Each BPR kernel launched once a step of the
    three tower trainings (the wrappers' counts set to 0 just before
-   ``all`` and read just after; ``torch.profiler`` around each training,
-   whose counts may miss ``PROFILER_RECORD_LOSS`` of the records),
+   ``all`` and read just after; ``torch.profiler`` over a window of each
+   training's steps, ``TRAIN_PROFILE_WINDOW``: windows of 100 steps to its end, one exact, the
+   records lost over all of them within ``PROFILER_RECORD_LOSS``),
    every tower loss finite and below ln 2; every ranker epoch's loss
    finite, a best epoch, the holdout NDCG@10 above a seeded random
    scorer's on the same groups; ``features.fsnap`` equal to the feature
@@ -284,6 +285,28 @@ Phases (each failure raises, so the exit code is not 0):
    ``scripts/multiproc_smoke.py``'s 4 CTR steps with the state saved at
    step 2, the process group destroyed and made anew, steps 2-3 resumed
    with losses equal.
+25. quality phase: the port's
+   ``scripts/quality_at_scale.py`` at the ``ml25m`` catalog's full width
+   (162,541 x 62,423, dim 64) with the script's own overrides
+   ``LOSS_MODE=in_batch``, ``INDEX_MODE=fused``, ``INDEX_DTYPE=bfloat16``
+   (kernels 5 and 6 every step of the host-table tower and of the ranker
+   stage's inner towers; kernel 1 for every evaluate batch: 62,423 rows
+   take the kernel route at any batch size); depth cut (``QUALITY_ARGS``,
+   printed as ``quality_cuts``); checks: the ladder finite, the evaluate
+   stage's lists as the pipeline phase checks them (``check_eval_lists``:
+   the retrieval-only lists the index's own search, its NDCG@10 above a
+   seeded random ranking's of the same users' unseen items), kernel 1
+   against its twins on the run's own index and the evaluate stage's
+   user-tower queries at both shapes the stage gave it (a batch of 256
+   and the retrieval-only search of every evaluated user), the sharded
+   ids identical to the single device's (world size 1 on NCCL), the
+   wrappers' counts equal to the steps and the evaluate batches; then ``scripts/ranker_ab.py`` (one variant at
+   beta 1, 2) over that work-dir and ``scripts/seed_variance.py`` (2 seeds
+   at its full width, epochs cut); then exact ``mips_topk`` at Q=1,024
+   over 20,000,000 x 128 f32 unit rows (``C58_SHAPE``: 82 GB of scores in
+   one product, so it runs in column chunks of ``_SCORE_BUDGET`` entries),
+   the peak memory above the corpus under two chunks' scores, 16 queries'
+   values and ids equal to ``_scan_topk`` at "highest" up to ties.
 
 Usage, from the repository root: ``python3 chip_smoke.py [--seed N]``.
 After the build it prints ptxas's registers, spills and shared memory of
@@ -2932,12 +2955,23 @@ def verified_phase(paths, data, device, seed: int, card: str, qs=VERIFIED_QS,
     return rec
 
 
-# torch.profiler on the GPU machine loses a few kernel records of a long run
-# (up to 13 of 800 per kernel, 1.6 %, in runs of 800 BPR steps:
-# tools/profiler_record_loss.py, PERF.md section 6), so its count of a
-# kernel is held to this share of the launches; the wrappers' own counts
-# are held exactly
+# torch.profiler on the GPU machine loses kernel records: up to 13 of 800
+# a kernel in runs of 800 BPR steps (tools/profiler_record_loss.py), 40 of
+# 1,010 in one run, and in a window of 200 steps two whole steps of all four
+# BPR kernels. So each tower training is profiled in bounded windows of
+# steps that run to its end (torch.profiler's schedule: TRAIN_PROFILE_WINDOW
+# = steps skipped, then windows of (warm-up, recorded) steps, repeated; 0
+# repeats: until the training ends), the card synchronised at each window's
+# edges, and each window's recorded steps counted as the profiler saw them.
+# The windows must be the schedule's; no window may count a BPR kernel more
+# often than its steps; one full window must count each exactly once a
+# step; and the records lost over all windows, which cover every step but
+# one warm-up step a window, stay within PROFILER_RECORD_LOSS of their
+# steps, as the whole-run count did. The wrappers' own counts over the
+# whole run are held exactly beside it.
+TRAIN_PROFILE_WINDOW = (0, 1, 100, 0)
 PROFILER_RECORD_LOSS = 0.03
+SNAPSHOT_NATIVE_USERS = 500      # user rows the native reader looks up
 PIPELINE_INDEXES = (("exact", "float32"), ("fused", "bfloat16"), ("fused", "int8"))
 BPR_KERNELS = ("bpr_fwd_tile_kernel", "bpr_fwd_finish_kernel",
                "bpr_bwd_tile_kernel", "bpr_bwd_finish_kernel")
@@ -3005,38 +3039,90 @@ def check_eval_lists(orch, seen, truth, device, seed: int, k: int = EVAL_K):
 class _TowerTrainings:
     """Around every ``EmbeddingTrainer.train`` call while installed (the
     ``embeddings`` stage's and the ranker stage's inner towers): its steps,
-    its seconds and, on the card under ``torch.profiler``, the launches of
-    each BPR kernel it recorded and the seconds the profiler took to
-    collect and sum its trace after the training (``profiler_s``, which
-    the stage times include and the net times take out); with ``profile``
-    false, no profiler."""
+    its seconds and, on the card, ``torch.profiler`` over the windows
+    ``TRAIN_PROFILE_WINDOW`` of its steps (stepped by the optimizer's
+    ``step``): the launches of each BPR kernel each window recorded
+    (``bpr_profiled``, a list), the steps each recorded
+    (``profiled_steps``) and the
+    seconds the profiler took to collect and sum its trace
+    (``profiler_s``, which the stage times include and the net times take
+    out); with ``profile`` false, no profiler."""
 
-    def __init__(self, device, profile: bool = True):
-        from recommendit_tpu_torch.training.train_embeddings import EmbeddingTrainer
+    def __init__(self, device, profile: bool = True, window=TRAIN_PROFILE_WINDOW):
+        from recommendit_tpu_torch.training.train_embeddings import (
+            EmbeddingTrainer,
+            OptaxAdamW,
+        )
 
         self.cls, self.train = EmbeddingTrainer, EmbeddingTrainer.train
+        self.opt_cls, self.opt_step = OptaxAdamW, OptaxAdamW.step
         self.on_card = torch.device(device).type == "cuda"
         self.profile = profile
+        self.window = window
         self.runs = []
 
-    def __enter__(self):
-        from torch.profiler import ProfilerActivity, profile
+    def _profiled(self, trainer, args, kwargs):
+        """``train`` under a profiler whose schedule records the windows;
+        the card synchronised where a step enters and leaves each, so a
+        window holds exactly its steps' kernels unless records are lost;
+        the steps each window recorded are those the profiler was
+        recording through."""
+        from torch.profiler import ProfilerAction, ProfilerActivity, profile, schedule
 
+        skip, warmup, active, repeat = self.window
+        cycle = warmup + active
+        out = {"counts": [], "collect_s": 0.0, "recorded": []}
+        done, recorded = [0], [0]
+        recording = (ProfilerAction.RECORD, ProfilerAction.RECORD_AND_SAVE)
+        opt_step = self.opt_step
+
+        def on_edge(s: int) -> bool:
+            s -= skip
+            return (s >= 0 and (repeat == 0 or s < repeat * cycle)
+                    and s % cycle in (warmup - 1, cycle - 1))
+
+        def on_trace_ready(prof):
+            t0 = time.perf_counter()
+            counts = {}
+            for key, _, count in device_events(prof):
+                name = _short_kernel_name(key)
+                if name.startswith("bpr_"):
+                    counts[name] = counts.get(name, 0) + count
+            out["counts"].append(counts)
+            out["recorded"].append(recorded[0])
+            recorded[0] = 0
+            out["collect_s"] += time.perf_counter() - t0
+
+        with profile(activities=[ProfilerActivity.CUDA], on_trace_ready=on_trace_ready,
+                     schedule=schedule(skip_first=skip, wait=0, warmup=warmup,
+                                       active=active, repeat=repeat)) as prof:
+            def step(opt, *a, **k):
+                res = opt_step(opt, *a, **k)
+                if on_edge(done[0]):
+                    torch.cuda.synchronize()
+                recorded[0] += prof.current_action in recording
+                done[0] += 1
+                prof.step()
+                return res
+
+            self.opt_cls.step = step
+            try:
+                model = self.train(trainer, *args, **kwargs)
+            finally:
+                self.opt_cls.step = opt_step
+            torch.cuda.synchronize()
+            t_train = time.perf_counter()
+        return model, t_train, out
+
+    def __enter__(self):
         outer = self
 
         def train(trainer, *args, **kwargs):
-            counts = {}
+            out = {"counts": [], "collect_s": 0.0, "recorded": []}
             t0 = time.perf_counter()
             if outer.on_card and outer.profile:
                 torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    model = outer.train(trainer, *args, **kwargs)
-                    torch.cuda.synchronize()
-                    t_train = time.perf_counter()
-                for key, _, count in device_events(prof):
-                    name = _short_kernel_name(key)
-                    if name.startswith("bpr_"):
-                        counts[name] = counts.get(name, 0) + count
+                model, t_train, out = outer._profiled(trainer, args, kwargs)
             else:
                 model = outer.train(trainer, *args, **kwargs)
                 if outer.on_card:
@@ -3045,9 +3131,11 @@ class _TowerTrainings:
             outer.runs.append({"steps": sum(h["steps"] for h in trainer.history),
                                "losses": [h["loss"] for h in trainer.history],
                                "epoch_s": [h["seconds"] for h in trainer.history],
-                               "train_s": t_train - t0,
-                               "profiler_s": time.perf_counter() - t_train,
-                               "bpr_profiled": counts})
+                               "train_s": t_train - t0 - out["collect_s"],
+                               "profiler_s": time.perf_counter() - t_train
+                               + out["collect_s"],
+                               "bpr_profiled": out["counts"],
+                               "profiled_steps": out["recorded"]})
             return model
 
         self.cls.train = train
@@ -3226,10 +3314,12 @@ class _RandomScorer:
 def check_snapshot(features_dir: Path):
     """``features.fsnap`` read back: each section's ids and rows equal the
     feature files' columns (the genre blocks last), and one user's and one
-    item's dicts equal their file rows."""
+    item's dicts equal their file rows; the native reader
+    (``native/feature_snapshot.cpp``, built at first use), where it builds,
+    gives the numpy reader's item rows and user rows."""
     from recommendit_tpu_torch.features.snapshot import FeatureSnapshot
 
-    snap = FeatureSnapshot(str(features_dir / "features.fsnap"))
+    snap = FeatureSnapshot(str(features_dir / "features.fsnap"), prefer_native=False)
     for sec, (name, key, drop, cols) in enumerate((
             ("user_features.npz", "user_id", ("user_id",), snap.user_cols),
             ("item_features.npz", "item_id", ("item_id", "title"), snap.item_cols))):
@@ -3246,7 +3336,56 @@ def check_snapshot(features_dir: Path):
     u, i = (int(snap.backend.sections[sec][0][0]) for sec in (0, 1))
     if snap.user_dict(u) is None or snap.item_dict(i) is None:
         raise AssertionError("features.fsnap lost a user or an item")
-    return {"users": snap.n_users(), "items": snap.n_items()}
+    nat = FeatureSnapshot(str(features_dir / "features.fsnap"))
+    if nat.native:
+        (uids, urows), (iids, irows) = snap.backend.sections
+        got, found = nat.gather_items(iids)
+        if not (found.all() and np.array_equal(got, irows) and all(
+                np.array_equal(nat.user_row(int(x)), urows[j])
+                for j, x in enumerate(uids[:SNAPSHOT_NATIVE_USERS]))):
+            raise AssertionError("the native snapshot reader differs from numpy's")
+    nat.close()
+    return {"users": snap.n_users(), "items": snap.n_items(), "native": nat.native}
+
+
+def schedule_windows(steps: int, window=TRAIN_PROFILE_WINDOW):
+    """The recorded steps of each window ``torch.profiler``'s schedule
+    ``window`` makes over a training of ``steps`` steps (a window cut by
+    the training's end holds the steps it got: none where the training
+    ends just as the window starts)."""
+    skip, warmup, active, repeat = window
+    out, c = [], 0
+    while repeat == 0 or c < repeat:
+        start = skip + c * (warmup + active) + warmup
+        if start > steps:
+            break
+        out.append(min(active, steps - start))
+        c += 1
+    return out
+
+
+def check_profiled_windows(run, window=TRAIN_PROFILE_WINDOW):
+    """A tower training's profiled windows (``_TowerTrainings``): the steps
+    each recorded those of the schedule, no window counting a BPR kernel
+    more often than its steps, one full window counting each exactly once a
+    step, and the records lost over all windows within
+    ``PROFILER_RECORD_LOSS`` of their steps; → the records lost, by
+    kernel."""
+    active = window[2]
+    wins, steps = run["bpr_profiled"], run["profiled_steps"]
+    lost = {n: sum(s - w.get(n, 0) for w, s in zip(wins, steps)) for n in BPR_KERNELS}
+    allowed = int(PROFILER_RECORD_LOSS * sum(steps))
+    if not (steps == schedule_windows(run["steps"], window) and len(wins) == len(steps)
+            and all(w.get(n, 0) <= s for w, s in zip(wins, steps) for n in BPR_KERNELS)
+            and any(s == active and all(w.get(n, 0) == s for n in BPR_KERNELS)
+                    for w, s in zip(wins, steps))
+            and max(lost.values()) <= allowed):
+        raise AssertionError(f"the profiler's windows of {steps} steps (of {run['steps']}; "
+                             f"the schedule's {schedule_windows(run['steps'], window)}) "
+                             f"saw BPR kernels {wins}: expected one full window with "
+                             f"each {active} times and at most {allowed} records lost "
+                             "a kernel")
+    return lost
 
 
 def pipeline_phase(data, device, seed: int, workdir: Path, card: str,
@@ -3326,7 +3465,8 @@ def pipeline_phase(data, device, seed: int, workdir: Path, card: str,
                tower_epoch_s=[r["epoch_s"] for r in towers.runs],
                tower_train_s=[r["train_s"] for r in towers.runs],
                tower_profiler_s=profiler_s, bpr_launches=launches,
-               bpr_profiled=[r["bpr_profiled"] for r in towers.runs])
+               bpr_profiled=[r["bpr_profiled"] for r in towers.runs],
+               profiled_steps=[r["profiled_steps"] for r in towers.runs])
     if len(steps) != 1 + cfg.RANKER_CAND_FOLDS:
         raise AssertionError(f"expected the embeddings stage's and "
                              f"{cfg.RANKER_CAND_FOLDS} inner towers, got {steps}")
@@ -3334,12 +3474,8 @@ def pipeline_phase(data, device, seed: int, workdir: Path, card: str,
         if not (np.isfinite(r["losses"]).all() and r["losses"][-1] < np.log(2.0)):
             raise AssertionError(f"tower loss {r['losses']}: not finite or not "
                                  "below ln 2")
-        low = int(np.ceil((1 - PROFILER_RECORD_LOSS) * r["steps"]))
-        if on_card and not all(low <= r["bpr_profiled"].get(n, 0) <= r["steps"]
-                               for n in BPR_KERNELS):
-            raise AssertionError(f"the profiler saw BPR kernels {r['bpr_profiled']}, "
-                                 f"expected each {r['steps']} times (at least "
-                                 f"{low}: it loses some records)")
+        if on_card:
+            rec.setdefault("profiler_lost", []).append(check_profiled_windows(r))
     per_step = sum(steps) if on_card else 0
     if launches != {"bpr_fwd": per_step, "bpr_bwd": per_step}:
         raise AssertionError(f"expected {per_step} launches of each BPR "
@@ -4036,6 +4172,380 @@ def parallel_phase(paths, device, seed: int, workdir: Path, card: str,
     return rec
 
 
+# 5,000 evaluation users, not the script's 500: at 1M ratings over 162,541
+# users the retrieval-only NDCG@10 of 500 users reads near 0.0002 (a random
+# ranking's 0.0), too near zero to hold the two apart reliably
+QUALITY_ARGS = ("--ratings", "1000000", "--epochs", "1", "--eval-users", "5000",
+                "--cfg", "LOSS_MODE=in_batch", "--cfg", "INDEX_MODE=fused",
+                "--cfg", "INDEX_DTYPE=bfloat16", "--cfg", "RANKER_EPOCHS=3",
+                "--cfg", "RANKER_MAX_QUERIES=2000", "--nproc", "1")
+# the cuts of depth against the scripts' defaults (the widths are theirs)
+QUALITY_CUTS = {"quality_at_scale": {"ratings": "1,000,000 of 4,000,000",
+                                     "eval_users": "5,000 (the default 500)",
+                                     "epochs": "1 of 10", "RANKER_EPOCHS": "3 of 40",
+                                     "RANKER_MAX_QUERIES": "2,000 of 8,000"},
+                "ranker_ab": {"TRAIN_EPOCHS": "1 of 5", "RANKER_EPOCHS": "3 of 40",
+                              "RANKER_MAX_QUERIES": "2,000 of 20,000"},
+                "seed_variance": {"seeds": "2 of 3", "epochs": "2 of 60"}}
+QUALITY_AB_ARGS = ("--name", "smoke", "--betas", "1,2", "--eval-users", "500",
+                   "--cfg", "LOSS_MODE=in_batch", "--cfg", "TRAIN_EPOCHS=1",
+                   "--cfg", "RANKER_EPOCHS=3", "--cfg", "RANKER_MAX_QUERIES=2000")
+SEEDVAR_ARGS = ("--seeds", "2", "--epochs", "2")
+SERVE_BATCH = 256                  # batch_recommend's batch of users
+C58_SHAPE = (20_000_000, 128, 1024)  # corpus rows, width, queries
+C58_K = 500
+C58_CHECK_Q = 16                   # queries held against _scan_topk
+C58_SCAN_BLOCK = 1 << 16
+
+
+class _SeenRows:
+    """The train view's (user, item) pairs of ``users``, read as
+    ``seen[u, cols]`` reads a dense (users + 1, items + 1) mask (what
+    :func:`check_eval_lists` takes), one user's row made at a time: the
+    dense mask of the ml25m catalog would take 10 GB."""
+
+    def __init__(self, view, users, n_items: int):
+        wanted = np.isin(view.user_id, list(users))
+        self.n_items, self.items = n_items, {}
+        for u, i in zip(view.user_id[wanted].tolist(), view.item_id[wanted].tolist()):
+            self.items.setdefault(u, []).append(i)
+
+    def __getitem__(self, key):
+        u, cols = key
+        row = np.zeros(self.n_items + 1, dtype=bool)
+        row[np.asarray(self.items.get(u, []), dtype=np.int64)] = True
+        return row[cols]
+
+
+def quality_kernel_check(orch, device):
+    """Kernel 1 against its twins on the quality run's own fused index and
+    the evaluate stage's user-tower queries, at both shapes the stage gave
+    it: one ``batch_recommend`` batch (the first ``SERVE_BATCH`` evaluated
+    users) and the retrieval-only search (every evaluated user), each with
+    the window and block the router picks for it, held to
+    :func:`kernel_phase`'s tolerances. On the card both shapes must take
+    the kernel route; on the CPU a shape the router sends elsewhere is
+    recorded and not compared. → one record per shape."""
+    from recommendit_tpu_torch.models import MIPSIndex, TwoTower
+    from recommendit_tpu_torch.ops import mips_window as mw
+
+    model = TwoTower.load(orch.cfg.EMBEDDING_MODEL_PATH, device=device)
+    index = MIPSIndex.load(orch.cfg.INDEX_PATH, device=device)
+    corpus, n_valid = index._embs, index.n_total
+    k = min(orch.cfg.TOP_K_CANDIDATES, n_valid)
+    users = list(orch.eval_lists["retrieval_only"])
+    on_card = torch.device(device).type == "cuda"
+    out = []
+    for shape, batch in (("batch_recommend", users[:SERVE_BATCH]),
+                         ("retrieval_only", users)):
+        route, window = mw.fused_route(len(batch), n_valid, k)
+        rec = {"shape": shape, "q": len(batch), "n": n_valid, "k": k,
+               "route": route, "window": window}
+        out.append(rec)
+        if route != "kernel":
+            if on_card:
+                raise AssertionError(f"the quality index's {shape} search took the "
+                                     f"{route} route: {rec}")
+            continue
+        block = max(window, index.block_size - index.block_size % window)
+        with torch.no_grad():
+            q = index._augment(model.user_tower(torch.as_tensor(batch, device=device)))
+            kv, _ = mw.window_candidates(q, corpus, window, n_valid)
+            rv, _ = mw.window_candidates_ref(q, corpus, window, n_valid)
+            v, i = mw.mips_topk_window_im(q, corpus, k, block, window, n_valid=n_valid)
+            tv, ti = mw.mips_topk_window_im_ref(q, corpus, k, block, window,
+                                                n_valid=n_valid)
+        rec.update(block=block, window_max_abs_err=float((kv - rv).abs().max()),
+                   topk_value_abs_err=float((v - tv).abs().max()),
+                   id_overlap_vs_twin=_overlap(i, ti))
+        if not (rec["window_max_abs_err"] <= 1e-3 and rec["topk_value_abs_err"] <= 1e-3
+                and rec["id_overlap_vs_twin"] >= 0.99):
+            raise AssertionError(f"kernel 1 against its twins on the quality index: {rec}")
+    return out
+
+
+class _Orchestrators:
+    """The ``PipelineOrchestrator`` instances the scripts make while
+    installed (``orchs``)."""
+
+    def __enter__(self):
+        from recommendit_tpu_torch.pipelines import run_pipeline
+
+        self.mod, self.cls, self.orchs = run_pipeline, run_pipeline.PipelineOrchestrator, []
+        outer = self
+
+        class Recorded(self.cls):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                outer.orchs.append(self)
+
+        run_pipeline.PipelineOrchestrator = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.PipelineOrchestrator = self.cls
+
+
+class _HostTrainings:
+    """The steps of every ``HostTableEmbeddingTrainer.train`` call while
+    installed (``steps``)."""
+
+    def __enter__(self):
+        from recommendit_tpu_torch.training.host_train import HostTableEmbeddingTrainer
+
+        self.cls, self.train, self.steps = (HostTableEmbeddingTrainer,
+                                            HostTableEmbeddingTrainer.train, [])
+        outer = self
+
+        def train(trainer, *a, **k):
+            out = outer.train(trainer, *a, **k)
+            outer.steps.append(sum(h["steps"] for h in trainer.history))
+            return out
+
+        self.cls.train = train
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train = self.train
+
+
+class _WindowLaunches:
+    """Kernel 1's launches (the window wrapper's count) inside each call of
+    the evaluate stage's three users of the fused index while installed:
+    ``RecommendationPipeline._build_serve_fn`` (its warm-up serve and the
+    15 + 15 serves of ``recalibrate_stage_split``), ``batch_recommend``
+    (one batch of ``SERVE_BATCH`` users a launch) and
+    ``MIPSIndex.batch_search`` (the retrieval-only row: one launch over a
+    fused index; the ranker stage's exact indexes none); ``calls`` holds
+    (method, launches, users, index mode) per call."""
+
+    def __enter__(self):
+        from recommendit_tpu_torch.models.retrieval import MIPSIndex
+        from recommendit_tpu_torch.ops import mips_window as mw
+        from recommendit_tpu_torch.serving.recommender import RecommendationPipeline
+
+        self.calls, self._saved = [], []
+        for cls, name in ((RecommendationPipeline, "_build_serve_fn"),
+                          (RecommendationPipeline, "batch_recommend"),
+                          (MIPSIndex, "batch_search")):
+            raw = cls.__dict__[name]
+            self._saved.append((cls, name, raw))
+            setattr(cls, name, self._wrap(name, raw, mw.LAUNCHES))
+        return self
+
+    def _wrap(self, name, fn, launches):
+        calls = self.calls
+
+        def wrapped(obj, *a, **k):
+            before = launches["window_mips"]
+            out = fn(obj, *a, **k)
+            users = len(a[0]) if a else 0
+            calls.append((name, launches["window_mips"] - before, users,
+                          getattr(obj, "mode", None)))
+            return out
+
+        return wrapped
+
+    def __exit__(self, *exc):
+        for cls, name, raw in self._saved:
+            setattr(cls, name, raw)
+
+    def check(self, label: str, total: int, on_card: bool) -> dict:
+        """Each call's launches as its code makes them, and no launch
+        outside them; → launches by method."""
+        want = {"_build_serve_fn": lambda u: 31,
+                "batch_recommend": lambda u: -(-u // SERVE_BATCH),
+                "batch_search": lambda u: 1}
+        by = {}
+        for name, got, users, mode in self.calls:
+            exp = want[name](users) if on_card and mode in (None, "fused") else 0
+            if got != exp:
+                raise AssertionError(f"{label}: {name} on {users} users launched the "
+                                     f"window kernel {got} times, expected {exp}")
+            by[name] = by.get(name, 0) + got
+        if sum(by.values()) != total:
+            raise AssertionError(f"{label}: {total} window launches, {by} in the "
+                                 "evaluate stage's calls")
+        return by
+
+
+def _reset(*tables):
+    for table in tables:
+        for name in table:
+            table[name] = 0
+
+
+def _script_run(fn, device):
+    """``fn()`` with the BPR and window wrappers' counts set to 0 just
+    before and read just after, the tower trainings' and the host-table
+    trainings' steps and the orchestrators it made → (result, record)."""
+    from recommendit_tpu_torch.ops import bpr
+    from recommendit_tpu_torch.ops import mips_window as mw
+
+    _reset(bpr.LAUNCHES, mw.LAUNCHES)
+    t0 = time.perf_counter()
+    with _TowerTrainings(device, profile=False) as towers, _HostTrainings() as host, \
+            _Orchestrators() as orchs, _WindowLaunches() as window:
+        out = fn()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    steps = sum(host.steps) + sum(r["steps"] for r in towers.runs)
+    rec = {"seconds": time.perf_counter() - t0, "host_steps": host.steps,
+           "tower_steps": [r["steps"] for r in towers.runs],
+           "launches": {**bpr.LAUNCHES, "window_mips": mw.LAUNCHES["window_mips"]}}
+    evals = [o for o in orchs.orchs if "evaluate" in o.stage_times]
+    return out, rec, steps, evals, window
+
+
+def _check_script_launches(name, rec, steps, window, on_card):
+    """One launch of each BPR kernel a tower step, and kernel 1's launches
+    each as the evaluate stage's calls make them (:class:`_WindowLaunches`),
+    on the card; none on the CPU."""
+    want = {"bpr_fwd": steps, "bpr_bwd": steps} if on_card else {"bpr_fwd": 0,
+                                                                 "bpr_bwd": 0}
+    got = {k: rec["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want} "
+                             f"({steps} tower steps)")
+    rec["window_by_call"] = window.check(name, rec["launches"]["window_mips"], on_card)
+    if on_card and not rec["window_by_call"].get("batch_recommend"):
+        raise AssertionError(f"{name}: no evaluate batch launched the window kernel")
+
+
+def exact_topk_memory_check(device, seed: int, shape=C58_SHAPE, k: int = C58_K,
+                            n_check: int = C58_CHECK_Q, timer=cuda_ms):
+    """Exact ``mips_topk`` at Q queries over N x D f32 unit rows, where one
+    (Q, N) product would not fit: the peak memory above the corpus under
+    two chunks' scores (``_SCORE_BUDGET`` f32 entries each), and
+    ``n_check`` queries' values and ids equal to ``_scan_topk`` at
+    "highest" up to ties (ids may differ only where the values are equal)."""
+    from recommendit_tpu_torch.ops import topk
+
+    n, d, n_q = shape
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed + 58)
+    items = torch.empty((n, d), device=dev)
+    for s in range(0, n, CAPACITY_CHUNK):
+        rows = torch.randn((min(CAPACITY_CHUNK, n - s), d), generator=gen, device=dev)
+        items[s:s + len(rows)] = torch.nn.functional.normalize(rows, dim=1)
+    q = torch.nn.functional.normalize(
+        torch.randn((n_q, d), generator=gen, device=dev), dim=1)
+    del rows
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    vals, ids = topk.mips_topk(q, items, k, 4096)
+    if on_card:
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) if on_card else 0
+    budget = 2 * topk._SCORE_BUDGET * 4
+    rec = {"n": n, "d": d, "q": n_q, "k": k, "first_call_s": first_s,
+           "peak_above_corpus_bytes": peak, "limit_bytes": budget,
+           "one_product_bytes": n * n_q * 4,
+           "chunks": -(-n // topk._score_chunk(n_q))}
+    if on_card and not peak < budget:
+        raise AssertionError(f"exact top-k peak {peak} bytes above the corpus, "
+                             f"limit {budget}")
+    sv, si = topk._scan_topk(q[:n_check], items, k, C58_SCAN_BLOCK, 1.0, "highest")
+    gv, gi = vals[:n_check], ids[:n_check]
+    ties_only = bool(((gi == si) | (gv == sv)).all())
+    rec.update(values_equal=bool(torch.equal(gv, sv)), ids_equal_up_to_ties=ties_only,
+               id_mismatches_at_ties=int((gi != si).sum()))
+    if not (rec["values_equal"] and ties_only and bool(torch.isfinite(vals).all())):
+        raise AssertionError(f"exact top-k over {n} rows against _scan_topk: {rec}")
+    rec["ms"] = timer(lambda: topk.mips_topk(q, items, k, 4096), 2)
+    del items, vals, ids
+    return rec
+
+
+def quality_phase(device, seed: int, workdir: Path, card: str, qas_args=QUALITY_ARGS,
+                  ab_args=QUALITY_AB_ARGS, seedvar_args=SEEDVAR_ARGS, c58_shape=C58_SHAPE,
+                  timer=cuda_ms):
+    """The quality scripts through their entry points (``run`` of
+    ``scripts/quality_at_scale.py``, ``ranker_ab.py`` and
+    ``seed_variance.py``, the arguments a user passes), each with the
+    wrappers' counts set to 0 just before and read just after, then
+    :func:`exact_topk_memory_check`."""
+    import shutil
+
+    from recommendit_tpu_torch.scripts import quality_at_scale as qas
+    from recommendit_tpu_torch.scripts import ranker_ab, seed_variance
+
+    root = workdir / "quality"
+    shutil.rmtree(root, ignore_errors=True)
+    on_card = torch.device(device).type == "cuda"
+    base = ["--seed", str(seed), "--device", str(device)]
+    print(json.dumps({"quality_cuts": QUALITY_CUTS, "card": card}), flush=True)
+    rec = {}
+
+    args = qas.parse_args([*qas_args, *base, "--work-dir", str(root / "qscale")])
+    report, run, steps, evals, window = _script_run(lambda: qas.run(args), device)
+    orch = evals[-1]
+    _check_script_launches("quality_at_scale", run, steps, window, on_card)
+    ladder = report["ladder"]
+    if not all(np.isfinite(v) for v in ladder.values()):
+        raise AssertionError(f"quality_at_scale ladder not finite: {ladder}")
+    data = orch._load_data()
+    seen = _SeenRows(orch._train_view(), orch.eval_lists["full"], data.n_items)
+    rand = check_eval_lists(orch, seen, _held_out_truth(data), device, seed)
+    twins = quality_kernel_check(orch, device)
+    if not ladder["retrieval_only_ndcg@10"] > rand["random_ndcg@10"]:
+        raise AssertionError(f"retrieval-only NDCG@10 {ladder['retrieval_only_ndcg@10']} "
+                             f"does not beat a random ranking's {rand['random_ndcg@10']}")
+    sr = report["sharded_retrieval"]
+    if not all(sr[m]["identical_to_single_device"] for m in ("allgather", "ring")):
+        raise AssertionError(f"sharded retrieval differs from the single device: {sr}")
+    rec["quality_at_scale"] = {**run, "report": report, **rand, "kernel_twins": twins,
+                               "eval_users": len(orch.eval_lists["full"])}
+    print(json.dumps({"quality_at_scale": rec["quality_at_scale"], "card": card}),
+          flush=True)
+
+    args = ranker_ab.parse_args([*ab_args, "--seed", str(seed), "--device", str(device),
+                                 "--work-dir", str(root / "qscale"),
+                                 "--log", str(root / "ranker_ab.jsonl")])
+    result, run, steps, evals, window = _script_run(lambda: ranker_ab.run(args), device)
+    lines = (root / "ranker_ab.jsonl").read_text().splitlines()
+    if len(lines) != 1 or not Path(str(root / "qscale" / "models" /
+                                       "ranker_smoke.npz")).exists():
+        raise AssertionError(f"ranker_ab: {len(lines)} log lines or no variant ranker")
+    rows = result["serving"]
+    if [r["beta"] for r in rows] != [1.0, 2.0] or not all(
+            np.isfinite(r["full_ndcg@10"]) for r in rows):
+        raise AssertionError(f"ranker_ab rows {rows}")
+    _check_script_launches("ranker_ab", run, steps, window, on_card)
+    rec["ranker_ab"] = {**run, "result": result}
+    print(json.dumps({"ranker_ab": rec["ranker_ab"], "card": card}), flush=True)
+
+    args = seed_variance.parse_args([*seedvar_args, "--device", str(device),
+                                     "--work-dir", str(root / "seedvar"),
+                                     "--data-dir", str(root / "seedvar" / "ml")])
+    result, run, steps, _, _ = _script_run(lambda: seed_variance.run(args), device)
+    if not all(np.isfinite(m["mean"]) for m in result["metrics"].values()):
+        raise AssertionError(f"seed_variance metrics {result['metrics']}")
+    rec["seed_variance"] = {**run, "metrics": result["metrics"]}
+    print(json.dumps({"seed_variance": rec["seed_variance"], "card": card}), flush=True)
+
+    if on_card:
+        torch.cuda.empty_cache()
+    rec["exact_topk"] = exact_topk_memory_check(device, seed, c58_shape, timer=timer)
+    print(json.dumps({"exact_topk_20m": rec["exact_topk"], "card": card}), flush=True)
+    if on_card:
+        torch.cuda.empty_cache()
+    q = rec["quality_at_scale"]
+    rec["launches"] = {n: q["launches"][n] + rec["ranker_ab"]["launches"][n]
+                       for n in ("bpr_fwd", "bpr_bwd", "window_mips")}
+    print(f"quality ladder ({card}): " + ", ".join(
+        f"{k}={v:.5f}" for k, v in q["report"]["ladder"].items())
+        + f"; random ndcg@10={q['random_ndcg@10']:.5f}; stage s "
+        + json.dumps(q["report"]["stage_seconds"]), flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4168,6 +4678,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     par = parallel_phase(paths, device, args.seed, workdir, card)
     print(json.dumps({"parallel_s": par["seconds"]}), flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    quality = quality_phase(device, args.seed, workdir, card)
+    print(json.dumps({"quality_s": time.perf_counter() - t0,
+                      "quality_launches": quality["launches"]}), flush=True)
 
     print(json.dumps({"total_s": time.perf_counter() - t_start}), flush=True)
     main_q = checks[-1]
@@ -4181,6 +4696,7 @@ def main(argv=None) -> int:
         "http_launches": sum(lv["launches"]["window_mips"]
                              for lv in http["bf16"]["levels"]),
         "gbdt_launches": gbdt_serve["launches"]["window_mips"],
+        "quality_launches": quality["launches"]["window_mips"],
         "max_abs_err": max(c["window_max_abs_err"] for c in checks),
         "ms": main_q["kernel_ms"], "plain_ms": main_q["twin_ms"],
         "bound": window_bound(main_q, 2, 4, "bf16"), "library_ms": None,
@@ -4225,6 +4741,7 @@ def main(argv=None) -> int:
         "pipeline_launches": pipeline["bpr_launches"]["bpr_fwd"],
         "gbdt_pipeline_launches": gbdt_pipe["bpr_launches"]["bpr_fwd"],
         "parallel_launches": par["train"]["launches"]["bpr_fwd"],
+        "quality_launches": quality["launches"]["bpr_fwd"],
         "max_abs_err": max(abs(c["loss"] - c["twin_loss"]) for c in bpr_checks),
         "ms": main_b["fwd_device_ms"], "plain_ms": main_b["twin_fwd_device_ms"],
         "ms_1024x64": train_b["fwd_device_ms"],
@@ -4241,6 +4758,7 @@ def main(argv=None) -> int:
         "pipeline_launches": pipeline["bpr_launches"]["bpr_bwd"],
         "gbdt_pipeline_launches": gbdt_pipe["bpr_launches"]["bpr_bwd"],
         "parallel_launches": par["train"]["launches"]["bpr_bwd"],
+        "quality_launches": quality["launches"]["bpr_bwd"],
         "max_abs_err": max(c["grad_max_abs_err"] for c in bpr_checks),
         "ms": main_b["bwd_device_ms"], "plain_ms": main_b["twin_bwd_device_ms"],
         "ms_1024x64": train_b["bwd_device_ms"],

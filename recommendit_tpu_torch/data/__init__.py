@@ -1,3 +1,9 @@
 """Data of the torch port: MovieLens-format arrays, the synthetic generator
-and the synthetic Criteo-style CTR log."""
+and the synthetic Criteo-style CTR log (nothing is downloaded)."""
 from recommendit_tpu_torch.data.ctr import CTRDataset, make_ctr_dataset  # noqa: F401
+from recommendit_tpu_torch.data.movielens import (  # noqa: F401
+    MovieLensData,
+    load_movielens,
+    verify_dataset,
+)
+from recommendit_tpu_torch.data.synthetic import make_synthetic_movielens  # noqa: F401

@@ -6,8 +6,10 @@ table is its ids and demographics, the catalog is its ids, titles, genre
 strings and an (n_items, 18) genre multi-hot matrix. :func:`load_movielens`
 reads the ML-1M ``::``-separated ``.dat`` files (latin-1) from a local
 directory and :func:`save_movielens` writes them. Nothing is downloaded:
-the real ML-1M files are placed in the data directory by hand. The native
-C++ parser of the JAX package is not ported (ROADMAP.md, queue A).
+the real ML-1M files are placed in the data directory by hand. The reader
+parses with numpy and rejects a malformed line; the native parser
+(``data/native.py``, which skips such lines, as JAX's does) is not used
+here.
 """
 from __future__ import annotations
 
@@ -17,7 +19,6 @@ from pathlib import Path
 
 import numpy as np
 
-from recommendit_tpu_torch.features.schema import encode_genres_matrix
 
 logger = logging.getLogger(__name__)
 
@@ -109,6 +110,9 @@ def _read_ratings(path: Path) -> np.ndarray:
 def load_movielens(data_dir: str = "data/ml-1m") -> MovieLensData:
     """The three MovieLens tables from ``data_dir`` (``ratings.dat``,
     ``users.dat``, ``movies.dat``), ratings in file order."""
+    # imported here: the features package imports this module
+    from recommendit_tpu_torch.features.schema import encode_genres_matrix
+
     d = Path(data_dir)
     logger.info("Loading MovieLens data from %s", d)
     r = _read_ratings(d / "ratings.dat")

@@ -66,10 +66,16 @@ N_FEATURES = (
     + 2 * N_GENRES
 )  # 50
 
-FEATURE_COLUMNS: List[str] = (
-    USER_SCALAR_COLS + ITEM_SCALAR_COLS + INTERACTION_COLS
-    + USER_GENRE_COLS + ITEM_GENRE_COLS
-)
+def feature_columns() -> List[str]:
+    """The canonical 50-column ranking feature order (JAX's
+    ``feature_columns``)."""
+    return (
+        USER_SCALAR_COLS + ITEM_SCALAR_COLS + INTERACTION_COLS
+        + USER_GENRE_COLS + ITEM_GENRE_COLS
+    )
+
+
+FEATURE_COLUMNS: List[str] = feature_columns()
 if len(FEATURE_COLUMNS) != N_FEATURES:
     raise RuntimeError("feature contract must have 50 columns")
 

@@ -9,13 +9,15 @@ written by either package opens in the other's reader:
     "FSNAP001" | int64 n_sections | n_sections x int64 (rows, cols,
     ids_offset, data_offset) | per section: int64 ids, float32 rows
 
-Opening is one ``np.memmap``; a lookup is a binary search. The JAX
-module's ctypes reader of ``native/libfeaturesnapshot.so`` is not ported
-(ROADMAP.md, queue A, the native loaders); its numpy reader, ported here,
-has the same semantics.
+The reader prefers the C++ library of ``native/feature_snapshot.cpp``
+(binary search and gather in native code; built from the repo's unedited
+source at first use by ``utils/native_build.py``) and falls back to
+``np.memmap`` + ``searchsorted`` with the same semantics, as JAX's does;
+``FeatureSnapshot.native`` says which one it took.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import logging
 from pathlib import Path
@@ -28,6 +30,44 @@ logger = logging.getLogger(__name__)
 MAGIC = b"FSNAP001"
 USER_SECTION = 0
 ITEM_SECTION = 1
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_tried = False
+
+
+def _load_lib() -> Optional[ctypes.CDLL]:
+    global _lib, _lib_tried
+    if _lib_tried:
+        return _lib
+    _lib_tried = True
+    from recommendit_tpu_torch.utils.native_build import load_native
+
+    lib = load_native("feature_snapshot.cpp", "libfeaturesnapshot")
+    if lib is None:
+        logger.info("native feature snapshot unavailable: the numpy reader runs")
+        return None
+    lib.fsnap_open.restype = ctypes.c_void_p
+    lib.fsnap_open.argtypes = [ctypes.c_char_p]
+    for fn in ("fsnap_rows", "fsnap_cols"):
+        getattr(lib, fn).restype = ctypes.c_int64
+        getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.fsnap_lookup.restype = ctypes.POINTER(ctypes.c_float)
+    lib.fsnap_lookup.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64]
+    lib.fsnap_gather.restype = ctypes.c_int64
+    lib.fsnap_gather.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_float,
+    ]
+    lib.fsnap_close.argtypes = [ctypes.c_void_p]
+    logger.info("native feature snapshot reader loaded")
+    _lib = lib
+    return _lib
+
+
+def native_available() -> bool:
+    return _load_lib() is not None
 
 
 def write_snapshot(path: str, user_ids: np.ndarray, user_matrix: np.ndarray,
@@ -107,18 +147,72 @@ class _NumpyBackend:
         out = np.where(found[:, None], data[pos_c], np.float32(fill)).astype(np.float32)
         return out, found
 
+    def close(self) -> None:
+        pass
+
+
+class _NativeBackend:
+    """The C++ reader's handle (``fsnap_open``), closed once."""
+
+    def __init__(self, path: Path, lib: ctypes.CDLL):
+        self.lib = lib
+        self.handle = lib.fsnap_open(str(path).encode())
+        if not self.handle:
+            raise ValueError(f"native open failed for {path}")
+
+    def rows(self, section: int) -> int:
+        return self.lib.fsnap_rows(self.handle, section)
+
+    def cols(self, section: int) -> int:
+        return self.lib.fsnap_cols(self.handle, section)
+
+    def lookup(self, section: int, id_: int) -> Optional[np.ndarray]:
+        ptr = self.lib.fsnap_lookup(self.handle, section, id_)
+        if not ptr:
+            return None
+        return np.ctypeslib.as_array(ptr, shape=(self.cols(section),)).copy()
+
+    def gather(self, section: int, ids, fill: float = 0.0):
+        ids = np.ascontiguousarray(ids, np.int64)
+        n = len(ids)
+        out = np.empty((n, self.cols(section)), np.float32)
+        found = np.empty(n, np.uint8)
+        self.lib.fsnap_gather(
+            self.handle, section,
+            ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), n,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            found.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            ctypes.c_float(fill))
+        return out, found.astype(bool)
+
+    def close(self) -> None:
+        if self.handle:
+            self.lib.fsnap_close(self.handle)
+            self.handle = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
 
 class FeatureSnapshot:
-    """Read-only memory-mapped view of the user and item feature tables."""
+    """Read-only memory-mapped view of the user and item feature tables;
+    ``prefer_native`` takes the C++ reader where it builds (``native``
+    says whether it did)."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, prefer_native: bool = True):
         self.path = Path(path)
         if not self.path.exists():
             raise FileNotFoundError(f"snapshot not found: {path}")
         meta = json.loads(Path(str(path) + ".meta.json").read_text())
         self.user_cols: List[str] = meta["user_cols"]
         self.item_cols: List[str] = meta["item_cols"]
-        self.backend = _NumpyBackend(self.path)
+        lib = _load_lib() if prefer_native else None
+        self.backend = (_NativeBackend(self.path, lib) if lib is not None
+                        else _NumpyBackend(self.path))
+        self.native = isinstance(self.backend, _NativeBackend)
 
     def n_users(self) -> int:
         return self.backend.rows(USER_SECTION)
@@ -159,6 +253,9 @@ class FeatureSnapshot:
         """The item's features as the store holds them, without the title."""
         row = self.item_row(item_id)
         return None if row is None else self._row_to_dict(row, self.item_cols, "genre_vector")
+
+    def close(self) -> None:
+        self.backend.close()
 
 
 def write_snapshot_from_frames(path: str, user_features: Mapping[str, np.ndarray],

@@ -7,11 +7,17 @@ from recommendit_tpu_torch.models.ctr import CTRModel
 from recommendit_tpu_torch.models.gbdt import HistGBDTRanker
 from recommendit_tpu_torch.models.ranker import LambdaRankScorer
 from recommendit_tpu_torch.models.retrieval import MIPSIndex
-from recommendit_tpu_torch.models.two_tower import TwoTower
+from recommendit_tpu_torch.models.two_tower import (
+    TwoTower,
+    init_params,
+    item_tower,
+    l2_normalize,
+    user_tower,
+)
 from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE
 
 __all__ = ["CTRModel", "HistGBDTRanker", "LambdaRankScorer", "MIPSIndex", "TwoTower",
-           "load_ranker"]
+           "init_params", "item_tower", "l2_normalize", "load_ranker", "user_tower"]
 
 
 def load_ranker(path: str, device=DEFAULT_DEVICE) -> Union[LambdaRankScorer,

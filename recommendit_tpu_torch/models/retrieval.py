@@ -181,7 +181,7 @@ class MIPSIndex:
             return lambda q: mips_topk_int8(aug(q), embs, scales, k, mode)
         if mode == "verified":
             return lambda q: mips_topk_certified(aug(q), embs, k, block)
-        return lambda q: mips_topk(aug(q), embs, k, mode, n_valid=n_valid)
+        return lambda q: mips_topk(aug(q), embs, k, mode=mode, n_valid=n_valid)
 
     def search_device_positions(self, queries: torch.Tensor, k: int):
         """Device-to-device search → (scores, corpus positions)."""

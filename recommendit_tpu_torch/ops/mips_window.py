@@ -582,7 +582,7 @@ def mips_topk_fused_route(
             mode = "approx" if route == "scan" else "exact"
             return mips_topk_int8(queries, item_embs[:n], scales[:n], k, mode)
         if route == "exact":   # f32 queries at "highest", as in JAX
-            return mips_topk(queries, item_embs[:n], k, "exact")
+            return mips_topk(queries, item_embs[:n], k, mode="exact")
         return fast_topk(score_matrix(queries, item_embs[:n], precision), k)
     bn = max(window, block_items - block_items % window)
     if scales is not None:

@@ -8,7 +8,9 @@ such cliff, so each reduce here is one call.
 Modes:
 
 * ``exact`` — scores in true f32 (TF32 off, the counterpart of the JAX
-  package's ``precision=HIGHEST``), exact top-k.
+  package's ``precision=HIGHEST``), exact top-k, scored in column chunks
+  of at most ``_SCORE_BUDGET`` entries (:func:`_exact_topk`), so any
+  corpus size fits.
 * ``approx`` — scores at the corpus dtype ("default" precision: the queries
   are rounded to the corpus dtype, products accumulate in f32), exact
   top-k over them. The JAX package selects with ``lax.approx_max_k`` at
@@ -117,26 +119,49 @@ def mips_topk(
     queries: torch.Tensor,
     item_embs: torch.Tensor,
     k: int,
+    block_size: int = 4096,
     mode: str = "exact",
+    canonical: bool = False,
     n_valid: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k over the item corpus → (values (Q, k) f32, positions (Q, k)
-    int64), sorted descending. ``n_valid``: real rows of a corpus padded
-    with zero rows at its end (the padded rows are never returned)."""
+    int64), sorted descending, with JAX's signature and dispatch
+    (``mips_topk``, ``:550``).
+
+    ``exact``: full-f32 scores through :func:`_exact_topk`, in column chunks
+    of at most ``_SCORE_BUDGET`` entries, so exact at any corpus size; rows
+    at or past ``n_valid`` are sliced off first; below ``_WINDOWED_MIN_Q``
+    queries within one chunk, one product and one exact top-k instead (the
+    same lists, faster there). ``approx``: scores at the
+    corpus dtype, one score matrix while ``N <= max(block, k)`` or ``Q·N``
+    is at most 512M entries (:func:`mips_topk_dense`), else streamed in
+    blocks of ``block_size`` rows (:func:`_scan_topk`); rows at or past
+    ``n_valid`` score -inf. ``canonical``: the exact lists in
+    (value desc, index asc) order (:func:`canonical_tie_order`), as JAX
+    applies it."""
+    q = queries.shape[0]
     n = item_embs.shape[0]
     if n_valid is not None and not (0 < n_valid <= n):
         raise ValueError(f"n_valid={n_valid} out of range for N={n}")
-    if n_valid is not None and n_valid < n:
-        item_embs = item_embs[:n_valid]
-    if k > item_embs.shape[0]:
-        raise ValueError(f"k={k} exceeds corpus size {item_embs.shape[0]}")
+    if k > (n if n_valid is None else n_valid):
+        raise ValueError(f"k={k} exceeds corpus size {n_valid or n}")
     if mode == "exact":
-        precision = "highest"
-    elif mode == "approx":
-        precision = "default"
-    else:
+        if n_valid is not None and n_valid < n:
+            item_embs = item_embs[:n_valid]
+        if q < _WINDOWED_MIN_Q and q * item_embs.shape[0] <= _SCORE_BUDGET:
+            # few queries within one chunk: one product and one top-k; the
+            # window-max pruning's extra launches cost more than they save
+            # below 32 queries over 1M rows (tools/exact_topk_ab.py)
+            vals, idx = fast_topk(score_matrix(queries.float(), item_embs, _EXACT), k)
+        else:
+            vals, idx = _exact_topk(queries, item_embs, k)
+        return canonical_tie_order(vals, idx) if canonical else (vals, idx)
+    if mode != "approx":
         raise ValueError(f"unknown mips_topk mode {mode!r} (exact | approx)")
-    return fast_topk(score_matrix(queries, item_embs, precision), k)
+    bs = min(block_size, n)
+    if n <= max(bs, k) or q * n <= _APPROX_DENSE_LIMIT:
+        return mips_topk_dense(queries, item_embs, k, 0.95, n_valid)
+    return _scan_topk(queries, item_embs, k, bs, 0.95, "default", n_valid)
 
 
 def quantize_queries(queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -210,7 +235,9 @@ _EXACT = "highest"                 # JAX's precision=HIGHEST: full f32
 _REDUCE_CHUNK = 16384              # JAX's exact-reduce chunk (:134)
 _WINDOW = 64                       # items per window of the window-max scheme
 _SCORE_BUDGET = 320 * 1024 * 1024  # max Q·N f32 score entries per column chunk
+_WINDOWED_MIN_Q = 32               # exact mode's fewest queries for _exact_topk
 _DENSE_LIMIT = 256 * 1024 * 1024   # _verified_topk scores densely up to Q·N (:325)
+_APPROX_DENSE_LIMIT = 512 * 1024 * 1024  # mips_topk's approx mode streams past Q·N (:605)
 # the error bound of the bound method's bf16-input pass (:348-354)
 _BOUND_C = 1.25 * 2.0 ** -7
 
@@ -333,6 +360,7 @@ def _exact_topk(queries: torch.Tensor, item_embs: torch.Tensor, k: int):
         scores = _pad_cols_to(
             score_matrix(queries, item_embs[start:start + chunk], _EXACT), chunk)
         bv, bi = _windowed_exact_topk(scores, min(k, chunk))
+        del scores      # one chunk's scores live at a time
         vals, idxs = _merge(vals, idxs, bv, bi + start, k, _chunked_exact_reduce)
     return vals, idxs
 

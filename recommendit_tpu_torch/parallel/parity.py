@@ -156,7 +156,8 @@ def _serve(mesh, inp) -> dict:
         mesh, params, row_sharded(mesh).shard(c["corpus"]),
         _tensor(c["item_ids"], mesh), _tensor(c["user_packed"], mesh),
         _tensor(c["item_packed"], mesh), lambda f: mlp_score(rparams, f),
-        n_candidates=c["n_candidates"], k_out=c["k_out"])
+        n_candidates=c["n_candidates"], k_out=c["k_out"],
+        block_size=c.get("block_size", 4096))
     ids, scores, rvals = serve(torch.as_tensor(c["user_ids"], device=dev))
     return {"serve": (_np(ids), _np(scores), _np(rvals))}
 
@@ -180,6 +181,21 @@ def _ctr(mesh, inp) -> dict:
             losses.append(float(loss))
         out["joint" if joint else "plain"] = {
             "losses": losses, "embed": _whole(params["embed"], mesh)}
+    return out
+
+
+def run_block_size_cases(shape, inputs: dict) -> dict:
+    """JAX's call forms with the block in its position: both merges as
+    ``fn(q, shard, k, mesh, block_size)`` and the serve function with
+    ``block_size=`` (``inputs["retrieval"]``, ``inputs["serve"]``)."""
+    mesh = create_mesh(shape=tuple(shape))
+    c = inputs["retrieval"]
+    items = row_sharded(mesh).shard(c["items"])
+    out = {}
+    for name, fn in MERGES.items():
+        v, i = fn(_tensor(c["q"], mesh), items, c["k"], mesh, c["block_size"])
+        out[name] = (_np(v), _np(i))
+    out.update(_serve(mesh, inputs))
     return out
 
 

@@ -33,12 +33,12 @@ from recommendit_tpu_torch.parallel.mesh import (
 )
 
 
-def _local_topk(queries, items_shard, k: int, shard: int):
+def _local_topk(queries, items_shard, k: int, block_size: int, shard: int):
     """This shard's top-k → (values, global indices), padded to k columns
     (−inf) where the shard holds fewer than k rows."""
     rows = items_shard.shape[0]
     k_local = min(k, rows)
-    vals, idx = mips_topk(queries, items_shard, k_local)
+    vals, idx = mips_topk(queries, items_shard, k_local, block_size)
     if k_local < k:  # pad so every shard contributes k candidates
         pad = k - k_local
         vals = torch.nn.functional.pad(vals, (0, pad), value=-float("inf"))
@@ -62,18 +62,21 @@ def _check(k, mesh, axis, n_rows):
 
 @torch.no_grad()
 def sharded_mips_topk(queries: torch.Tensor, items_shard: torch.Tensor, k: int,
-                      mesh, axis: str = MODEL_AXIS, canonical: bool = False
+                      mesh, block_size: int = 4096, axis: str = MODEL_AXIS,
+                      canonical: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k over a corpus row-sharded on ``axis``.
 
     ``queries`` (Q, D): the same on every rank of the group;
-    ``items_shard``: this rank's (N / S, D) rows. Returns (values (Q, k),
+    ``items_shard``: this rank's (N / S, D) rows; ``block_size`` is
+    ``mips_topk``'s (its approx mode's block; the exact path each shard
+    runs sizes its own chunks). Returns (values (Q, k),
     global row indices (Q, k)), the same on every rank of the group.
     ``canonical``: (value desc, index asc) tie order, element-identical to
     ``canonical_tie_order`` of the single-device ``mips_topk``.
     """
     s, me = _check(k, mesh, axis, items_shard.shape[0])
-    vals, gidx = _local_topk(queries, items_shard, k, me)
+    vals, gidx = _local_topk(queries, items_shard, k, block_size, me)
     q = queries.shape[0]
     group = mesh.get_group(axis)
     all_v = vals.new_empty((s * q, k))
@@ -90,12 +93,12 @@ def sharded_mips_topk(queries: torch.Tensor, items_shard: torch.Tensor, k: int,
 
 @torch.no_grad()
 def sharded_mips_topk_ring(queries: torch.Tensor, items_shard: torch.Tensor,
-                           k: int, mesh, axis: str = MODEL_AXIS,
-                           canonical: bool = False
+                           k: int, mesh, block_size: int = 4096,
+                           axis: str = MODEL_AXIS, canonical: bool = False
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ring-merge form of :func:`sharded_mips_topk` (same results)."""
     s, me = _check(k, mesh, axis, items_shard.shape[0])
-    vals, gidx = _local_topk(queries, items_shard, k, me)
+    vals, gidx = _local_topk(queries, items_shard, k, block_size, me)
     group = mesh.get_group(axis)
     ranks = axis_ranks(mesh, axis)
     run_v, run_i, buf_v, buf_i = vals, gidx, vals, gidx

@@ -41,6 +41,7 @@ def make_sharded_serve_fn(
     score_fn: Callable,           # (…, F) raw feats → (…,) ranker scores
     n_candidates: int = 500,
     k_out: int = 100,
+    block_size: int = 4096,
     use_retrieval_score: bool = False,
 ) -> Callable:
     """Build serve(user_ids (B,)) → (item_ids (B, k), scores, retrieval
@@ -52,7 +53,8 @@ def make_sharded_serve_fn(
         uids = data_slice(user_ids, mesh).long()
         with full_f32_matmul():
             q = user_tower(params, uids)
-            rvals, pos = sharded_mips_topk(q, item_corpus, n_candidates, mesh)
+            rvals, pos = sharded_mips_topk(q, item_corpus, n_candidates, mesh,
+                                           block_size)
             cand_ids = item_ids[pos]
             feats = assemble_packed(user_packed[uids], item_packed[cand_ids])
             if use_retrieval_score:

@@ -201,7 +201,7 @@ class RecommendationPipeline:
         ``MovieLensData`` or a :class:`ServeData`; by default the dataset
         in ``data_dir``, or the synthetic set where there is none (JAX's
         ``load_or_synthesize``). A ``features.fsnap`` in ``features_dir``
-        backs the feature store."""
+        backs the feature store, through the numpy reader."""
         t0 = time.time()
         self.model = TwoTower.load(self.model_path, device=self.device)
         self.index = MIPSIndex.load(self.index_path, device=self.device)
@@ -213,7 +213,10 @@ class RecommendationPipeline:
             if fsnap.exists():
                 from recommendit_tpu_torch.features.snapshot import FeatureSnapshot
 
-                self.feature_store.attach_snapshot(FeatureSnapshot(str(fsnap)))
+                # the numpy reader: the C++ one reads no faster behind the
+                # store (tools/snapshot_reader_ab.py) and would build at load
+                self.feature_store.attach_snapshot(
+                    FeatureSnapshot(str(fsnap), prefer_native=False))
                 logger.info("Feature store backed by snapshot %s", fsnap)
         if data is None:
             data = load_or_synthesize(self.data_dir, seed=self.cfg.SEED)

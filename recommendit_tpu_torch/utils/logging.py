@@ -8,3 +8,7 @@ def setup_logging(level: str = "INFO") -> None:
         level=getattr(logging, level.upper(), logging.INFO),
         format="%(asctime)s | %(levelname)s | %(name)s | %(message)s",
     )
+
+
+def get_logger(name: str) -> logging.Logger:
+    return logging.getLogger(name)

@@ -96,7 +96,7 @@ def test_certified_on_the_card(cuda_device, method, n_q):
     items, q = items.to(cuda_device), q.to(cuda_device)
     before = dict(topk.ESCALATIONS)
     v, i = topk.mips_topk_certified(q, items, 100, method=method, canonical=True)
-    ev, ei = topk.canonical_tie_order(*topk.mips_topk(q, items, 100, "exact"))
+    ev, ei = topk.canonical_tie_order(*topk.mips_topk(q, items, 100, mode="exact"))
     assert topk.ESCALATIONS == before
     bound = 2 * 39 * 2.0 ** -24 * (q.abs()[:, None, :] * items[ei].abs()).sum(-1)
     assert bool(((v - ev).abs() <= bound).all())

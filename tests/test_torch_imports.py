@@ -80,6 +80,13 @@ MODULES = [
     "recommendit_tpu_torch.parallel.dryrun",
     "recommendit_tpu_torch.scripts.multiproc_smoke",
     "recommendit_tpu_torch.scripts.scale_smoke",
+    "recommendit_tpu_torch.scripts.quality_at_scale",
+    "recommendit_tpu_torch.scripts.seed_variance",
+    "recommendit_tpu_torch.scripts.ranker_ab",
+    "recommendit_tpu_torch.utils.profiling",
+    "recommendit_tpu_torch.utils.native_build",
+    "recommendit_tpu_torch.data.native",
+    "recommendit_tpu_torch.features",
     "chip_smoke",
 ]
 _BLOCK = ('import sys\nsys.modules["jax"] = None\nsys.modules["pandas"] = None\n'
@@ -257,3 +264,45 @@ print(app.handle("GET", "/health")[0], app.handle("GET", "/metrics"))
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "200 (200, '# prometheus_client unavailable\\n', 'text/plain')" in proc.stdout
+
+
+def test_quality_phase_runs_without_jax_or_pandas(tmp_path):
+    """chip_smoke's quality phase (the three quality scripts, then the
+    chunked exact top-k check) at a small size on the CPU with all three
+    blocked; ``Settings`` made small for ``seed_variance``, which takes
+    the defaults. 500 items put both evaluate shapes on the kernel route
+    (window 8), so the twin comparison runs (plain against plain here)."""
+    code = f"""
+import functools
+from pathlib import Path
+import torch
+import recommendit_tpu_torch.config as config
+config.Settings = functools.partial(config.Settings, SYNTH_USERS=200, SYNTH_ITEMS=160,
+    SYNTH_RATINGS=8000, EMBEDDING_DIM=16, HIDDEN_DIM=32, BATCH_SIZE=128,
+    RANKER_HIDDEN_DIMS=(16, 8), RANKER_CAND_NEGS=20, TOP_K_CANDIDATES=60)
+import chip_smoke
+torch.set_num_threads(1)
+small = ("--users", "300", "--items", "500", "--ratings", "6000", "--epochs", "1",
+         "--eval-users", "50", "--nproc", "2", "--cfg", "LOSS_MODE=in_batch",
+         "--cfg", "INDEX_MODE=fused", "--cfg", "INDEX_DTYPE=bfloat16",
+         "--cfg", "RANKER_EPOCHS=2")
+ab = ("--name", "smoke", "--betas", "1,2", "--eval-users", "50",
+      "--cfg", "LOSS_MODE=in_batch", "--cfg", "TRAIN_EPOCHS=1", "--cfg", "RANKER_EPOCHS=2")
+rec = chip_smoke.quality_phase("cpu", 0, Path({str(tmp_path)!r}), "cpu", qas_args=small,
+                               ab_args=ab, seedvar_args=("--seeds", "2", "--epochs", "1"),
+                               c58_shape=(40_000, 16, 8), timer=lambda fn, reps: 0.0)
+q = rec["quality_at_scale"]
+assert q["host_steps"] and len(q["tower_steps"]) == 2, q
+assert rec["exact_topk"]["values_equal"] and rec["launches"]["window_mips"] == 0
+twins = q["kernel_twins"]
+assert [(t["shape"], t["route"], t["window"]) for t in twins] == [
+    ("batch_recommend", "kernel", 8), ("retrieval_only", "kernel", 8)], twins
+assert all(t["window_max_abs_err"] == 0.0 and t["id_overlap_vs_twin"] == 1.0
+           for t in twins), twins
+print("quality", q["eval_users"], sorted(q["window_by_call"].items()), sorted(rec))
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert ("quality 50 [('_build_serve_fn', 0), ('batch_recommend', 0), ('batch_search', 0)] "
+            "['exact_topk', 'launches', 'quality_at_scale', 'ranker_ab', "
+            "'seed_variance']") in proc.stdout

@@ -295,7 +295,7 @@ def test_mips_topk_exact_matches_jax(n_valid):
     j = jtopk.mips_topk(jnp.asarray(qs), jnp.asarray(items), 200, 4096,
                         "exact", True, n_valid)
     t = topk.canonical_tie_order(*topk.mips_topk(
-        torch.as_tensor(qs), torch.as_tensor(items), 200, "exact",
+        torch.as_tensor(qs), torch.as_tensor(items), 200, mode="exact",
         n_valid=n_valid))
     np.testing.assert_array_equal(t[1].numpy(), np.asarray(j[1]))
     np.testing.assert_allclose(t[0].numpy(), np.asarray(j[0]), atol=1e-5)
@@ -304,13 +304,13 @@ def test_mips_topk_exact_matches_jax(n_valid):
 def test_mips_topk_approx_recall():
     qs, items = _data(8, 20_000, 32, seed=7, normalize=True)
     it_bf = torch.as_tensor(items).to(torch.bfloat16)
-    _, ti = topk.mips_topk(torch.as_tensor(qs), it_bf, 200, "approx")
+    _, ti = topk.mips_topk(torch.as_tensor(qs), it_bf, 200, mode="approx")
     _, exact = jtopk.mips_topk_numpy(qs, it_bf.float().numpy(), 200)
     recall = np.mean([len(set(a) & set(b)) / 200
                       for a, b in zip(ti.tolist(), exact.tolist())])
     assert recall >= 0.95
     with pytest.raises(ValueError, match="unknown mips_topk mode"):
-        topk.mips_topk(torch.as_tensor(qs), it_bf, 10, "verified")
+        topk.mips_topk(torch.as_tensor(qs), it_bf, 10, mode="verified")
 
 
 def test_canonical_tie_order_matches_jax():

@@ -1,8 +1,9 @@
 """How many kernel records ``torch.profiler`` loses on the card: runs of
 ``--steps`` steps, each the two BPR kernel wrappers (forward and backward,
 B=1024, D=64) and 60 small elementwise launches, under
-``profile(activities=[CUDA])`` as ``chip_smoke.py``'s pipeline phase
-profiles a tower training, and each BPR kernel's recorded count against
+``profile(activities=[CUDA])`` over the whole run (as ``chip_smoke.py``'s
+pipeline phase profiled a tower training before it took a bounded window,
+``TRAIN_PROFILE_WINDOW``), and each BPR kernel's recorded count against
 its launches. A measurement tool, outside the package: nothing imports it.
 
     python3 tools/profiler_record_loss.py [--runs 8] [--steps 800]
