@@ -18,7 +18,8 @@ kernels in 1,024-user dispatches; the bf16 serve path again with the
 histogram GBDT ranker (``RANKER_TYPE=gbdt``, 200 trees of depth 6, random
 from ``--seed``); and the int8 capacity
 shape of ``scripts/capacity_30m.py``: 30,000,000 random unit rows x 128,
-window 512, k=500, Q=1024.
+window 512, k=500, Q=1024, which the port's retrieval drivers run (with
+``recall_10m``'s 10M x 128 bf16 and the 1M-row ones).
 
 Then, over the same saved bf16 corpus, the three kernels no serve or train
 path runs: the queries-major window kernel (``mips_topk_window``), the fold
@@ -166,11 +167,31 @@ Phases (each failure raises, so the exit code is not 0):
    engine) equal to exact; ms per call of verified, bound, exact and the
    fused bf16 route; then a 1,024-user ``serve_batch`` of a verified
    pipeline against an exact one, every list equal, scores within 1e-4;
-15. capacity phase: 30M x 128 random unit rows made and quantised on the
-   card in chunks, the int8 window kernel (the tensor-core body) at Q=1024
-   and W=512 (windows wider than a tile) timed, and on 64 queries its
-   maxima and positions equal to the twin's and recall@500 >= 0.98 against
-   int8-exact;
+15. drivers phase: the seven retrieval drivers of
+   ``recommendit_tpu_torch/scripts`` (the counterparts of ``scripts/``'s) in
+   one process at their defaults but ``fused_decomp``'s Q=1,024 only
+   (``DRIVER_ARGS``),
+   each corpus freed before the next, each report and its seconds printed,
+   kernel 1's and 3's launches counted around exactly each run:
+   ``recall_10m`` (10M x 128 bf16 unit rows made on the card, Q=64, kernel
+   1 at W=512 over 10,002,432 padded rows, the tail masked: its
+   tensor-core body; on 8 queries its window maxima within 1e-5 of the
+   twin's, computed in row chunks, and its positions equal but for ties
+   within 1e-5; recall@500's mean at most 0.01 under the bin model's
+   1 − 499·512/(2·10⁷); kernel 1's time at Q=64 and its bound);
+   ``capacity_30m`` (the capacity checks: 30M x 128 random unit rows made
+   and quantised on the card in chunks, kernel 3's tensor-core body at
+   W=512, Q=1024 timed, on 64 queries recall@500 >= 0.98 against
+   int8-exact, and on them kernel 3's maxima and positions equal to the
+   twin's); ``mips_ab``
+   (2^20 x 128, Q=256 and 1,024: the dense route and kernel 1 over the f32
+   corpus, its CUDA-core body, and the bf16 one, its tensor cores; both
+   bodies against the twin on 8 queries as above, no mask); ``fused_decomp``
+   at Q=1,024 (kernel 1 at W=64 and 32 masked, unmasked, the auto entry;
+   the tail top-k; then kernel 1's tensor cores at W=32 over the 1M
+   padded rows, the tail masked, against the twin on 8 queries as above); ``recall_curve``
+   (1M x 128, batch 256: exact, verified, four approx rows, int8-exact);
+   ``bound_turf`` (d = 128, 512, 1,024); ``tail_probe``;
 16. BPR kernel phase: at B=1024 and a ragged B=1000, D=64 f32, the forward
    and backward kernels against their twins — the loss within 1e-5
    relative, du and dv within 1e-4 of the twin's largest entry, a second
@@ -415,6 +436,27 @@ WIDE_I8_DIM, WIDE_I8_ROWS = 400, 262_144
 CAPACITY_ROWS, CAPACITY_DIM, CAPACITY_WINDOW = 30_000_000, 128, 512
 CAPACITY_Q, CAPACITY_CHECK_Q = 1024, 64
 CAPACITY_CHUNK = 1 << 21          # rows made and quantised at a time
+CAPACITY_ITERS = 10               # chained batches a round (the script's default)
+
+# the retrieval drivers (recommendit_tpu_torch/scripts) at their defaults
+# but fused_decomp's batches (Q=1,024 only); the phase took 36-40 s at these
+# on an H100 80GB HBM3 at 700 W
+DRIVER_ARGS = {
+    "recall_10m": (),
+    "mips_ab": (),
+    "fused_decomp": ("--qs", "1024"),
+    "recall_curve": (),
+    "bound_turf": (),
+    "tail_probe": (),
+}
+DRIVER_CHECK_Q = 8                # queries of kernel 1's twin checks
+DRIVER_CHECK_SEED = 17
+# kernel 1 against its twin: the products are exact (bf16 x bf16, or f32
+# FMAs against cuBLAS f32), the f32 sums of 128 run in another order
+DRIVER_TWIN_TOL = 1e-5
+FUSED_CHECK_WINDOW = 32           # fused_decomp's window that no other path runs
+TIMER_CHAIN_SHAPE = (256, 500, 128)   # (Q, k, d) of the timer's own-cost probe
+RECALL_10M_MAX_DROP = 0.01        # mean recall@500 under the bin model's at most
 
 # training: bench.py::bench_bpr_train at ML-1M shape
 TRAIN_USERS, TRAIN_ITEMS = 6040, 3952
@@ -424,6 +466,7 @@ TRAIN_SPLIT = 0.9
 # the host-table phase's shape first: its kernels line reports it
 BPR_SHAPES = ((2048, 256), (1024, TRAIN_DIM), (1000, TRAIN_DIM))
 PROFILE_STEPS = 67                # steps of the profiled training epochs
+PROFILE_TRIES = 3                 # torch.profiler sessions before one counts as empty
 INDEX_USERS, RECALL_K = 1024, 20
 
 # host-table training: scripts/host_table_scale.py's ml25m configuration
@@ -725,22 +768,50 @@ def device_events(prof):
             yield evt.key, dev_us, evt.count
 
 
-def device_kernel_ms(fn, reps: int):
-    """Device time per call of ``fn()`` in ms, by kernel name (its template
-    arguments dropped): the kernels' own time under ``torch.profiler`` over
-    ``reps`` calls after a warm one, launch gaps and host time left out."""
+def profiled(body, keep=None, tries: int = PROFILE_TRIES, setup=None):
+    """``body()`` under ``torch.profiler`` (CPU and CUDA activity), taken
+    again while the session records no device time in a kernel whose
+    short name ``keep`` accepts (any kernel where ``keep`` is None), at
+    most ``tries`` sessions: on an H100 a session now and then comes back
+    with no kernel record at all, between sessions that record every
+    kernel. ``setup()``, where given, runs before each session, outside
+    it, and ``body`` then takes its result. Returns the last session and
+    ``body``'s result in it; the caller sees an empty session as no device
+    events."""
     from torch.profiler import ProfilerActivity, profile
 
+    for n in range(1, tries + 1):
+        args = () if setup is None else (setup(),)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = body(*args)
+            torch.cuda.synchronize()
+        if any(keep is None or keep(_short_kernel_name(key))
+               for key, _, _ in device_events(prof)):
+            break
+        print(json.dumps({"profiler_session_empty": {"session": n, "of": tries}}),
+              flush=True)
+    return prof, res
+
+
+def device_kernel_ms(fn, reps: int, keep=None):
+    """Device time per call of ``fn()`` in ms, by kernel name (its template
+    arguments dropped; only names ``keep`` accepts, where given): the
+    kernels' own time under ``torch.profiler`` (:func:`profiled`) over
+    ``reps`` calls after a warm one, launch gaps and host time left out.
+    Empty where the profiler recorded none of them."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def body():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+
+    prof, _ = profiled(body, keep)
     out = {}
     for key, dev_us, _ in device_events(prof):
         name = _short_kernel_name(key)
-        out[name] = out.get(name, 0.0) + dev_us / 1e3 / reps
+        if keep is None or keep(name):
+            out[name] = out.get(name, 0.0) + dev_us / 1e3 / reps
     return out
 
 
@@ -1730,20 +1801,20 @@ def profile_phase(paths, data, device, n_calls: int = 10, batch: int = BATCH,
     kernel (the ``top`` largest), all device kernels, the host clock per
     call and the share of it the device is idle. Printed as ``label``, by
     default ``serve_profile`` (bf16) or ``serve_profile_int8``."""
-    from torch.profiler import ProfilerActivity, profile
-
     if pipe is None:
         pipe = load_pipeline(paths, data, device, dtype)
     rng = np.random.default_rng(11)
     users = rng.integers(1, pipe._n_users + 1, batch).tolist()
     pipe.serve_batch(users)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def body():
         t0 = time.perf_counter()
         for _ in range(n_calls):
             pipe.serve_batch(users)
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / n_calls
+        return (time.perf_counter() - t0) * 1e3 / n_calls
+
+    prof, host_ms = profiled(body)
     kernels, groups, launches = {}, {}, 0
     for key, dev_us, count in device_events(prof):
         ms = dev_us / 1e3 / n_calls
@@ -2049,68 +2120,346 @@ def capacity_phase(device, seed: int, n_rows: int = CAPACITY_ROWS,
                    dim: int = CAPACITY_DIM, window: int = CAPACITY_WINDOW,
                    n_q: int = CAPACITY_Q, n_check: int = CAPACITY_CHECK_Q,
                    k: int = TOP_K_CANDIDATES, chunk: int = CAPACITY_CHUNK,
-                   block: int = INDEX_BLOCK, timer=cuda_ms, min_recall=0.98):
-    """The shape of ``scripts/capacity_30m.py``: ``n_rows`` random unit rows
-    made, normalised and quantised on the device chunk by chunk (the
-    threefry counter offset by each chunk's first row), padded with scale-0
-    rows to a ``block`` multiple; the int8 window kernel timed at ``n_q``
-    queries; on ``n_check`` of them its maxima and positions equal to the
-    twin's (row-chunked), the body it launched (``body``: the tensor cores,
-    on the card) and recall@k against int8-exact."""
+                   block: int = INDEX_BLOCK, timer=cuda_ms, min_recall=0.98,
+                   iters: int = CAPACITY_ITERS, out=None):
+    """``scripts/capacity_30m.py`` through the port's script
+    (``recommendit_tpu_torch/scripts/capacity_30m.py``): ``n_rows`` random
+    unit rows made, normalised and quantised on the device chunk by chunk
+    (the threefry counter offset by each chunk's first row), padded with
+    scale-0 rows to a ``block`` multiple (``make_corpus``); the script's
+    run (recall@k on ``n_check`` queries against int8-exact, the chained
+    batch time at ``n_q`` queries, ``iters`` a round) with kernel 3's
+    launches counted around exactly that run (``launches``); its recall and
+    chained batch time are the phase's; then on the same ``n_check``
+    queries kernel 3's maxima and positions equal to the twin's
+    (row-chunked) and the body it launched (``body``: the tensor cores, on
+    the card); kernel 3 alone timed at ``n_q`` queries."""
     from recommendit_tpu_torch.ops import mips_window as mw
-    from recommendit_tpu_torch.ops.quantize import quantize_int8
-    from recommendit_tpu_torch.ops.topk import mips_topk_int8, quantize_queries
+    from recommendit_tpu_torch.ops.topk import quantize_queries
+    from recommendit_tpu_torch.scripts import capacity_30m
 
+    dev = torch.device(device)
+    args = capacity_30m.parse_args([
+        "--n", str(n_rows), "--d", str(dim), "--k", str(k), "--block", str(block),
+        "--q", str(n_q), "--recall-queries", str(n_check), "--iters", str(iters),
+        "--seed", str(seed), "--device", dev.type,
+        *(("--out", str(out)) if out else ())])
     t0 = time.perf_counter()
-    n_pad = n_rows + (-n_rows % block)
-    corpus = torch.zeros((n_pad, dim), dtype=torch.int8, device=device)
-    scales = torch.zeros(n_pad, dtype=torch.float32, device=device)
-    gen = torch.Generator(device=device).manual_seed(seed + 5)
-    for r0 in range(0, n_rows, chunk):
-        r1 = min(n_rows, r0 + chunk)
-        x = torch.randn((r1 - r0, dim), generator=gen, device=device)
-        x = x / x.norm(dim=1, keepdim=True).clamp(min=1e-12)
-        corpus[r0:r1], scales[r0:r1] = quantize_int8(x, seed, row_offset=r0)
-        del x
-    if torch.device(device).type == "cuda":
+    corpus, scales = capacity_30m.make_corpus(n_rows, dim, block, seed, dev, chunk)
+    if dev.type == "cuda":
         torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
 
-    q = torch.randn((n_q, dim), generator=gen, device=device)
-    q8, _ = quantize_queries(q[:n_check])
+    _reset(mw.LAUNCHES)
+    t0 = time.perf_counter()
+    report = capacity_30m.run(args, (corpus, scales), window=window)
+    script_s = time.perf_counter() - t0
+    launches = mw.LAUNCHES["window_mips_i8"]
+    if out:
+        capacity_30m.write_report(report, args.out)
+
+    qc, q = capacity_30m.make_queries(args, dev)
+    q8, _ = quantize_queries(qc)
     mw.LAST_BODY["window_mips_i8"] = None
     kv, ka = mw.window_candidates_i8(q8, corpus, scales, window, n_rows)
     body = mw.LAST_BODY["window_mips_i8"]
     rv, ra = mw.window_candidates_i8_ref(q8, corpus, scales, window, n_rows)
-    _, i = mw.mips_topk_window_im_int8(q[:n_check], corpus, scales, k, block,
-                                       window, n_rows)
-    _, ei = mips_topk_int8(q[:n_check], corpus, scales, k, n_valid=n_rows)
     rec = {
         "n": n_rows, "d": dim, "window": window, "k": k, "q": n_q,
         "check_q": n_check, "corpus_bytes": corpus.numel() + 4 * scales.numel(),
-        "build_s": build_s,
+        "build_s": build_s, "script_s": script_s, "script": report,
+        "launches": launches,
         "window_max_equal": bool(torch.equal(kv, rv)),
         "window_arg_equal": bool(torch.equal(ka, ra)),
-        "recall_vs_int8_exact": _overlap(i, ei),
+        "recall_vs_int8_exact": report["recall_at_500_vs_int8_exact_mean"],
         "bin_model_recall": 1 - (k - 1) * window / (2 * n_rows),
         "body": body,
+        "queries_per_s": report["qps"],
     }
-    del kv, ka, rv, ra, i, ei
+    del kv, ka, rv, ra
     q8, _ = quantize_queries(q)
     rec["kernel_ms"] = timer(
         lambda: mw.window_candidates_i8(q8, corpus, scales, window, n_rows), 3)
-    rec["kernel_topk_ms"] = timer(
-        lambda: mw.mips_topk_window_im_int8(q, corpus, scales, k, block, window,
-                                            n_rows), 3)
-    rec["queries_per_s"] = n_q / (rec["kernel_topk_ms"] / 1e3)
     print(json.dumps({"capacity_check": rec}), flush=True)
-    if torch.device(device).type == "cuda" and body != "tensor_cores":
+    if dev.type == "cuda" and body != "tensor_cores":
         raise AssertionError(f"the capacity corpus missed the tensor cores: {rec}")
+    if dev.type == "cuda" and not launches:
+        raise AssertionError(f"capacity_30m launched no int8 window kernel: {rec}")
     if not (rec["window_max_equal"] and rec["window_arg_equal"]):
         raise AssertionError(f"int8 window maxima differ from the twin: {rec}")
     if rec["recall_vs_int8_exact"] < min_recall:
         raise AssertionError(f"recall@{k} vs int8-exact < {min_recall}: {rec}")
     return rec
+
+
+def window_twin_chunked(q, items, window: int, n_valid: int, precision: str = "default",
+                        rows: int = CAPACITY_CHUNK):
+    """Kernel 1's twin (``window_candidates_ref``) over window-aligned row
+    chunks of ``items``, so that no widened copy of a large corpus is live
+    whole → (n_cand, Q) maxima and positions."""
+    from recommendit_tpu_torch.ops import mips_window as mw
+
+    rows = max(window, rows // window * window)
+    vals, args = [], []
+    for r0 in range(0, items.shape[0], rows):
+        r1 = min(items.shape[0], r0 + rows)
+        v, a = mw.window_candidates_ref(q, items[r0:r1], window,
+                                        max(0, min(n_valid, r1) - r0), precision)
+        vals.append(v)
+        args.append(a)
+    return torch.cat(vals), torch.cat(args)
+
+
+def window_agreement(q, items, kv, ka, rv, ra, window: int, n_valid: int,
+                     precision: str = "default") -> dict:
+    """Kernel 1's maxima and positions against the twin's: the largest
+    difference of the maxima, the share of equal positions, and where the
+    positions differ, the largest gap between the twin's maximum and the
+    score at the kernel's position (a tie within the f32 sums' rounding
+    where it is small)."""
+    from recommendit_tpu_torch.ops.topk import round_queries
+
+    diff = (ka != ra).nonzero()
+    gap = 0.0
+    if len(diff):
+        cand, col = diff[:, 0], diff[:, 1]
+        rows = cand.long() * window + ka[cand, col].long()
+        qq = round_queries(q[col], items.dtype, precision)
+        score = (qq * items[rows.clamp(max=items.shape[0] - 1)].float()).sum(dim=1)
+        score = torch.where(rows >= n_valid, torch.full_like(score, -3e38), score)
+        gap = float((score - rv[cand, col]).abs().max())
+    return {"window_max_abs_err": float((kv - rv).abs().max()),
+            "args_equal_share": 1.0 - len(diff) / ka.numel(),
+            "args_tie_gap": gap}
+
+
+def _check_agreement(label: str, rec: dict, tol: float = DRIVER_TWIN_TOL) -> None:
+    if not (rec["window_max_abs_err"] <= tol and rec["args_tie_gap"] <= tol):
+        raise AssertionError(f"{label}: kernel 1 against its twin beyond {tol}: {rec}")
+
+
+def kernel1_twin_check(q, items, window: int, n_valid: int) -> dict:
+    """Kernel 1 on ``q`` over ``items`` against its row-chunked twin: the
+    body the wrapper launched (``check_body``; None on the CPU) and
+    :func:`window_agreement`."""
+    from recommendit_tpu_torch.ops import mips_window as mw
+
+    with torch.no_grad():
+        mw.LAST_BODY["window_mips"] = None
+        kv, ka = mw.window_candidates(q, items, window, n_valid)
+        body = mw.LAST_BODY["window_mips"]
+        rv, ra = window_twin_chunked(q, items, window, n_valid)
+        return {"check_body": body,
+                **window_agreement(q, items, kv, ka, rv, ra, window, n_valid)}
+
+
+def timer_chain_cost(device, shape=TIMER_CHAIN_SHAPE, iters: int = 20,
+                     rounds: int = 4) -> dict:
+    """The drivers' timer (``device_loop_time``) around a step that launches
+    nothing, returning a (Q, k) constant: the chain's own ms an iteration
+    (best and every round) and the host's ms to enqueue it."""
+    from recommendit_tpu_torch.utils.profiling import device_loop_time
+
+    q, k, d = shape
+    dev = torch.device(device)
+    const = torch.ones((q, k), device=dev)
+    stats = {}
+    best = device_loop_time(lambda qq: (const,), torch.zeros((q, d), device=dev),
+                            iters=iters, rounds=rounds, stats=stats)
+    rec = {"shape": shape, "best_ms": best * 1e3, **stats}
+    print(json.dumps({"timer_chain": rec}), flush=True)
+    return rec
+
+
+def _driver_args(module, name: str, extra, device, workdir: Path):
+    return module.parse_args([*extra, "--device", torch.device(device).type,
+                              "--out", str(workdir / "drivers" / f"{name}.json")])
+
+
+def _run_driver(name: str, fn, device):
+    """``fn()`` with the window wrappers' counts set to 0 just before and
+    read just after → (report, seconds, launches); prints both."""
+    from recommendit_tpu_torch.ops import mips_window as mw
+
+    _reset(mw.LAUNCHES)
+    t0 = time.perf_counter()
+    report = fn()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(mw.LAUNCHES)
+    print(json.dumps({"driver": name, "report": report}), flush=True)
+    print(json.dumps({"driver": name, "seconds": seconds, "launches": launches}),
+          flush=True)
+    return report, seconds, launches
+
+
+def recall_10m_check(device, args, workdir: Path, n_check: int = DRIVER_CHECK_Q,
+                     timer=cuda_ms, max_drop: float = RECALL_10M_MAX_DROP) -> dict:
+    """``scripts/recall_10m.py`` through the port's script: the corpus made
+    on the device (``make_corpus``), the script's run with kernel 1's
+    launches counted around exactly it, then on ``n_check`` of its queries
+    kernel 1's window maxima and positions at window 512 against the twin's
+    (row-chunked; :func:`window_agreement`), the body the run launched (the
+    tensor cores, on the card), kernel 1's time at the script's batch and
+    its bound; recall@k's mean no more than ``max_drop`` under the bin
+    model's."""
+    from recommendit_tpu_torch.ops import mips_window as mw
+    from recommendit_tpu_torch.scripts import recall_10m
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    items = recall_10m.make_corpus(args.n, args.d, args.block, args.seed, dev)
+    build_s = time.perf_counter() - t0
+    mw.LAST_BODY["window_mips"] = None
+    report, seconds, launches = _run_driver(
+        "recall_10m", lambda: recall_10m.run(args, items), dev)
+    recall_10m.write_report(report, args.out)
+    body = mw.LAST_BODY["window_mips"]
+
+    n, w = args.n, recall_10m.WINDOW
+    q = recall_10m.make_queries(args.queries, args.d, dev)
+    rec = {"n": n, "n_pad": items.shape[0], "d": args.d, "d_func": args.d,
+           "window": w, "q": args.queries, "check_q": n_check, "body": body,
+           "build_s": build_s, "seconds": seconds,
+           "launches": launches["window_mips"],
+           **kernel1_twin_check(q[:n_check], items, w, n)}
+    with torch.no_grad():
+        rec["kernel_ms"] = timer(lambda: mw.window_candidates(q, items, w, n), 5)
+    rec["bound_ms"], rec["bound_by"] = window_bound(rec, 2, 4, "bf16")
+    rec["recall_at_500"] = {key: report[f"kernel_recall_at_500_{key}"]
+                            for key in ("mean", "min", "p10")}
+    rec["bin_model_recall"] = report["bin_model_recall"]
+    print(json.dumps({"recall_10m_check": rec}), flush=True)
+    del items
+    _check_agreement("recall_10m", rec)
+    if dev.type == "cuda" and (body != "tensor_cores" or launches["window_mips"] < 1
+                               or rec["check_body"] != "tensor_cores"):
+        raise AssertionError(f"recall_10m missed kernel 1's tensor cores: {rec}")
+    if rec["recall_at_500"]["mean"] < rec["bin_model_recall"] - max_drop:
+        raise AssertionError(f"recall@500 at {n} rows more than {max_drop} under "
+                             f"the bin model: {rec}")
+    return rec
+
+
+def _check_queries(n_check: int, d: int, device) -> torch.Tensor:
+    """``n_check`` raw normal queries of the twin checks (``DRIVER_CHECK_SEED``)."""
+    return torch.as_tensor(np.random.default_rng(DRIVER_CHECK_SEED).normal(
+        size=(n_check, d)).astype(np.float32), device=device)
+
+
+def mips_ab_check(device, args, n_check: int = DRIVER_CHECK_Q) -> dict:
+    """``scripts/mips_ab.py`` through the port's script (kernel 1's launches
+    counted around exactly its run), then kernel 1 over its f32 corpus (the
+    CUDA-core body, on the card) and its bf16 one (the tensor cores), no
+    mask, each against the twin on ``n_check`` queries."""
+    from recommendit_tpu_torch.scripts import mips_ab
+
+    dev = torch.device(device)
+    data = mips_ab.make_corpus(args)
+    report, seconds, launches = _run_driver("mips_ab", lambda: mips_ab.run(args, data), dev)
+    mips_ab.write_report(report, args.out)
+    items = torch.as_tensor(data[1], device=dev)
+    del data
+    q = _check_queries(n_check, args.d, dev)
+    rec = {"seconds": seconds, "launches": launches["window_mips"], "check_q": n_check,
+           "f32": kernel1_twin_check(q, items, args.window, args.n),
+           "bf16": kernel1_twin_check(q, items.to(torch.bfloat16), args.window, args.n)}
+    print(json.dumps({"mips_ab_check": rec}), flush=True)
+    _check_agreement("mips_ab (f32 corpus)", rec["f32"])
+    _check_agreement("mips_ab (bf16 corpus)", rec["bf16"])
+    if dev.type == "cuda" and (rec["f32"]["check_body"] != "cuda_cores"
+                               or rec["bf16"]["check_body"] != "tensor_cores"
+                               or not launches["window_mips"]):
+        raise AssertionError(f"mips_ab missed a body of kernel 1: {rec}")
+    return rec
+
+
+def fused_decomp_check(device, args, n_check: int = DRIVER_CHECK_Q,
+                       window: int = FUSED_CHECK_WINDOW) -> dict:
+    """``scripts/fused_decomp.py`` through the port's script (kernel 1's
+    launches counted around exactly its run), then kernel 1 at ``window``
+    over its decimal corpus, the padded tail masked (``--n-dec`` valid
+    rows), against the twin on ``n_check`` queries (the tensor cores, on
+    the card)."""
+    from recommendit_tpu_torch.scripts import fused_decomp
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(0)
+    items_dec, items_bin = fused_decomp.make_corpora(rng, args, dev)
+    report, seconds, launches = _run_driver(
+        "fused_decomp", lambda: fused_decomp.run(args, (rng, items_dec, items_bin)), dev)
+    fused_decomp.write_report(report, args.out)
+    del items_bin
+    rec = {"seconds": seconds, "launches": launches["window_mips"], "report": report,
+           "check_q": n_check, "window": window, "n_valid": args.n_dec,
+           **kernel1_twin_check(_check_queries(n_check, args.d, dev), items_dec,
+                                window, args.n_dec)}
+    print(json.dumps({"fused_decomp_check": {k: v for k, v in rec.items()
+                                             if k != "report"}}), flush=True)
+    _check_agreement(f"fused_decomp (window {window}, masked)", rec)
+    if dev.type == "cuda" and (rec["check_body"] != "tensor_cores"
+                               or not launches["window_mips"]):
+        raise AssertionError(f"fused_decomp missed kernel 1's tensor cores: {rec}")
+    return rec
+
+
+def drivers_phase(device, seed: int, workdir: Path, card: str, args=DRIVER_ARGS,
+                  capacity=None, timer=cuda_ms) -> dict:
+    """The seven retrieval drivers of ``recommendit_tpu_torch/scripts`` in one
+    process, each corpus freed before the next: ``recall_10m`` (kernel 1 at
+    window 512, :func:`recall_10m_check`), ``capacity_30m`` (kernel 3,
+    :func:`capacity_phase`), ``mips_ab`` (kernel 1's f32 and bf16 bodies,
+    :func:`mips_ab_check`), ``fused_decomp`` (kernel 1 at window 32, the
+    tail masked, :func:`fused_decomp_check`), ``recall_curve``,
+    ``bound_turf`` and ``tail_probe``, then the timer's own cost
+    (:func:`timer_chain_cost`); ``args`` holds each driver's arguments. Each report and its seconds on
+    lines of their own; kernel 1's and 3's launches by driver."""
+    from recommendit_tpu_torch.scripts import (
+        bound_turf,
+        fused_decomp,
+        mips_ab,
+        recall_10m,
+        recall_curve,
+        tail_probe,
+    )
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    out = {"recall_10m": recall_10m_check(
+        dev, _driver_args(recall_10m, "recall_10m", args["recall_10m"], dev, workdir),
+        workdir, timer=timer)}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["capacity_30m"] = capacity_phase(
+        dev, seed, timer=timer, out=workdir / "drivers" / "capacity_30m.json",
+        **(capacity or {}))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["mips_ab"] = mips_ab_check(
+        dev, _driver_args(mips_ab, "mips_ab", args["mips_ab"], dev, workdir))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["fused_decomp"] = fused_decomp_check(
+        dev, _driver_args(fused_decomp, "fused_decomp", args["fused_decomp"], dev,
+                          workdir))
+    for name, module in (("recall_curve", recall_curve), ("bound_turf", bound_turf),
+                         ("tail_probe", tail_probe)):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        a = _driver_args(module, name, args[name], dev, workdir)
+        report, seconds, launches = _run_driver(name, lambda: module.run(a), dev)
+        module.write_report(report, a.out)
+        out[name] = {"seconds": seconds, "launches": launches["window_mips"],
+                     "report": report}
+    out["timer_chain"] = timer_chain_cost(dev)
+    out["launches"] = {"window_mips": {name: out[name]["launches"] for name in
+                                       ("recall_10m", "mips_ab", "fused_decomp")},
+                       "window_mips_i8": {"capacity_30m": out["capacity_30m"]["launches"]}}
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"drivers": {"seconds": out["seconds"],
+                                  "launches": out["launches"], "card": card}}), flush=True)
+    return out
 
 
 def bpr_bounds(b: int, d: int):
@@ -2124,6 +2473,17 @@ def bpr_bounds(b: int, d: int):
         out[name] = bound(n_bytes, ops, "f32")
         out[f"{name}_3xtf32"] = bound(n_bytes, 3 * ops, "tf32")
     return out
+
+
+def bpr_device_ms(name: str, fn, keep=None) -> dict:
+    """``{name}_device_ms``: the device time per call of ``fn()`` in the
+    kernels ``keep`` accepts, by ``torch.profiler`` (``_device_kernels_ms``
+    by kernel); by CUDA events where no profiler session recorded them
+    (``_device_ms_by`` says which)."""
+    kernels = device_kernel_ms(fn, 50, keep)
+    return {f"{name}_device_kernels_ms": kernels,
+            f"{name}_device_ms_by": "profiler" if kernels else "events",
+            f"{name}_device_ms": sum(kernels.values()) if kernels else cuda_ms(fn, 50)}
 
 
 def bpr_kernel_phase(device, seed: int, shapes=BPR_SHAPES, timer=cuda_ms):
@@ -2175,13 +2535,11 @@ def bpr_kernel_phase(device, seed: int, shapes=BPR_SHAPES, timer=cuda_ms):
                      "twin_fwd": lambda: bpr.in_batch_bpr_loss_ref(u, v),
                      "twin_bwd": lambda: bpr._bpr_bwd_ref(u, v, g)}
             for name, fn in calls.items():
-                kernels = device_kernel_ms(fn, 50)
-                if not name.startswith("twin"):   # the wrapper's loss mean is no part
-                    kernels = {k: ms for k, ms in kernels.items() if "bpr_" in k}
-                rec[f"{name}_device_ms"] = sum(kernels.values())
-                rec[f"{name}_device_kernels_ms"] = kernels
+                # the wrapper's loss mean is no part of the kernel's time
+                rec.update(bpr_device_ms(name, fn, None if name.startswith("twin")
+                                         else lambda k: "bpr_" in k))
             with full_f32_matmul():
-                rec["gemm_only_device_ms"] = sum(device_kernel_ms(lambda: u @ v.T, 50).values())
+                rec.update(bpr_device_ms("gemm_only", lambda: u @ v.T))
             rec["fwd_device_bound_share"] = rec["bound_fwd_ms"] / rec["fwd_device_ms"]
             rec["bwd_device_bound_share"] = rec["bound_bwd_ms"] / rec["bwd_device_ms"]
         rec["fwd_bound_share"] = rec["bound_fwd_ms"] / rec["fwd_ms"]
@@ -2332,8 +2690,6 @@ def train_profile_phase(view, device, seed: int, steps: int = PROFILE_STEPS,
     host clock per step and the share of it the device is idle. The epoch's
     close (the loss read-back, the catalog embedding of the returned model)
     is inside the window. On the card only."""
-    from torch.profiler import ProfilerActivity, profile
-
     from recommendit_tpu_torch.training import EmbeddingTrainer
 
     small = profile_view(view, steps, batch)
@@ -2341,11 +2697,13 @@ def train_profile_phase(view, device, seed: int, steps: int = PROFILE_STEPS,
     for mode, use_kernel in (("kernels", True), ("twins", False)):
         cfg = _train_cfg(seed, "in_batch", dim, hidden, batch)
         cfg = cfg.replace(USE_PALLAS=use_kernel)
-        trainer = EmbeddingTrainer(small, cfg, model_output_path="", device=device)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+        def body(trainer):
             trainer.train(epochs=1)
-            torch.cuda.synchronize()
+            return trainer
+
+        prof, trainer = profiled(body, setup=lambda: EmbeddingTrainer(
+            small, cfg, model_output_path="", device=device))
         hist = trainer.history[0]
         n = hist["steps"]
         groups, bpr_kernels, launches = {}, {}, 0
@@ -3823,15 +4181,14 @@ def _profile_steps(fn, batches):
     """``torch.profiler`` over ``fn(b)`` for each of ``batches``: per step,
     the host clock (ms), the device's kernel time (µs) and launches, the
     idle share, and the 5 kernels with the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def body():
         t0 = time.perf_counter()
         for b in batches:
             fn(b)
         torch.cuda.synchronize()
-        host_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+        return 1e3 * (time.perf_counter() - t0) / len(batches)
+
+    prof, host_ms = profiled(body)
     kernels, launches = {}, 0
     for key, dev_us, count in device_events(prof):
         name = _short_kernel_name(key)
@@ -4634,7 +4991,8 @@ def main(argv=None) -> int:
     del data      # the parallel phase, last, reads paths' files again
     torch.cuda.empty_cache()
 
-    capacity = capacity_phase(device, args.seed)
+    drivers = drivers_phase(device, args.seed, workdir, card)
+    capacity = drivers["capacity_30m"]
     print(json.dumps({"capacity": capacity, "card": card}), flush=True)
     torch.cuda.empty_cache()
 
@@ -4697,6 +5055,12 @@ def main(argv=None) -> int:
                              for lv in http["bf16"]["levels"]),
         "gbdt_launches": gbdt_serve["launches"]["window_mips"],
         "quality_launches": quality["launches"]["window_mips"],
+        # the retrieval drivers: window 512 over 10M rows (recall_10m), the
+        # f32 and bf16 bodies (mips_ab), windows 64 and 32 (fused_decomp)
+        **{f"{name}_launches": n for name, n in
+           drivers["launches"]["window_mips"].items()},
+        "w512_10m_ms": drivers["recall_10m"]["kernel_ms"],
+        "w512_10m_bound_ms": drivers["recall_10m"]["bound_ms"],
         "max_abs_err": max(c["window_max_abs_err"] for c in checks),
         "ms": main_q["kernel_ms"], "plain_ms": main_q["twin_ms"],
         "bound": window_bound(main_q, 2, 4, "bf16"), "library_ms": None,
@@ -4711,6 +5075,7 @@ def main(argv=None) -> int:
         "launches": serve_i8["launches"]["window_mips_i8"],
         "http_launches": sum(lv["launches"]["window_mips_i8"]
                              for lv in http["int8"]["levels"]),
+        "capacity_launches": capacity["launches"],
         "max_abs_err": max(c["window_max_abs_err"] for c in checks_i8),
         "ms": main_i8["kernel_ms"], "plain_ms": main_i8["twin_ms"],
         "bound": window_bound(main_i8, 1, 1, "int8", scales=True),

@@ -67,9 +67,10 @@ _REF_SCORE_BUDGET = 1 << 27   # score elements per int8 twin chunk (512 MB)
 # Kernel launches since the last reset, by kernel name. Only the CUDA
 # wrappers add to it, once per launch.
 LAUNCHES = {"window_mips": 0, "window_mips_qm": 0, "window_mips_i8": 0}
-# The body of csrc/window_mips_i8.cu ("tensor_cores" or "cuda_cores") that
-# its last launch took; None until one. Only the CUDA wrapper sets it.
-LAST_BODY = {"window_mips_i8": None}
+# The body of csrc/window_mips.cu (items-major entry) and of
+# csrc/window_mips_i8.cu ("tensor_cores" or "cuda_cores") that its last
+# launch took; None until one. Only the CUDA wrappers set it.
+LAST_BODY = {"window_mips": None, "window_mips_i8": None}
 
 
 def _check_window_args(n: int, k: int, block_items: int, window: int,
@@ -174,7 +175,8 @@ def _window_candidates_cuda(queries: torch.Tensor, items: torch.Tensor,
 
     q = round_queries(queries, items.dtype, precision)
     lib = load_library("window_mips")
-    if window_body(items.dtype, precision, d) == "tensor_cores":
+    body = window_body(items.dtype, precision, d)
+    if body == "tensor_cores":
         if items.data_ptr() % 16:
             raise ValueError("corpus must start 16-byte aligned")
         q = q.to(torch.bfloat16)     # exact: already rounded to bf16
@@ -201,6 +203,8 @@ def _window_candidates_cuda(queries: torch.Tensor, items: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     count_launch(LAUNCHES, name)
+    if not queries_major:
+        LAST_BODY["window_mips"] = body
     return vals, args
 
 

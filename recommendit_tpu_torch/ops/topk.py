@@ -99,8 +99,12 @@ def score_matrix(queries: torch.Tensor, items: torch.Tensor,
         return q @ it.T
 
 
-def fast_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k along the last axis, sorted descending."""
+def fast_topk(scores: torch.Tensor, k: int, recall_target: float = 1.0
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k along the last axis, sorted descending, with JAX's
+    signature (``fast_topk``, ``ops/topk.py:51``). JAX selects with
+    ``lax.approx_max_k`` below ``recall_target`` 1; ``torch.topk`` is exact
+    at every target (C.4), so the target changes nothing here."""
     return torch.topk(scores, k, dim=-1, largest=True, sorted=True)
 
 
@@ -148,7 +152,7 @@ def mips_topk(
     if mode == "exact":
         if n_valid is not None and n_valid < n:
             item_embs = item_embs[:n_valid]
-        if q < _WINDOWED_MIN_Q and q * item_embs.shape[0] <= _SCORE_BUDGET:
+        if q < _WINDOWED_MIN_Q and len(exact_score_blocks(q, item_embs.shape[0])) == 1:
             # few queries within one chunk: one product and one top-k; the
             # window-max pruning's extra launches cost more than they save
             # below 32 queries over 1M rows (tools/exact_topk_ab.py)
@@ -346,19 +350,44 @@ def _score_chunk(q: int) -> int:
     return max(_REDUCE_CHUNK, (_SCORE_BUDGET // q) // _REDUCE_CHUNK * _REDUCE_CHUNK)
 
 
+def exact_score_blocks(q: int, n: int):
+    """[(start, stop), ...]: the column blocks in which exact mode
+    (:func:`mips_topk`, :func:`_exact_topk`) scores ``q`` queries over ``n``
+    rows, one product a block — the whole corpus where it fits one chunk,
+    or below ``_WINDOWED_MIN_Q`` queries where ``q · n`` fits
+    ``_SCORE_BUDGET``; else ``_score_chunk(q)`` columns at a time, the last
+    block short. The one statement of exact mode's blocking."""
+    chunk = _score_chunk(q)
+    if (q < _WINDOWED_MIN_Q and q * n <= _SCORE_BUDGET) or n <= chunk:
+        return [(0, n)]
+    return [(s, min(n, s + chunk)) for s in range(0, n, chunk)]
+
+
+def exact_scores(queries: torch.Tensor, item_embs: torch.Tensor) -> torch.Tensor:
+    """(Q, N) full-f32 scores made of the very products exact mode takes
+    (:func:`exact_score_blocks`), so each entry is bit-equal to the score
+    :func:`mips_topk` ranks it by on the same device and operands. A
+    reference, not a search: the (Q, N) matrix is whole."""
+    queries = queries.float()
+    return torch.cat([score_matrix(queries, item_embs[s:e], _EXACT)
+                      for s, e in exact_score_blocks(queries.shape[0],
+                                                     item_embs.shape[0])], dim=1)
+
+
 def _exact_topk(queries: torch.Tensor, item_embs: torch.Tensor, k: int):
     """Exact top-k at any corpus size (``_exact_topk``, ``:226``): full-f32
-    scores in column chunks of ``_score_chunk`` (the last one padded with
-    -inf, as JAX pads it), each reduced by the windowed path and merged."""
-    q, n = queries.shape[0], item_embs.shape[0]
+    scores in the column blocks of :func:`exact_score_blocks`, each reduced
+    by the windowed path and merged; where there are several, each is
+    padded with -inf to the first's width, as JAX pads its chunks."""
     queries = queries.float()
-    chunk = _score_chunk(q)
-    if n <= chunk:
+    blocks = exact_score_blocks(queries.shape[0], item_embs.shape[0])
+    if len(blocks) == 1:
         return _windowed_exact_topk(score_matrix(queries, item_embs, _EXACT), k)
-    vals, idxs = _init_topk(q, k, queries.device)
-    for start in range(0, n, chunk):
+    chunk = blocks[0][1]
+    vals, idxs = _init_topk(queries.shape[0], k, queries.device)
+    for start, stop in blocks:
         scores = _pad_cols_to(
-            score_matrix(queries, item_embs[start:start + chunk], _EXACT), chunk)
+            score_matrix(queries, item_embs[start:stop], _EXACT), chunk)
         bv, bi = _windowed_exact_topk(scores, min(k, chunk))
         del scores      # one chunk's scores live at a time
         vals, idxs = _merge(vals, idxs, bv, bi + start, k, _chunked_exact_reduce)

@@ -10,9 +10,10 @@ JAX's flags and report keys. Then the sharded retrieval check: the index's
 real rows (``n_total`` rows, ``embedding_dim`` + bias columns) row-sharded
 over ``--nproc`` ranks (``parallel/launch.spawn``: NCCL, one card a rank,
 or gloo with ``--device cpu``), both merges called in JAX's form
-``fn(q, shard, k, mesh, 4096)`` against the single-device
-``mips_topk(q, e, k, 4096)``, with JAX's two assertions on the
-host-canonicalised lists and 5 timed calls of each merge.
+``fn(q, shard, k, mesh, 4096)`` against a single-device exact top-k
+that scores the corpus in shard-shaped blocks (:func:`shard_blocked_topk`,
+C.60), with JAX's two assertions on the host-canonicalised lists and 5
+timed calls of each merge.
 
 Usage (on the card; ``--device cpu`` runs it on the CPU):
   python -m recommendit_tpu_torch.scripts.quality_at_scale --ratings 4000000 \\
@@ -64,10 +65,29 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def shard_blocked_topk(q: torch.Tensor, embs: torch.Tensor, k: int, nproc: int):
+    """The single-device reference of the sharded check (C.60): the
+    corpus scored in column blocks of exactly one shard's rows — each a
+    fresh contiguous copy, as ``Sharding.shard`` makes it, scored by
+    ``exact_scores``, the very products a rank's ``mips_topk`` takes over
+    its shard — then one exact top-k over all the scores. A product's f32
+    rounding may change with its shape (and on the CPU with the thread
+    count), so only these blocks make the merges' values bit-equal to it
+    on any host."""
+    from recommendit_tpu_torch.ops.topk import exact_scores, fast_topk
+
+    rows = embs.shape[0] // nproc
+    scores = torch.cat([exact_scores(q, embs[r * rows:(r + 1) * rows].clone())
+                        for r in range(nproc)], dim=1)
+    return fast_topk(scores, k)
+
+
 def sharded_rank(q: np.ndarray, embs: np.ndarray, k: int) -> dict:
     """One rank of the sharded check: this rank's rows of ``embs`` on a
     (1, world) mesh, both merges in JAX's call form, then ``TIMED_CALLS``
-    calls of each → {merge: (values, ids, seconds a call)}."""
+    calls of each → {merge: (values, ids, seconds a call)}; rank 0 adds
+    ``reference``, :func:`shard_blocked_topk` on its own device and under
+    the ranks' thread count."""
     from recommendit_tpu_torch.parallel import (
         create_mesh,
         row_sharded,
@@ -94,6 +114,10 @@ def sharded_rank(q: np.ndarray, embs: np.ndarray, k: int) -> dict:
             fn(qd, shard, k, mesh, BLOCK)
         _sync(dev)
         out[name] = (v, i, (time.perf_counter() - t0) / TIMED_CALLS)
+    if dist.get_rank() == 0:
+        rv, ri = shard_blocked_topk(qd, torch.as_tensor(embs, device=dev), k,
+                                    dist.get_world_size())
+        out["reference"] = (rv.cpu().numpy(), ri.cpu().numpy())
     return out
 
 
@@ -102,7 +126,6 @@ def sharded_check(index, nproc: int, device) -> dict:
     index's real rows padded to a multiple of ``nproc`` with JAX's rule:
     zero rows with a -1e9 bias, a bias column appended where the index has
     none."""
-    from recommendit_tpu_torch.ops.topk import mips_topk
     from recommendit_tpu_torch.parallel.launch import spawn
 
     n = index.n_total
@@ -125,13 +148,8 @@ def sharded_check(index, nproc: int, device) -> dict:
     q = np.concatenate([q, np.ones((batch, 1), np.float32)], axis=1)
 
     dev = torch.device(device)
-    ref_v, ref_i = mips_topk(torch.as_tensor(q, device=dev),
-                             torch.as_tensor(embs, device=dev), k, BLOCK)
-    rv, ri = _canon(ref_v.cpu().numpy(), ref_i.cpu().numpy())
-    del ref_v, ref_i
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
     ranks = spawn(sharded_rank, nproc, (q, embs, k), device=dev.type)
+    rv, ri = _canon(*ranks[0]["reference"])
 
     timings = {}
     for name in ("allgather", "ring"):

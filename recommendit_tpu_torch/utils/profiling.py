@@ -5,7 +5,9 @@
 activity, and CUDA activity where a card is present) and writes it as a
 Chrome trace JSON that Perfetto opens; :func:`time_jitted` keeps JAX's name
 and dict, synchronising the card where JAX blocks on the result;
-:class:`StageTimer` is a copy of JAX's.
+:class:`StageTimer` is a copy of JAX's; :func:`device_loop_time` is the
+chained loop timer of the repository's ``bench.py`` (``device_loop_time``),
+which the retrieval drivers share.
 """
 from __future__ import annotations
 
@@ -75,6 +77,66 @@ def time_jitted(fn: Callable, *args, iters: int = 50, warmup: int = 2) -> Dict:
         "p90_ms": float(np.percentile(times, 90) * 1e3),
         "iters": iters,
     }
+
+
+def device_loop_time(step: Callable, q0: torch.Tensor, *args, iters: int = 50,
+                     rounds: int = 3, stats: Dict = None) -> float:
+    """Seconds per iteration of ``step(q, *args) -> (vals, ...)``, the best
+    of ``rounds`` timed rounds of ``iters`` chained iterations after one
+    untimed round — ``bench.py::device_loop_time`` without ``jit``.
+
+    Chained as JAX's drivers chain them: each iteration's input is the
+    previous one with ``1e-6 · v[:, :1]`` of the previous output ``v``
+    added to its first column, in place on a copy of ``q0`` — one launch an
+    iteration, so the chain costs little host time beside the step (the
+    host enqueues every launch: a step that launches less device work
+    than the host's enqueue time is timed at the host's rate, which
+    ``stats`` shows) — and each round starts from the last round's start
+    moved by ``1e-6 · (acc mod 1 + 1)``, ``acc`` the last round's final
+    ``q[0, 0]``. So each call waits for the one before, and no two calls
+    get the same f32 inputs unless a step's output is 0 in that column; a
+    step that rounds its queries to bf16 loses a move this small, and may
+    see equal rounded queries (eager PyTorch caches no result, so that
+    costs the timing nothing). A round is timed by CUDA events on the card
+    and by the host clock, after the work is done, on the CPU. ``stats``,
+    where given, receives each round's ms an iteration (``round_ms``) and
+    the host's ms an iteration to enqueue it (``enqueue_ms``; where it is
+    as long as the round, the card waited on the host)."""
+    cuda = q0.device.type == "cuda"
+
+    def run(q):
+        q = q.clone()
+        for _ in range(iters):
+            out = step(q, *args)
+            v = out[0] if isinstance(out, (tuple, list)) else out
+            q[:, :1].add_(v[:, :1], alpha=1e-6)
+        return q[0, 0].float()
+
+    acc = float(run(q0))                       # warm-up: builds, caches
+    round_ms, enqueue_ms = [], []
+    for _ in range(rounds):
+        q0 = q0 + 1e-6 * (acc % 1.0 + 1.0)
+        if cuda:
+            torch.cuda.synchronize(q0.device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            acc_t = run(q0)
+            end.record()
+            enqueued = time.perf_counter() - t0
+            end.synchronize()
+            seconds = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            acc_t = run(q0)
+            seconds = enqueued = time.perf_counter() - t0
+        acc = float(acc_t)
+        round_ms.append(seconds * 1e3 / iters)
+        enqueue_ms.append(enqueued * 1e3 / iters)
+    if stats is not None:
+        stats.update(round_ms=round_ms, enqueue_ms=enqueue_ms)
+    return min(round_ms) / 1e3
 
 
 class StageTimer:

@@ -83,6 +83,14 @@ MODULES = [
     "recommendit_tpu_torch.scripts.quality_at_scale",
     "recommendit_tpu_torch.scripts.seed_variance",
     "recommendit_tpu_torch.scripts.ranker_ab",
+    "recommendit_tpu_torch.scripts.retrieval_common",
+    "recommendit_tpu_torch.scripts.recall_10m",
+    "recommendit_tpu_torch.scripts.capacity_30m",
+    "recommendit_tpu_torch.scripts.recall_curve",
+    "recommendit_tpu_torch.scripts.bound_turf",
+    "recommendit_tpu_torch.scripts.mips_ab",
+    "recommendit_tpu_torch.scripts.fused_decomp",
+    "recommendit_tpu_torch.scripts.tail_probe",
     "recommendit_tpu_torch.utils.profiling",
     "recommendit_tpu_torch.utils.native_build",
     "recommendit_tpu_torch.data.native",

@@ -16,6 +16,11 @@ one ranker's candidates alike). Then:
 * the port's sharded block ran on 4 gloo ranks and matched the single
   device (JAX's script runs its block on one device: on the virtual
   mesh its own assertion fails at this size, C.59);
+* C.60: on 4 gloo ranks the sharded check's reference, which scores the
+  corpus in shard-shaped blocks, equals both merges bit for bit, at a
+  shape where one product over the whole corpus may round otherwise; the
+  reference's products are the shard products a rank's ``mips_topk``
+  takes (a spy on ``score_matrix``);
 * ``ranker_ab`` over the port's work-dir at two β values writes the
   variant's ranker at its own path and appends one line to ``--log``, and
   JAX's ``evaluate`` on that ranker equals the port's rows within 1e-6.
@@ -28,8 +33,11 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from recommendit_tpu.config import Settings as JaxSettings
+from recommendit_tpu_torch.ops import topk
+from recommendit_tpu_torch.parallel.launch import spawn
 from recommendit_tpu_torch.scripts import quality_at_scale, ranker_ab
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -161,3 +169,70 @@ def test_jax_evaluate_on_the_variant_equals_the_rows(ab_run):
         for key, jax_key in AB_ROWS.items():
             np.testing.assert_allclose(row[key], rep[jax_key], rtol=0, atol=TOL,
                                        err_msg=f"beta {row['beta']} {key}")
+
+
+def _c60_inputs(n=200, d=65, n_q=256, seed=0):
+    """A corpus where, on an f32 CPU GEMM, the whole-corpus product may
+    round otherwise than the four 50-row shard products (C.60)."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n_q, d)).astype(np.float32),
+            rng.normal(size=(n, d)).astype(np.float32))
+
+
+def test_c60_reference_equals_both_merges_bit_for_bit():
+    q, embs = _c60_inputs()
+    k = 100
+    ranks = spawn(quality_at_scale.sharded_rank, 4, (q, embs, k), device="cpu",
+                  timeout=240)
+    rv, ri = quality_at_scale._canon(*ranks[0]["reference"])
+    for name in ("allgather", "ring"):
+        for r in ranks:
+            v, i = quality_at_scale._canon(*r[name][:2])
+            np.testing.assert_array_equal(v, rv, err_msg=name)   # bit for bit
+            np.testing.assert_array_equal(i, ri, err_msg=name)
+
+
+def _spy_products(monkeypatch):
+    shapes = []
+    inner = topk.score_matrix
+
+    def spy(queries, items, precision="highest"):
+        shapes.append((tuple(queries.shape), tuple(items.shape), precision))
+        return inner(queries, items, precision)
+
+    monkeypatch.setattr(topk, "score_matrix", spy)
+    return shapes
+
+
+@pytest.mark.parametrize("n_q", [8, 256])
+def test_c60_reference_scores_in_shard_shaped_blocks(monkeypatch, n_q):
+    q, embs = _c60_inputs(n_q=n_q)
+    qt, et = torch.as_tensor(q), torch.as_tensor(embs)
+    shapes = _spy_products(monkeypatch)
+    v, i = quality_at_scale.shard_blocked_topk(qt, et, 100, 4)
+    assert shapes == [((n_q, 65), (50, 65), "highest")] * 4
+    # the products a rank's exact search takes over its shard
+    del shapes[:]
+    topk.mips_topk(qt, et[50:100].clone(), 50, 4096)
+    assert shapes == [((n_q, 65), (50, 65), "highest")]
+    # one exact top-k over the blocks' scores
+    want = torch.cat([qt @ et[r * 50:(r + 1) * 50].clone().T for r in range(4)], dim=1)
+    wv, wi = torch.topk(want, 100)
+    assert torch.equal(v, wv) and torch.equal(i, wi)
+
+
+def test_exact_score_blocks_are_the_chunks_exact_mode_scores(monkeypatch):
+    """Past one chunk exact mode scores ``_score_chunk(q)`` columns a
+    product; ``exact_scores`` takes the same products."""
+    monkeypatch.setattr(topk, "_SCORE_BUDGET", 8 * topk._REDUCE_CHUNK)
+    q, embs = _c60_inputs(n=3 * topk._REDUCE_CHUNK + 100, d=8, n_q=40, seed=2)
+    qt, et = torch.as_tensor(q), torch.as_tensor(embs)
+    blocks = topk.exact_score_blocks(40, et.shape[0])
+    assert len(blocks) == 4 and blocks[-1][1] == et.shape[0]
+    shapes = _spy_products(monkeypatch)
+    topk.mips_topk(qt, et, 30)
+    searched = list(shapes)
+    del shapes[:]
+    scores = topk.exact_scores(qt, et)
+    assert shapes == searched == [((40, 8), (e - s, 8), "highest") for s, e in blocks]
+    assert scores.shape == (40, et.shape[0])

@@ -69,11 +69,19 @@ def test_batched_assembly_matches_rowwise(seed):
 
 
 def test_assembly_matches_jnp():
+    """Bit for bit against ``assemble_packed_jnp``. The user's genre shares
+    lie on a 2^-10 grid, so the affinity (a sum of up to 18 of them, each
+    under 8 in magnitude) is exact in f32 in any order: the two packages'
+    dot kernels sum in host-dependent orders, which at sums near 6.5 put
+    1e-6 within 2 ulp (C.61). The affinity's rounding on unrounded shares
+    is ``test_assemble_packed_matches_numpy``'s, against its bound."""
     u, items = _inputs(9, 500, 64)
+    nu = len(schema.USER_SCALAR_COLS)
+    u[nu:nu + schema.N_GENRES] = np.round(u[nu:nu + schema.N_GENRES] * 1024) / 1024
     want = np.asarray(jax_schema.assemble_packed_jnp(jnp.asarray(u),
                                                      jnp.asarray(items)))
     got = schema.assemble_packed(torch.as_tensor(u), torch.as_tensor(items))
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("kind", ["numpy", "torch"])

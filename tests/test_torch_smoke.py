@@ -218,6 +218,76 @@ def test_capacity_phase_on_the_twin():
     assert rec["queries_per_s"] > 0
 
 
+TINY_DRIVERS = {
+    "recall_10m": ("--n", "200000", "--d", "16", "--k", "10", "--queries", "6"),
+    "mips_ab": ("--n", "8192", "--d", "16", "--k", "10", "--qs", "4", "--iters", "1",
+                "--recall-queries", "4"),
+    "fused_decomp": ("--qs", "4", "--k", "10", "--d", "16", "--iters", "1",
+                     "--n-dec", "10000", "--n-bin", "8192"),
+    "recall_curve": ("--n-items", "3000", "--dim", "16", "--k", "10", "--batch", "8",
+                     "--block", "1024", "--iters", "1"),
+    "bound_turf": ("--n", "256", "--dims", "32", "64", "--q", "8", "--k", "10",
+                   "--m", "64", "--iters", "1"),
+    "tail_probe": ("--q", "4", "--k", "10", "--n-cand", "200", "--iters", "1"),
+}
+
+
+def test_drivers_phase_on_the_twins(tmp_path):
+    """The drivers phase through the twins: every report written under the
+    workdir, the twin checks at zero error, no launch on the CPU."""
+    out = chip_smoke.drivers_phase(
+        "cpu", 0, tmp_path, "cpu", args=TINY_DRIVERS, timer=_host_ms,
+        capacity=dict(n_rows=20_000, dim=16, n_q=8, n_check=6, k=10, chunk=7000,
+                      block=1024, iters=1, min_recall=0.5))
+    names = ["recall_10m", "capacity_30m", "mips_ab", "fused_decomp", "recall_curve",
+             "bound_turf", "tail_probe"]
+    assert [n for n in out if n in names] == names
+    for name in names:
+        assert (tmp_path / "drivers" / f"{name}.json").exists(), name
+    r10 = out["recall_10m"]
+    assert r10["window"] == 512 and r10["n_pad"] == 200_704 and r10["body"] is None
+    assert r10["window_max_abs_err"] == 0.0 and r10["args_equal_share"] == 1.0
+    assert r10["recall_at_500"]["mean"] >= r10["bin_model_recall"] - 0.01
+    for body in ("f32", "bf16"):
+        rec = out["mips_ab"][body]
+        assert rec["window_max_abs_err"] == 0.0 and rec["args_equal_share"] == 1.0
+        assert rec["check_body"] is None                  # the twin, on the CPU
+    fd = out["fused_decomp"]
+    assert (fd["window"], fd["n_valid"], fd["check_q"]) == (32, 10_000, 8)
+    assert fd["window_max_abs_err"] == 0.0 and fd["args_equal_share"] == 1.0
+    assert [r["variant"] for r in fd["report"]["rows"]][:2] == [
+        "dec1M_w64_masked", "dec1M_w32_masked"]
+    assert out["capacity_30m"]["window"] == 512
+    assert out["capacity_30m"]["script"]["window"] == 512
+    assert len(out["timer_chain"]["round_ms"]) == 4 and out["timer_chain"]["best_ms"] > 0
+    assert out["launches"] == {
+        "window_mips": {"recall_10m": 0, "mips_ab": 0, "fused_decomp": 0},
+        "window_mips_i8": {"capacity_30m": 0}}
+
+
+def test_window_agreement_reads_ties_and_the_masked_tail():
+    """Positions that differ from the twin's count as ties only where the
+    twin's score at the kernel's position is its maximum within the
+    rounding; a masked window's position scores -3e38."""
+    from recommendit_tpu_torch.ops import mips_window as mw
+
+    items = torch.zeros((16, 4))
+    items[1] = items[2] = torch.tensor([1.0, 0, 0, 0])   # a tie in window 0
+    items[5] = torch.tensor([0.5, 0, 0, 0])
+    q = torch.tensor([[1.0, 0, 0, 0]])
+    rv, ra = mw.window_candidates_ref(q, items, 4, 10, "highest")
+    ka = ra.clone()
+    ka[0, 0] = 2                       # the other member of the tie
+    rec = chip_smoke.window_agreement(q, items, rv, ka, rv, ra, 4, 10, "highest")
+    assert rec["args_tie_gap"] == 0.0 and rec["args_equal_share"] == 0.75
+    ka[0, 0], ka[3, 0] = 3, 1          # a zero row; a row of the masked window
+    rec = chip_smoke.window_agreement(q, items, rv, ka, rv, ra, 4, 10, "highest")
+    assert rec["args_tie_gap"] == 1.0
+    ka[0, 0] = ra[0, 0]
+    rec = chip_smoke.window_agreement(q, items, rv, ka, rv, ra, 4, 10, "highest")
+    assert rec["args_tie_gap"] == 0.0
+
+
 def test_bpr_kernel_phase_on_the_twins():
     recs = chip_smoke.bpr_kernel_phase("cpu", 0, shapes=((64, 16), (50, 16)),
                                        timer=_host_ms)

@@ -1,7 +1,8 @@
 """Helpers of ``chip_smoke.py``'s checks, on the CPU: the profiler windows
 that ``check_profiled_windows`` expects against those ``torch.profiler``'s
-schedule makes, and the sparse seen mask of the quality phase against the
-dense mask that ``check_eval_lists`` reads elsewhere."""
+schedule makes, the sparse seen mask of the quality phase against the
+dense mask that ``check_eval_lists`` reads elsewhere, and the profiler
+sessions taken again where one recorded no kernel (``profiled``)."""
 import warnings
 
 import numpy as np
@@ -84,3 +85,59 @@ def test_seen_rows_read_as_the_dense_mask():
     for u in users:
         np.testing.assert_array_equal(seen[u, cols], dense[u, cols])
         np.testing.assert_array_equal(seen[u, 1:], dense[u, 1:])
+
+
+class _Session:
+    """A stand-in for ``torch.profiler.profile`` as ``profiled`` opens it."""
+
+    def __init__(self, activities):
+        self.activities = activities
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+@pytest.mark.parametrize("sessions, keep, taken", [
+    ([[], [], [("bpr_fwd", 5.0, 1)]], None, 3),
+    ([[("mul", 2.0, 1)], [("bpr_bwd", 5.0, 1)]], lambda k: k.startswith("bpr_"), 2),
+    ([[("mul", 2.0, 1)]], None, 1),
+    ([[], [], [], [("bpr_fwd", 5.0, 1)]], None, chip_smoke.PROFILE_TRIES),  # gives up
+])
+def test_profiled_takes_a_new_session_while_it_records_nothing(monkeypatch, sessions,
+                                                                keep, taken):
+    """``profiled`` opens a new session, with a new ``setup()``, while the
+    last one recorded no kernel that ``keep`` accepts, at most
+    ``PROFILE_TRIES`` times, and returns the last session and the body's
+    result in it."""
+    import torch.profiler
+
+    opened, setups = [], []
+
+    def session(activities):
+        opened.append(_Session(activities))
+        return opened[-1]
+
+    monkeypatch.setattr(torch.profiler, "profile", session)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "device_events",
+                        lambda prof: iter(sessions[opened.index(prof)]))
+    prof, res = chip_smoke.profiled(lambda s: ("ran", s), keep,
+                                    setup=lambda: setups.append(1) or len(setups))
+    assert len(opened) == len(setups) == taken <= chip_smoke.PROFILE_TRIES
+    assert prof is opened[-1] and res == ("ran", taken)
+    assert all(ProfilerActivity.CUDA in s.activities for s in opened)
+
+
+@pytest.mark.parametrize("kernels, by, ms", [({"bpr_fwd": 0.125, "bpr_x": 0.25}, "profiler", 0.375),
+                                             ({}, "events", 0.5)])
+def test_bpr_device_ms_times_by_events_where_no_session_recorded(monkeypatch, kernels,
+                                                                  by, ms):
+    """The BPR phase's device time comes from the profiler's kernels, and
+    from CUDA events where no session recorded them, which it says."""
+    monkeypatch.setattr(chip_smoke, "device_kernel_ms", lambda fn, reps, keep=None: kernels)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps: 0.5)
+    assert chip_smoke.bpr_device_ms("fwd", lambda: None) == {
+        "fwd_device_kernels_ms": kernels, "fwd_device_ms_by": by, "fwd_device_ms": ms}

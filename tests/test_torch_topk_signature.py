@@ -211,3 +211,23 @@ def test_sharded_serve_takes_block_size(block_size_runs):
         np.testing.assert_array_equal(ids, want_ids)
         np.testing.assert_allclose(scores, want_scores, rtol=0, atol=VAL_TOL)
         np.testing.assert_allclose(rvals, want_rvals, rtol=0, atol=VAL_TOL)
+
+
+def test_fast_topk_takes_jax_signature_and_stays_exact():
+    """``fast_topk(scores, k, recall_target=1.0)`` as JAX's
+    (``ops/topk.py:51``); at every target the exact top-k (C.4), equal to
+    JAX's exact selection."""
+    import inspect
+
+    want = inspect.signature(jtopk.fast_topk).parameters
+    got = inspect.signature(topk.fast_topk).parameters
+    assert list(got) == list(want)
+    assert got["recall_target"].default == want["recall_target"].default == 1.0
+    scores = np.random.default_rng(7).normal(size=(6, 3000)).astype(np.float32)
+    wv, wi = jtopk.fast_topk(jnp.asarray(scores), 40)
+    for target in (1.0, 0.99, 0.95, 0.8):
+        v, i = topk.fast_topk(torch.as_tensor(scores), 40, target)
+        np.testing.assert_array_equal(v.numpy(), np.asarray(wv))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+        v, i = topk.fast_topk(torch.as_tensor(scores), 40, recall_target=target)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
