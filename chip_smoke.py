@@ -328,6 +328,26 @@ Phases (each failure raises, so the exit code is not 0):
    one product, so it runs in column chunks of ``_SCORE_BUDGET`` entries),
    the peak memory above the corpus under two chunks' scores, 16 queries'
    values and ids equal to ``_scan_topk`` at "highest" up to ties.
+26. sweeps phase: the last six drivers of ``recommendit_tpu_torch/scripts``
+   through their ``run``, at their own default widths with depth cut
+   (``SWEEPS_ARGS``, printed as ``sweeps_cuts``), the wrappers' counts set
+   to 0 just before each and read just after: ``tower_sweep`` (q3k, 3,000
+   x 2,000 x 400k, ``LOSS_MODE=in_batch``: kernels 5 and 6 once a tower
+   step; its retrieval-only NDCG@10 above a seeded random ranking's of the
+   same users, its popularity row equal to the same computation on the
+   CPU over its ``.dat`` files); ``blend_sweep`` at beta 0, 1, 2 over the
+   quality phase's work-dir (kernel 1 at each evaluate call's own count,
+   against its twins on that index; the ``retrieval_only_*`` fields equal
+   across beta, every full row finite); ``ladder_sweep`` under the
+   generator weights ``SWEEPS_WEIGHTS`` (kernels 5, 6 once a step of the
+   towers and the ranker stage's inner towers; the ladder finite; its
+   ``.dat`` files bit-equal to the port's generator on the CPU under the
+   same weights); ``ranker_headroom`` over its models (six finite
+   orderings; the fitted M's expected presents within 1 % of the realized
+   ratings); ``real_data`` with no data set in ``--data-dir`` (the golden
+   fixture: every stage, kernels 5, 6 once a step, the report written);
+   ``train_scope_bench`` at ML-1M shape (kernels 5, 6 once a step; its
+   line printed beside the card).
 
 Usage, from the repository root: ``python3 chip_smoke.py [--seed N]``.
 After the build it prints ptxas's registers, spills and shared memory of
@@ -4673,8 +4693,9 @@ class _WindowLaunches:
     15 + 15 serves of ``recalibrate_stage_split``), ``batch_recommend``
     (one batch of ``SERVE_BATCH`` users a launch) and
     ``MIPSIndex.batch_search`` (the retrieval-only row: one launch over a
-    fused index; the ranker stage's exact indexes none); ``calls`` holds
-    (method, launches, users, index mode) per call."""
+    fused index; the ranker stage's exact indexes none); over an exact
+    index none of them launches it. ``calls`` holds (method, launches,
+    users, index mode) per call."""
 
     def __enter__(self):
         from recommendit_tpu_torch.models.retrieval import MIPSIndex
@@ -4697,8 +4718,10 @@ class _WindowLaunches:
             before = launches["window_mips"]
             out = fn(obj, *a, **k)
             users = len(a[0]) if a else 0
-            calls.append((name, launches["window_mips"] - before, users,
-                          getattr(obj, "mode", None)))
+            # an index's mode, or a pipeline's index's
+            mode = getattr(obj, "mode", None) or getattr(
+                getattr(obj, "index", None), "mode", None)
+            calls.append((name, launches["window_mips"] - before, users, mode))
             return out
 
         return wrapped
@@ -4715,7 +4738,7 @@ class _WindowLaunches:
                 "batch_search": lambda u: 1}
         by = {}
         for name, got, users, mode in self.calls:
-            exp = want[name](users) if on_card and mode in (None, "fused") else 0
+            exp = want[name](users) if on_card and mode == "fused" else 0
             if got != exp:
                 raise AssertionError(f"{label}: {name} on {users} users launched the "
                                      f"window kernel {got} times, expected {exp}")
@@ -4903,6 +4926,257 @@ def quality_phase(device, seed: int, workdir: Path, card: str, qas_args=QUALITY_
     return rec
 
 
+# the sweeps phase: the last six drivers, each at its own default widths
+# with depth cut (SWEEPS_CUTS), in the order ROADMAP A.14 lists them
+SWEEPS_WEIGHTS = '{"exposure_quality": 0.2, "latent": 1.1}'
+SWEEPS_ARGS = {
+    "tower_sweep": ("--name", "smoke", "--seeds", "1", "--cfg", "LOSS_MODE=in_batch",
+                    "--cfg", "TRAIN_EPOCHS=10"),
+    "blend_sweep": ("--betas", "0,1,2", "--users", "162541", "--items", "62423"),
+    "ladder_sweep": ("--name", "smoke", "--weights", SWEEPS_WEIGHTS, "--epochs", "5",
+                     "--cfg", "LOSS_MODE=in_batch", "--cfg", "RANKER_EPOCHS=5"),
+    "ranker_headroom": ("--weights", SWEEPS_WEIGHTS),
+    "real_data": ("--cfg", "LOSS_MODE=in_batch"),
+    "train_scope_bench": ("chunk", "2", "--cfg", "LOSS_MODE=in_batch"),
+}
+SWEEPS_CUTS = {"tower_sweep": {"TRAIN_EPOCHS": "10 of 60", "seeds": "1 (the default)"},
+               "blend_sweep": {"betas": "0,1,2 of 0,0.5,1,2,4",
+                               "work-dir": "the quality phase's (its depth cut)"},
+               "ladder_sweep": {"epochs": "5 of 60", "RANKER_EPOCHS": "5 of 40"},
+               "ranker_headroom": {"models": "ladder_sweep's (5 epochs)"},
+               "real_data": {"data": "the golden fixture (no ML-1M set, no download)"},
+               "train_scope_bench": {"epochs": "2 of 5"}}
+SWEEPS_BPR = ("bpr_fwd", "bpr_bwd")
+DAT_FILES = ("ratings.dat", "users.dat", "movies.dat")
+
+
+def check_steps_launches(name: str, launches: dict, steps: int, on_card: bool) -> None:
+    """Kernels 5 and 6: exactly one launch each a tower step on the card,
+    none on the CPU."""
+    want = {k: (steps if on_card else 0) for k in SWEEPS_BPR}
+    got = {k: launches[k] for k in SWEEPS_BPR}
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want} ({steps} "
+                             "tower steps)")
+
+
+def check_tower_row(row: dict, popularity_ndcg: float, random_ndcg: float) -> None:
+    """tower_sweep's row: its popularity NDCG@10 equal to the same
+    computation on the CPU, its retrieval-only NDCG@10 above a seeded
+    random ranking's of the same users."""
+    if row["popularity_ndcg@10"] != popularity_ndcg:
+        raise AssertionError(f"tower_sweep popularity NDCG@10 "
+                             f"{row['popularity_ndcg@10']} != {popularity_ndcg} on the CPU")
+    if not row["retrieval_ndcg@10"] > random_ndcg:
+        raise AssertionError(f"tower_sweep retrieval-only NDCG@10 "
+                             f"{row['retrieval_ndcg@10']} does not beat a random "
+                             f"ranking's {random_ndcg}")
+
+
+def check_blend_rows(rows: list, betas: list) -> None:
+    """blend_sweep's rows: one a β, the ``retrieval_only_*`` fields equal
+    across β (the blend does not touch them), every full row finite."""
+    if [r["beta"] for r in rows] != betas:
+        raise AssertionError(f"blend_sweep betas {[r['beta'] for r in rows]}")
+    for key in ("retrieval_only_ndcg@10", "retrieval_only_recall@20"):
+        if len({r[key] for r in rows}) != 1:
+            raise AssertionError(f"blend_sweep {key} moves with beta: "
+                                 f"{[r[key] for r in rows]}")
+    for r in rows:
+        if not all(np.isfinite(r[k]) for k in ("full_ndcg@10", "full_recall@20",
+                                               "full_mrr")):
+            raise AssertionError(f"blend_sweep row not finite: {r}")
+
+
+def check_ladder(lines: list, keys) -> None:
+    """ladder_sweep's lines: every ladder field of every seed and of the
+    aggregate finite."""
+    for line in lines:
+        bad = {k: line.get(k) for k in keys if not np.isfinite(line.get(k, np.nan))}
+        if bad:
+            raise AssertionError(f"ladder_sweep ladder not finite: {bad}")
+
+
+def check_headroom(out: dict, orderings) -> None:
+    """ranker_headroom: six finite rows; the fitted M's expected presents
+    within 1 % of the realized ratings."""
+    if list(out["rows"]) != list(orderings):
+        raise AssertionError(f"ranker_headroom rows {list(out['rows'])}")
+    for name, rep in out["rows"].items():
+        if not all(np.isfinite(rep[k]) for k in ("ndcg@10", "recall@20", "mrr")):
+            raise AssertionError(f"ranker_headroom row {name} not finite: {rep}")
+    if not abs(out["expected_presents"] - out["realized"]) <= 0.01 * out["realized"]:
+        raise AssertionError(f"ranker_headroom: M {out['M']} expects "
+                             f"{out['expected_presents']} presents, realized "
+                             f"{out['realized']}")
+
+
+def check_real_data(report: dict, out: Path, stages) -> None:
+    """real_data on a data dir without a data set: the golden-fixture mode,
+    every stage timed, the report written where ``--out`` says."""
+    if report["mode"] != "golden-fixture" or report["comparable_to_reference"]:
+        raise AssertionError(f"real_data mode {report['mode']}")
+    if list(report["stage_seconds"]) != [*stages, "evaluate"]:
+        raise AssertionError(f"real_data stages {list(report['stage_seconds'])}")
+    if not out.exists() or json.loads(out.read_text()) != report:
+        raise AssertionError(f"real_data report not written at {out}")
+
+
+def _same_files(a: Path, b: Path, names=DAT_FILES) -> None:
+    for name in names:
+        if (a / name).read_bytes() != (b / name).read_bytes():
+            raise AssertionError(f"{a / name} differs from {b / name}")
+
+
+def _tower_sweep_baselines(args, row, seed: int) -> dict:
+    """The popularity row recomputed on the CPU from the driver's ``.dat``
+    files, and a seeded random ranking of the same users' unseen items."""
+    from recommendit_tpu_torch.data.movielens import load_movielens
+    from recommendit_tpu_torch.evaluation.metrics import evaluate_model
+    from recommendit_tpu_torch.pipelines.run_pipeline import first_unseen, temporal_split
+    from recommendit_tpu_torch.scripts import tower_sweep
+
+    data = load_movielens(f"{args.work_dir}/data")
+    split = temporal_split(data, args.eval_users, filter_seen=True)
+    meta = json.loads(Path(f"{args.work_dir}/{args.name}_s{row['seed']}/models/"
+                           "two_tower.npz.meta.json").read_text())
+    known = [u for u in split.users if 1 <= u <= meta["n_users"]]
+    pop = tower_sweep.popularity_report(data, split, known)
+    rng = np.random.default_rng(seed + 5)
+    items = np.asarray(data.item_ids, np.int64)
+    rand = {u: first_unseen(split.seen_train, u, rng.permutation(items), EVAL_K)
+            for u in known}
+    rand_rep = evaluate_model(rand, split.truth, k_values=[10, 20])
+    return {"popularity_ndcg@10": pop["ndcg@10"], "random_ndcg@10": rand_rep["ndcg@10"],
+            "users": len(known)}
+
+
+def sweeps_phase(device, seed: int, workdir: Path, card: str, args=SWEEPS_ARGS,
+                 blend_work: Path = None, scope_sizes=None):
+    """The last six drivers through their ``run`` with the arguments a user
+    passes (``args``; depth cut as ``SWEEPS_CUTS`` prints), each with the
+    wrappers' counts set to 0 just before and read just after
+    (``_script_run``): ``tower_sweep`` (q3k), ``blend_sweep`` over the
+    quality phase's work-dir (``blend_work``), ``ladder_sweep`` under
+    non-default generator weights, ``ranker_headroom`` over its models,
+    ``real_data`` on the golden fixture, ``train_scope_bench`` at ML-1M
+    shape (``scope_sizes`` overrides the sizes)."""
+    import shutil
+
+    from recommendit_tpu_torch.config import Settings
+    from recommendit_tpu_torch.data.movielens import save_movielens
+    from recommendit_tpu_torch.data.synthetic import make_synthetic_movielens
+    from recommendit_tpu_torch.scripts import (
+        blend_sweep,
+        ladder_sweep,
+        ranker_headroom,
+        real_data,
+        tower_sweep,
+        train_scope_bench,
+    )
+    from recommendit_tpu_torch.scripts.quality_at_scale import apply_overrides
+
+    root = workdir / "sweeps"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    on_card = torch.device(device).type == "cuda"
+    dev = ["--device", str(device)]
+    print(json.dumps({"sweeps_cuts": SWEEPS_CUTS, "card": card}), flush=True)
+    t_phase = time.perf_counter()
+    rec, launches = {}, {k: 0 for k in (*SWEEPS_BPR, "window_mips")}
+
+    def done(name, run, **extra):
+        rec[name] = {**run, **extra}
+        for k in launches:
+            launches[k] += run["launches"][k]
+        print(json.dumps({name: rec[name], "card": card}, default=float), flush=True)
+
+    # tower_sweep: q3k, one seed
+    a = tower_sweep.parse_args([*args["tower_sweep"], "--seed-base", str(seed), *dev,
+                                "--work-dir", str(root / "tower"),
+                                "--log", str(root / "tower_sweep.jsonl")])
+    lines, run, steps, _, window = _script_run(lambda: tower_sweep.run(a), device)
+    check_steps_launches("tower_sweep", run["launches"], steps, on_card)
+    window.check("tower_sweep", run["launches"]["window_mips"], on_card)
+    base = _tower_sweep_baselines(a, lines[0], seed)
+    check_tower_row(lines[0], base["popularity_ndcg@10"], base["random_ndcg@10"])
+    done("tower_sweep", run, steps=steps, row=lines[0], **base)
+
+    # blend_sweep over the quality phase's work-dir
+    a = blend_sweep.parse_args([*args["blend_sweep"], *dev, "--work-dir",
+                                str(blend_work or workdir / "quality" / "qscale"),
+                                "--out", str(root / "blend_sweep.json")])
+    rows, run, steps, evals, window = _script_run(lambda: blend_sweep.run(a), device)
+    check_steps_launches("blend_sweep", run["launches"], 0, on_card)
+    by_call = window.check("blend_sweep", run["launches"]["window_mips"], on_card)
+    if on_card and not by_call.get("batch_recommend"):
+        raise AssertionError("blend_sweep: no evaluate batch launched the window kernel")
+    check_blend_rows(rows, [float(b) for b in a.betas.split(",")])
+    twins = quality_kernel_check(evals[-1], device)
+    done("blend_sweep", run, rows=rows, window_by_call=by_call, kernel_twins=twins,
+         evaluate_calls=len(evals))
+
+    # ladder_sweep under non-default weights, then ranker_headroom on its models
+    a = ladder_sweep.parse_args([*args["ladder_sweep"], "--seed-base", str(seed), *dev,
+                                 "--work-dir", str(root / "ladder"),
+                                 "--log", str(root / "ladder_sweep.jsonl")])
+    out, run, steps, _, window = _script_run(lambda: ladder_sweep.run(a), device)
+    check_steps_launches("ladder_sweep", run["launches"], steps, on_card)
+    window.check("ladder_sweep", run["launches"]["window_mips"], on_card)
+    check_ladder([*out["lines"], out["summary"]], ladder_sweep.KEYS)
+    cfg = apply_overrides(Settings(), a.cfg)
+    weights = json.loads(a.weights)
+    save_movielens(make_synthetic_movielens(cfg.SYNTH_USERS, cfg.SYNTH_ITEMS,
+                                            cfg.SYNTH_RATINGS, a.data_seed,
+                                            weights=weights), str(root / "ladder_cpu"))
+    _same_files(root / "ladder" / f"{a.name}_data", root / "ladder_cpu")
+    done("ladder_sweep", run, steps=steps, lines=out["lines"], summary=out["summary"],
+         dat_equal_to_cpu=True)
+
+    models = root / "ladder" / f"{a.name}_s{seed}" / "models"
+    h = ranker_headroom.parse_args([*args["ranker_headroom"], *dev, "--seed",
+                                    str(a.data_seed), "--models-dir", str(models),
+                                    "--data-dir", str(root / "ladder" / f"{a.name}_data")])
+    out, run, steps, _, _ = _script_run(lambda: ranker_headroom.run(h), device)
+    check_steps_launches("ranker_headroom", run["launches"], 0, on_card)
+    if run["launches"]["window_mips"]:
+        raise AssertionError(f"ranker_headroom launched kernel 1: {run['launches']}")
+    check_headroom(out, ranker_headroom.ORDERINGS)
+    done("ranker_headroom", run, M=out["M"], expected_presents=out["expected_presents"],
+         realized=out["realized"], rows=out["rows"])
+
+    # real_data: a data dir with no data set takes the golden fixture
+    real = root / "real"
+    a = real_data.parse_args([*args["real_data"], *dev,
+                              "--data-dir", str(real / "ml-1m"),
+                              "--models-dir", str(real / "models"),
+                              "--features-dir", str(real / "features"),
+                              "--out", str(real / "REALDATA.json")])
+    report, run, steps, _, window = _script_run(lambda: real_data.run(a), device)
+    check_steps_launches("real_data", run["launches"], steps, on_card)
+    if on_card and not steps:
+        raise AssertionError("real_data trained no tower step")
+    window.check("real_data", run["launches"]["window_mips"], on_card)
+    check_real_data(report, real / "REALDATA.json", real_data.STAGES)
+    done("real_data", run, steps=steps, report=report)
+
+    # train_scope_bench at ML-1M shape
+    a = train_scope_bench.parse_args([*args["train_scope_bench"], *dev])
+    out, run, steps, _, _ = _script_run(lambda: train_scope_bench.run(
+        a.scope, a.epochs, a.cfg, a.device, seed=0, **(scope_sizes or {})), device)
+    check_steps_launches("train_scope_bench", run["launches"], steps, on_card)
+    if steps != sum(h["steps"] for h in out["history"]) or not steps:
+        raise AssertionError(f"train_scope_bench: {steps} tower steps, history "
+                             f"{out['history']}")
+    line = {k: v for k, v in out.items() if k != "history"}
+    done("train_scope_bench", run, steps=steps, line=line)
+    print(json.dumps({"train_scope_bench": line, "card": card}), flush=True)
+
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5041,6 +5315,10 @@ def main(argv=None) -> int:
     quality = quality_phase(device, args.seed, workdir, card)
     print(json.dumps({"quality_s": time.perf_counter() - t0,
                       "quality_launches": quality["launches"]}), flush=True)
+    torch.cuda.empty_cache()
+    sweeps = sweeps_phase(device, args.seed, workdir, card)
+    print(json.dumps({"sweeps_s": sweeps["seconds"],
+                      "sweeps_launches": sweeps["launches"]}), flush=True)
 
     print(json.dumps({"total_s": time.perf_counter() - t_start}), flush=True)
     main_q = checks[-1]
@@ -5055,6 +5333,7 @@ def main(argv=None) -> int:
                              for lv in http["bf16"]["levels"]),
         "gbdt_launches": gbdt_serve["launches"]["window_mips"],
         "quality_launches": quality["launches"]["window_mips"],
+        "sweeps_launches": sweeps["launches"]["window_mips"],
         # the retrieval drivers: window 512 over 10M rows (recall_10m), the
         # f32 and bf16 bodies (mips_ab), windows 64 and 32 (fused_decomp)
         **{f"{name}_launches": n for name, n in
@@ -5107,6 +5386,7 @@ def main(argv=None) -> int:
         "gbdt_pipeline_launches": gbdt_pipe["bpr_launches"]["bpr_fwd"],
         "parallel_launches": par["train"]["launches"]["bpr_fwd"],
         "quality_launches": quality["launches"]["bpr_fwd"],
+        "sweeps_launches": sweeps["launches"]["bpr_fwd"],
         "max_abs_err": max(abs(c["loss"] - c["twin_loss"]) for c in bpr_checks),
         "ms": main_b["fwd_device_ms"], "plain_ms": main_b["twin_fwd_device_ms"],
         "ms_1024x64": train_b["fwd_device_ms"],
@@ -5124,6 +5404,7 @@ def main(argv=None) -> int:
         "gbdt_pipeline_launches": gbdt_pipe["bpr_launches"]["bpr_bwd"],
         "parallel_launches": par["train"]["launches"]["bpr_bwd"],
         "quality_launches": quality["launches"]["bpr_bwd"],
+        "sweeps_launches": sweeps["launches"]["bpr_bwd"],
         "max_abs_err": max(c["grad_max_abs_err"] for c in bpr_checks),
         "ms": main_b["bwd_device_ms"], "plain_ms": main_b["twin_bwd_device_ms"],
         "ms_1024x64": train_b["bwd_device_ms"],

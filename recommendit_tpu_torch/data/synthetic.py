@@ -7,8 +7,11 @@ ML-1M marginals) drawn from the same numpy stream in the same order, so one
 seed gives the same ratings. It returns arrays (:class:`MovieLensData`)
 instead of DataFrames: the ratings, the users table with its demographics
 and zip codes, the catalog with its titles (``Synthetic Movie <id>
-(<year>)``), genre strings and genre matrix.
-``tests/test_torch_data.py`` holds it to the JAX generator value for value.
+(<year>)``), genre strings and genre matrix. ``weights`` overrides the
+rating model's weights and ``return_latents=True`` also returns the
+generative internals, as in JAX. ``tests/test_torch_data.py`` and
+``tests/test_torch_synthetic.py`` hold it to the JAX generator value for
+value.
 """
 from __future__ import annotations
 
@@ -44,19 +47,35 @@ class SynthWeights:
     exposure_latent: float = 2.2
     exposure_quality: float = 0.15
 
+    def replace(self, **kw) -> "SynthWeights":
+        return dataclasses.replace(self, **kw)
 
-_LATENT_DIM = 8
 
-
-def make_synthetic_movielens(n_users: int = 600, n_items: int = 400,
-                             n_ratings: int = 40_000,
-                             seed: int = 0) -> MovieLensData:
+def make_synthetic_movielens(
+    n_users: int = 600,
+    n_items: int = 400,
+    n_ratings: int = 40_000,
+    seed: int = 0,
+    latent_dim: int = 8,
+    return_latents: bool = False,
+    weights: "SynthWeights | dict | None" = None,
+):
     """A MovieLens-format data set; ``n_ratings`` is an upper bound, since
     repeated (user, item) pairs are dropped. Ratings come sorted by
-    timestamp as ``DataFrame.sort_values`` sorts them. The JAX generator's
-    weight overrides and latent width are fixed at their defaults here."""
-    w = SynthWeights()
-    latent_dim = _LATENT_DIM
+    timestamp as ``DataFrame.sort_values`` sorts them.
+
+    ``weights`` overrides the rating model's weights (a
+    :class:`SynthWeights` or a dict of its field overrides).
+    ``return_latents=True`` returns ``(data, latents)``: the generative
+    internals (tastes, latents, quality, popularity, activity, rating edges
+    and the score statistics) that oracle-ceiling diagnostics such as
+    ``scripts/ranker_headroom.py`` rebuild the true hit probability from."""
+    if weights is None:
+        w = SynthWeights()
+    elif isinstance(weights, dict):
+        w = SynthWeights().replace(**weights)
+    else:
+        w = weights
     rng = np.random.default_rng(seed)
     n_genres = len(GENRES)
 
@@ -173,10 +192,33 @@ def make_synthetic_movielens(n_users: int = 600, n_items: int = 400,
     timestamps = _T0 + rng.integers(0, 3 * 365 * 86400, size=u_idx.size)
 
     order = timestamp_order(timestamps)
-    return MovieLensData(
+    data = MovieLensData(
         user_id=user_ids[u_idx][order], item_id=item_ids[i_idx][order],
         rating=rating[order], timestamp=timestamps[order].astype(np.int64),
         user_ids=user_ids, item_ids=item_ids,
         genres=item_genre_mat.astype(np.float32),
         gender=genders, age=ages.astype(np.int64), occupation=occs.astype(np.int64),
         zip_code=zip_codes, titles=titles, genre_strs=genre_strs)
+    if not return_latents:
+        return data
+    latent_raw = np.einsum("nd,nd->n", user_latent[u_idx], item_latent[i_idx])
+    genre_raw = np.einsum("ng,ng->n", taste[u_idx], item_genre_unit[i_idx])
+    return data, {
+        "weights": w,
+        "taste": taste,
+        "user_latent": user_latent,
+        "user_bias": user_bias,
+        "item_latent": item_latent,
+        "item_genre_unit": item_genre_unit,
+        "item_quality": item_quality,
+        "item_pop": item_pop,
+        "activity": activity,
+        "rating_edges": edges,
+        "score_stats": {
+            "latent_mu": float(np.mean(latent_raw)),
+            "latent_sd": float(np.std(latent_raw)),
+            "genre_mu": float(np.mean(genre_raw)),
+            "genre_sd": float(np.std(genre_raw)),
+            "match_sd_exposure": float(np.std(genre_raw)),
+        },
+    }

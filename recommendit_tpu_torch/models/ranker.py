@@ -188,6 +188,12 @@ def batched_group_loss(params, x, gains, mask, loss_type: str = "lambdarank"):
     return (losses * usable).sum() / usable.sum().clamp(min=1.0)
 
 
+def batched_lambdarank_loss(params, x, gains, mask):
+    """Alias of :func:`batched_group_loss` with ``loss_type='lambdarank'``
+    (JAX's backward-compatible name)."""
+    return batched_group_loss(params, x, gains, mask, "lambdarank")
+
+
 def group_ndcg_at_k(scores, gains, mask, k: int):
     """NDCG@k of each padded group (a metric, not a loss): (B,) values and
     (B,) whether the group has any gain."""
@@ -579,3 +585,7 @@ class LambdaRankScorer:
                 for f, v in self.top_features(10)
             ],
         }
+
+
+# JAX's alias of the reference's class name
+LightGBMRanker = LambdaRankScorer

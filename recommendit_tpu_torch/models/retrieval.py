@@ -107,6 +107,9 @@ class MIPSIndex:
             rows, scales = rows.to(_DEV_DTYPE[self.dtype]), None
         self._place(rows, scales)
 
+    # JAX's alias of the reference's method name
+    build_ivf_index = build
+
     def _place(self, rows: torch.Tensor, scales: Optional[torch.Tensor]) -> None:
         """Pad the corpus (rows to a ``block_size`` multiple in fused mode,
         columns to ``COL_ALIGN``) and keep it with its scales and ids."""

@@ -27,7 +27,7 @@ import logging
 import time
 from itertools import islice
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 
@@ -75,6 +75,39 @@ def _group_items(user_id: np.ndarray, item_id: np.ndarray) -> Dict[int, np.ndarr
     users, starts = np.unique(user_id[order], return_index=True)
     items = np.split(item_id[order], starts[1:])
     return dict(zip(users.tolist(), items))
+
+
+class TemporalSplit(NamedTuple):
+    train_rows: np.ndarray               # the first EVAL_SPLIT of the rows by time
+    truth: Dict[int, List[int]]          # each user's held-out positives
+    users: List[int]                     # the first eval_users of truth's users
+    seen_train: Dict[int, set]           # each user's train-time items, or {}
+
+
+def temporal_split(data: MovieLensData, eval_users: int,
+                   filter_seen: bool) -> TemporalSplit:
+    """The reference's temporal protocol: the ratings in pandas' timestamp
+    order (C.11), the last 10 % held out, relevance = rating ≥ 4, the
+    users with held-out positives by user id and, with ``filter_seen``,
+    each user's train-time items."""
+    order = timestamp_order(data.timestamp)
+    cut = int(len(order) * EVAL_SPLIT)
+    train_rows, test_rows = order[:cut], order[cut:]
+    test_rows = test_rows[data.rating[test_rows] >= 4]
+    truth = {u: items.tolist() for u, items in _group_items(
+        data.user_id[test_rows], data.item_id[test_rows]).items()}
+    seen_train = (
+        {u: set(items.tolist()) for u, items in _group_items(
+            data.user_id[train_rows], data.item_id[train_rows]).items()}
+        if filter_seen else {})
+    return TemporalSplit(train_rows, truth, list(truth)[:eval_users], seen_train)
+
+
+def first_unseen(seen_train: Dict[int, set], u: int, ordered_ids, k: int = 20) -> List[int]:
+    """The first ``k`` of ``ordered_ids`` that user ``u`` did not rate in
+    train."""
+    s = seen_train.get(u, ())
+    return list(islice((int(i) for i in ordered_ids if i not in s), k))
 
 
 class PipelineOrchestrator:
@@ -259,13 +292,10 @@ class PipelineOrchestrator:
         )
 
         data = self._load_data()
-        order = timestamp_order(data.timestamp)
-        cut = int(len(order) * EVAL_SPLIT)
-        train_rows, test_rows = order[:cut], order[cut:]
-        test_rows = test_rows[data.rating[test_rows] >= 4]
-        truth = {u: items.tolist() for u, items in _group_items(
-            data.user_id[test_rows], data.item_id[test_rows]).items()}
-        users = list(truth.keys())[: self.eval_users]
+        # every row filters the user's train-time items when FILTER_SEEN is
+        # on, as the serve path does
+        split = temporal_split(data, self.eval_users, self.cfg.FILTER_SEEN)
+        truth, users = split.truth, split.users
 
         pipeline = RecommendationPipeline(
             model_path=self.cfg.EMBEDDING_MODEL_PATH,
@@ -275,19 +305,8 @@ class PipelineOrchestrator:
         pipeline.load(self._train_view())
         recs = pipeline.batch_recommend(users, k=20)
 
-        # every row filters the user's train-time items when FILTER_SEEN is
-        # on, as the serve path does
-        seen_train = (
-            {u: set(items.tolist()) for u, items in _group_items(
-                data.user_id[train_rows], data.item_id[train_rows]).items()}
-            if self.cfg.FILTER_SEEN else {})
-
-        def _filtered(u, ordered_ids, k=20):
-            s = seen_train.get(u, ())
-            return list(islice((int(i) for i in ordered_ids if i not in s), k))
-
-        pop_all = popularity_order(data.item_id[train_rows]).tolist()
-        pop_recs = {u: _filtered(u, pop_all) for u in users}
+        pop_all = popularity_order(data.item_id[split.train_rows]).tolist()
+        pop_recs = {u: first_unseen(split.seen_train, u, pop_all) for u in users}
         self.eval_lists = {"full": recs, "popularity": pop_recs}
         report = evaluate_model(recs, truth, k_values=[5, 10, 20],
                                 catalog_size=data.n_items)
@@ -302,7 +321,7 @@ class PipelineOrchestrator:
             k_search = (min(self.cfg.TOP_K_CANDIDATES, pipeline.index.n_total)
                         if self.cfg.FILTER_SEEN else 20)
             _, ids = pipeline.index.batch_search(q, k=k_search)
-            retr_recs = {u: _filtered(u, ids[i].tolist())
+            retr_recs = {u: first_unseen(split.seen_train, u, ids[i].tolist())
                          for i, u in enumerate(known)}
             self.eval_lists["retrieval_only"] = retr_recs
             retr_report = evaluate_model(retr_recs, truth, k_values=[10, 20])

@@ -42,13 +42,20 @@ CPU_RANKS = 4           # gloo ranks of the sharded check with --device cpu
 
 def apply_overrides(cfg, pairs):
     """``--cfg KEY=VALUE`` overrides as JAX's scripts apply them: a bool
-    field is true for "1"/"true", any other field takes its type."""
+    field is true for "1"/"true", a tuple takes comma-separated values of
+    its first element's type (as JAX's ``tower_sweep``; its other drivers
+    split the string into characters, which no tuple field accepts), any
+    other field takes its type."""
     overrides = {}
     for kv in pairs or []:
         k, v = kv.split("=", 1)
         cur = getattr(cfg, k)
-        overrides[k] = (v.lower() in ("1", "true")) if isinstance(cur, bool) \
-            else type(cur)(v)
+        if isinstance(cur, bool):
+            overrides[k] = v.lower() in ("1", "true")
+        elif isinstance(cur, tuple):
+            overrides[k] = tuple(type(cur[0])(x) for x in v.split(","))
+        else:
+            overrides[k] = type(cur)(v)
     return cfg.replace(**overrides) if overrides else cfg
 
 

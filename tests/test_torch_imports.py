@@ -91,6 +91,12 @@ MODULES = [
     "recommendit_tpu_torch.scripts.mips_ab",
     "recommendit_tpu_torch.scripts.fused_decomp",
     "recommendit_tpu_torch.scripts.tail_probe",
+    "recommendit_tpu_torch.scripts.tower_sweep",
+    "recommendit_tpu_torch.scripts.blend_sweep",
+    "recommendit_tpu_torch.scripts.ladder_sweep",
+    "recommendit_tpu_torch.scripts.ranker_headroom",
+    "recommendit_tpu_torch.scripts.real_data",
+    "recommendit_tpu_torch.scripts.train_scope_bench",
     "recommendit_tpu_torch.utils.profiling",
     "recommendit_tpu_torch.utils.native_build",
     "recommendit_tpu_torch.data.native",
@@ -314,3 +320,59 @@ print("quality", q["eval_users"], sorted(q["window_by_call"].items()), sorted(re
     assert ("quality 50 [('_build_serve_fn', 0), ('batch_recommend', 0), ('batch_search', 0)] "
             "['exact_topk', 'launches', 'quality_at_scale', 'ranker_ab', "
             "'seed_variance']") in proc.stdout
+
+
+def test_sweeps_phase_runs_without_jax_or_pandas(tmp_path):
+    """chip_smoke's sweeps phase (the last six drivers) at a small size on
+    the CPU with all three blocked: first a quality_at_scale-shaped
+    work-dir (data, features, towers, a fused bf16 index, the ranker) for
+    blend_sweep; ``Settings`` made small as in the quality phase's test."""
+    code = f"""
+import functools
+from pathlib import Path
+import torch
+import recommendit_tpu_torch.config as config
+config.Settings = functools.partial(config.Settings, SYNTH_USERS=200, SYNTH_ITEMS=160,
+    SYNTH_RATINGS=8000, EMBEDDING_DIM=16, HIDDEN_DIM=32, BATCH_SIZE=128,
+    RANKER_HIDDEN_DIMS=(16, 8), RANKER_CAND_NEGS=20, TOP_K_CANDIDATES=60,
+    TRAIN_EPOCHS=2, RANKER_EPOCHS=2)
+import chip_smoke
+from recommendit_tpu_torch.pipelines.run_pipeline import PipelineOrchestrator
+torch.set_num_threads(1)
+wd = Path({str(tmp_path)!r})
+qs = wd / "quality" / "qscale"
+orch = PipelineOrchestrator(cfg=config.Settings(LOSS_MODE="in_batch", INDEX_MODE="fused",
+                                                INDEX_DTYPE="bfloat16"),
+                            data_dir=str(qs / "ml"), models_dir=str(qs / "models"),
+                            features_dir=str(qs / "features"), synthetic=True, device="cpu")
+for stage in ("data", "features", "embeddings", "index", "ranker"):
+    orch.run_stage(stage)
+w = chip_smoke.SWEEPS_WEIGHTS
+small = {{
+    "tower_sweep": ("--name", "smoke", "--seeds", "1", "--users", "200", "--items", "160",
+                    "--ratings", "8000", "--eval-users", "50", "--cfg", "LOSS_MODE=in_batch",
+                    "--cfg", "TRAIN_EPOCHS=40"),
+    "blend_sweep": ("--betas", "0,1,2", "--eval-users", "50", "--users", "200",
+                    "--items", "160"),
+    "ladder_sweep": ("--name", "smoke", "--weights", w, "--epochs", "1",
+                     "--eval-users", "50", "--cfg", "LOSS_MODE=in_batch"),
+    "ranker_headroom": ("--weights", w, "--n-users", "200", "--n-items", "160",
+                        "--n-ratings", "8000", "--eval-users", "50", "--candidates", "60"),
+    "real_data": ("--cfg", "LOSS_MODE=in_batch", "--eval-users", "50"),
+    "train_scope_bench": ("chunk", "2", "--cfg", "LOSS_MODE=in_batch"),
+}}
+rec = chip_smoke.sweeps_phase("cpu", 0, wd, "cpu", args=small,
+                              scope_sizes=dict(n_users=60, n_items=40, n_ratings=1500))
+assert rec["launches"] == {{"bpr_fwd": 0, "bpr_bwd": 0, "window_mips": 0}}, rec["launches"]
+t = rec["tower_sweep"]
+assert t["steps"] > 0 and t["row"]["popularity_ndcg@10"] == t["popularity_ndcg@10"], t
+b = rec["blend_sweep"]
+assert [r["beta"] for r in b["rows"]] == [0.0, 1.0, 2.0] and b["evaluate_calls"] == 3, b
+assert rec["real_data"]["report"]["mode"] == "golden-fixture"
+assert rec["ladder_sweep"]["dat_equal_to_cpu"] and len(rec["ranker_headroom"]["rows"]) == 6
+print("sweeps", sorted(rec), rec["train_scope_bench"]["line"]["epochs"])
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert ("sweeps ['blend_sweep', 'ladder_sweep', 'launches', 'ranker_headroom', "
+            "'real_data', 'seconds', 'tower_sweep', 'train_scope_bench'] 2") in proc.stdout

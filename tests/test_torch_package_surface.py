@@ -213,3 +213,24 @@ def test_top_level_exports_pin_jax_s():
     assert recommendit_tpu_torch.__version__ == recommendit_tpu.__version__
     with pytest.raises(AttributeError):
         recommendit_tpu_torch.TwoTowerModel
+
+
+def test_jax_aliases_are_ported():
+    """JAX's three aliases of the reference's names, bound where JAX binds
+    them: ``LightGBMRanker``, ``batched_lambdarank_loss`` and
+    ``MIPSIndex.build_ivf_index``."""
+    from recommendit_tpu.models import ranker as jax_ranker
+    from recommendit_tpu.models.retrieval import MIPSIndex as JaxIndex
+    from recommendit_tpu_torch.models import MIPSIndex, ranker
+
+    assert jax_ranker.LightGBMRanker is jax_ranker.LambdaRankScorer
+    assert ranker.LightGBMRanker is ranker.LambdaRankScorer
+    assert JaxIndex.build_ivf_index is JaxIndex.build
+    assert MIPSIndex.build_ivf_index is MIPSIndex.build
+    params = ranker.init_mlp(torch.Generator().manual_seed(0), 6, (8, 4))
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 5, 6, generator=gen)
+    gains = torch.randint(0, 3, (3, 5), generator=gen).float()
+    mask = torch.ones(3, 5)
+    assert torch.equal(ranker.batched_lambdarank_loss(params, x, gains, mask),
+                       ranker.batched_group_loss(params, x, gains, mask, "lambdarank"))

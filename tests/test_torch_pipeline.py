@@ -191,49 +191,263 @@ def test_gbdt_evaluate_lists_identical(gbdt_runs):
             np.testing.assert_allclose(got[key], v, atol=1e-6, rtol=0, err_msg=key)
 
 
-def test_gbdt_serve_batch_and_model_info_equal(gbdt_runs):
+RETRIEVAL_TOL = 1e-5   # the exact f32 search (tests/test_torch_mips.py)
+RANKER_TOL = 1e-5      # the descent's f32 sums over 10 trees (C.22)
+F32_U = 2.0 ** -24     # f32's unit roundoff
+
+
+def _tap(fn, name, log):
+    """``fn`` whose outputs are also recorded, as computed inside the
+    compiled program that consumes them, under ``log[name]``."""
+    import jax
+
+    def record(*xs):
+        log.setdefault(name, []).append([np.array(x) for x in xs])
+
+    def tapped(*args):
+        out = fn(*args)
+        jax.debug.callback(record, *jax.tree_util.tree_leaves(out))
+        return out
+
+    return tapped
+
+
+@pytest.fixture(scope="module")
+def gbdt_serve(gbdt_runs):
     """Both packages' ``RecommendationPipeline`` over the GBDT models
-    directory: ``serve_batch`` of every user gives identical ids after
-    ``canonical_tie_order`` with scores within 1e-5 (the descent's f32
-    sums over 10 trees, C.22, then the blend's standardisation), and both
-    apps' ``/model/info`` carry the same model and ranker fields."""
+    directory, and ``serve_batch`` of every user through each, with the
+    two inputs of each blend recorded: JAX's device searcher and ranker
+    scorer are tapped inside its compiled serve path, the port's
+    ``_blend`` is spied on. JAX's unseen mask is its ``seen_mask_jnp`` of
+    the tapped candidates (a boolean, so recomputed exactly)."""
     import jax.numpy as jnp
 
-    from recommendit_tpu.serving import app as jax_app
+    from recommendit_tpu.models.gbdt import HistGBDTRanker as JaxGBDT
+    from recommendit_tpu.models.retrieval import MIPSIndex as JaxIndex
+    from recommendit_tpu.ops.seen import seen_mask_jnp
     from recommendit_tpu.serving.recommender import RecommendationPipeline as JaxPipeline
-    from recommendit_tpu_torch.ops.topk import canonical_tie_order
-    from recommendit_tpu_torch.serving import app as port_app
-    from recommendit_tpu_torch.serving.recommender import RecommendationPipeline
+    from recommendit_tpu_torch.serving import recommender as port_rec
 
     models, tmp = gbdt_runs["models"], gbdt_runs["models"].parent
     paths = dict(model_path=str(models / "two_tower.npz"),
                  index_path=str(models / "mips.index.npz"),
                  ranker_path=str(models / "ranker.npz"), data_dir=str(tmp / "ml"),
                  redis_url="redis://localhost:9999")
-    jp = JaxPipeline(cfg=JaxSettings(**GBDT_CFG), features_dir=str(tmp / "jax_features"),
-                     **paths)
-    jp.load()
-    tp = RecommendationPipeline(cfg=Settings(**GBDT_CFG), device="cpu",
-                                features_dir=str(tmp / "port_features"), **paths)
+    log = {}
+    real_scorer, real_searcher = JaxGBDT.make_device_scorer, JaxIndex.make_device_searcher
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JaxGBDT, "make_device_scorer",
+                   lambda self: _tap(real_scorer(self), "scores", log))
+        mp.setattr(JaxIndex, "make_device_searcher",
+                   lambda self, k: _tap(real_searcher(self, k), "retrieve", log))
+        jp = JaxPipeline(cfg=JaxSettings(**GBDT_CFG),
+                         features_dir=str(tmp / "jax_features"), **paths)
+        jp.load()
+    tp = port_rec.RecommendationPipeline(cfg=Settings(**GBDT_CFG), device="cpu",
+                                         features_dir=str(tmp / "port_features"),
+                                         **paths)
     tp.load()
+
     users = np.arange(1, CFG["SYNTH_USERS"] + 1)
-    j_ids, j_scores, _ = (torch.as_tensor(np.array(a)) for a in
-                          jp._serve_batch_fn(jnp.asarray(users, jnp.int32)))
-    t_ids, t_scores, _ = tp.serve_batch(users)
-    j_scores, j_ids = canonical_tie_order(j_scores, j_ids.long())
-    t_scores, t_ids = canonical_tie_order(t_scores, t_ids.long())
+    log.clear()
+    jax_out = [np.array(a) for a in jp._serve_batch_fn(jnp.asarray(users, jnp.int32))]
+    assert len(log["scores"]) == len(log["retrieve"]) == 1
+    (j_raw,), (j_rvals, j_pos) = log["scores"][0], log["retrieve"][0]
+    j_cand = np.array(jp.index._ids_dev)[j_pos]
+    indptr, cols = jp._seen.device_arrays()
+    j_seen = np.array(seen_mask_jnp(indptr, cols, jp._seen.search_steps,
+                                    jnp.asarray(users)[:, None], jnp.asarray(j_cand)))
+
+    spied = []
+    real_blend = port_rec._blend
+
+    def spy(scores, rvals, unseen, beta):
+        spied.append((scores.clone(), rvals.clone(), unseen.clone()))
+        return real_blend(scores, rvals, unseen, beta)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_rec, "_blend", spy)
+        t_ids, t_scores, _ = tp.serve_batch(users)
+    assert len(spied) == 1
+    t_raw, t_rvals, t_unseen = (a.numpy() for a in spied[0])
+    t_cand = tp._item_ids_dev[tp._retrieve(tp.model.user_tower(
+        torch.as_tensor(users).long()))[1]].numpy()
+    return dict(jp=jp, tp=tp, beta=float(GBDT_CFG.get("RANKER_BLEND_RETRIEVAL",
+                                                      Settings().RANKER_BLEND_RETRIEVAL)),
+                jax_ids=jax_out[0], jax_scores=jax_out[1],
+                j_raw=j_raw, j_rvals=j_rvals, j_cand=j_cand, j_unseen=~j_seen,
+                t_ids=t_ids, t_scores=t_scores,
+                t_raw=t_raw, t_rvals=t_rvals, t_cand=t_cand, t_unseen=t_unseen)
+
+
+def _port_inputs_in_jax_order(s):
+    """The port's blend inputs reordered to JAX's candidate order (the
+    same candidate ids in each row, asserted)."""
+    j_cand, t_cand = s["j_cand"], s["t_cand"]
+    np.testing.assert_array_equal(np.sort(t_cand, 1), np.sort(j_cand, 1))
+    at = np.argsort(t_cand, 1)[np.arange(len(j_cand))[:, None],
+                              np.argsort(np.argsort(j_cand, 1), 1)]
+    take = lambda a: np.take_along_axis(a, at, 1)  # noqa: E731
+    np.testing.assert_array_equal(take(t_cand), j_cand)
+    return take(s["t_raw"]), take(s["t_rvals"]), take(s["t_unseen"])
+
+
+def _standardised(x, unseen):
+    """Per candidate ``|z_i|`` and ``max|x| / σ`` over each user's unseen
+    candidates, in float64 (σ with ddof 0, as the blend)."""
+    x = x.astype(np.float64)
+    n = unseen.sum(1, keepdims=True)
+    mu = np.where(unseen, x, 0).sum(1, keepdims=True) / n
+    sd = np.sqrt(np.where(unseen, (x - mu) ** 2, 0).sum(1, keepdims=True) / n)
+    return np.abs(x - mu) / sd, np.where(unseen, np.abs(x), 0).max(1, keepdims=True) / sd, sd
+
+
+def _blend_rounding(s):
+    """Per candidate (JAX's order), a bound on one f32 evaluation's
+    rounding error of the blend ``z(s) + β·z(r)``. With C candidates and
+    ``γ = (C+10)·u / (1 − (C+10)·u)``: the masked mean's sum is off by at
+    most ``γ·max|x|`` in any summation order, which moves ``z_i`` by
+    ``γ·max|x|/σ``; the variance's sum, the square root and the products
+    move it by at most ``γ·|z_i|``. So each ``z`` carries
+    ``γ·(max|x|/σ + |z_i|)``. Where σ is small beside |x| (C.61's bunched
+    candidates: retrieval values spread little beside their size) two
+    correct f32 blends disagree by several 1e-6."""
+    c = s["j_raw"].shape[1] + 10
+    gamma = c * F32_U / (1 - c * F32_U)
+    out = 0.0
+    for x, w in ((s["j_raw"], 1.0), (s["j_rvals"], s["beta"])):
+        z, peak, _ = _standardised(x, s["j_unseen"])
+        out = out + w * gamma * (peak + z)
+    return out
+
+
+def _served(s, per_candidate):
+    """``per_candidate`` (JAX's candidate order) at the candidates JAX
+    served, in its served order."""
+    at = np.argmax(s["j_cand"][:, :, None] == s["jax_ids"][:, None, :], axis=1)
+    return np.take_along_axis(per_candidate, at, 1)
+
+
+def _blend_excess(blend, s) -> float:
+    """Largest amount by which ``blend`` fed JAX's own inputs and unseen
+    mask strays from JAX's served (blended) scores beyond twice the f32
+    rounding bound of one blend (``_blend_rounding``: each of the two
+    evaluations may be off by it), at the candidates JAX served; the seen
+    candidates' ``-inf`` must fall alike. At most 0 for a correct blend."""
+    blended = blend(torch.as_tensor(s["j_raw"]), torch.as_tensor(s["j_rvals"]),
+                    torch.as_tensor(s["j_unseen"]), s["beta"])
+    blended = blended.masked_fill(~torch.as_tensor(s["j_unseen"]), float("-inf"))
+    got = _served(s, blended.numpy())
+    want = s["jax_scores"]
+    assert np.array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    err = np.abs(got[fin].astype(np.float64) - want[fin])
+    return float(np.max(err - 2 * _served(s, _blend_rounding(s))[fin]))
+
+
+def test_gbdt_serve_batch_and_model_info_equal(gbdt_serve):
+    """Both packages' ``RecommendationPipeline`` over the GBDT models
+    directory: ``serve_batch`` of every user gives identical ids after
+    ``canonical_tie_order``, and both apps' ``/model/info`` carry the same
+    model and ranker fields. The scores are held stage by stage:
+
+    1. the blend's inputs, each at its own stage: the retrieval value of
+       every candidate within ``RETRIEVAL_TOL`` (the exact f32 search) and
+       the GBDT's raw score within ``RANKER_TOL`` (C.22), matched by
+       candidate id;
+    2. the blend itself: the port's ``_blend`` fed JAX's two inputs and
+       unseen mask gives JAX's served scores within twice the f32
+       rounding bound of one blend (``_blend_rounding``; each of the two
+       evaluations may be off by it);
+    3. the served scores, within a bound derived from step 1's measured
+       input differences. The blend is ``b = z(s) + β·z(r)``, each ``z``
+       standardised over a user's n unseen candidates (mean μ, standard
+       deviation σ, ddof 0). Moving the inputs by δ moves, to first
+       order, ``z_i`` by ``(δ_i − mean δ − z_i·mean(z·δ))/σ``; with
+       ``|δ| ≤ Δ`` and ``mean z² = 1`` that is at most
+       ``(2 + |z_i|)·Δ/σ``. So a served score may move by
+       ``(2 + |z_i^s|)·Δs/σs + β·(2 + |z_i^r|)·Δr/σr``, Δ the user's
+       largest input difference and σ, z JAX's; it is held within twice
+       that (second-order terms) plus step 2's rounding allowance.
+       Unlike one flat tolerance, the bound tightens
+       where a user's candidates spread widely and loosens only in
+       proportion where they bunch (C.61: a few ulp of a 16-term dot
+       product became 1.17e-5 of a blended score).
+    """
+    from recommendit_tpu.serving import app as jax_app
+    from recommendit_tpu_torch.ops.topk import canonical_tie_order
+    from recommendit_tpu_torch.serving import app as port_app
+    from recommendit_tpu_torch.serving.recommender import _blend
+
+    s = gbdt_serve
+    j_scores, j_ids = canonical_tie_order(torch.as_tensor(s["jax_scores"]),
+                                          torch.as_tensor(s["jax_ids"]).long())
+    t_scores, t_ids = canonical_tie_order(s["t_scores"], s["t_ids"].long())
     assert torch.equal(t_ids, j_ids)
     assert torch.equal(torch.isinf(t_scores), torch.isinf(j_scores))
-    fin = torch.isfinite(j_scores)
-    np.testing.assert_allclose(t_scores[fin].numpy(), j_scores[fin].numpy(),
-                               rtol=0, atol=1e-5)
-    got = port_app.RecommendItApp(pipeline=tp).handle("GET", "/model/info")
-    want = jax_app.RecommendItApp(pipeline=jp).handle("GET", "/model/info")
+
+    # 1. the inputs, stage by stage
+    t_raw, t_rvals, t_unseen = _port_inputs_in_jax_order(s)
+    unseen = s["j_unseen"]
+    np.testing.assert_array_equal(t_unseen, unseen)
+    np.testing.assert_allclose(t_rvals, s["j_rvals"], rtol=0, atol=RETRIEVAL_TOL)
+    np.testing.assert_allclose(t_raw, s["j_raw"], rtol=0, atol=RANKER_TOL)
+
+    # 2. the blend on identical inputs
+    assert _blend_excess(_blend, s) <= 0
+
+    # 3. the served scores under the derived bound
+    def _move(t, j):
+        """Per candidate, (2 + |z_i|)·Δ/σ over each user's unseen ones."""
+        z, _, sd = _standardised(j, unseen)
+        delta = np.where(unseen, np.abs(t.astype(np.float64) - j), 0).max(1, keepdims=True)
+        return (2 + z) * delta / sd
+
+    move = _move(t_raw, s["j_raw"]) + s["beta"] * _move(t_rvals, s["j_rvals"])
+    bound = _served(s, 2 * move + 2 * _blend_rounding(s))
+    # in JAX's served order; the port's scores follow its ids there
+    t_by_id = {(b, int(i)): float(v) for b, (ids, vals) in enumerate(
+        zip(s["t_ids"].tolist(), s["t_scores"].tolist())) for i, v in zip(ids, vals)}
+    want = s["jax_scores"]
+    got = np.array([[t_by_id[(b, int(i))] for i in row]
+                    for b, row in enumerate(s["jax_ids"])])
+    fin = np.isfinite(want)
+    excess = np.abs(got[fin] - want[fin]) - bound[fin]
+    assert np.all(excess <= 0), float(np.max(excess))
+
+    got = port_app.RecommendItApp(pipeline=s["tp"]).handle("GET", "/model/info")
+    want = jax_app.RecommendItApp(pipeline=s["jp"]).handle("GET", "/model/info")
     assert got[0] == want[0] == 200
     for key in ("model_version", "embedding_dim", "n_users", "n_items",
                 "index_stats", "ranker_info"):
         assert got[1][key] == want[1][key], key
     assert got[1]["ranker_info"]["model_type"] == "hist-gbdt-lambdarank"
+
+
+def _wrong_blend(eps=1e-9, ddof=0):
+    """The port's blend with its variance's ε or its ddof changed."""
+    def blend(scores, rvals, unseen, beta):
+        m = unseen.float()
+        cnt = m.sum(-1, keepdim=True).clamp(min=1.0)
+
+        def _z(x):
+            mu = (x * m).sum(-1, keepdim=True) / cnt
+            var = (((x - mu) ** 2) * m).sum(-1, keepdim=True) / (cnt - ddof)
+            return (x - mu) * torch.rsqrt(var + eps)
+
+        return _z(scores) + beta * _z(rvals)
+    return blend
+
+
+@pytest.mark.parametrize("wrong", [dict(eps=1e-6), dict(ddof=1)],
+                         ids=["eps", "ddof"])
+def test_gbdt_blend_check_catches_a_wrong_blend(gbdt_serve, wrong):
+    """Step 2 of the serve test fails for a blend that differs from JAX's
+    only in the ε under its square root or in its ddof, while the
+    unchanged copy passes it (so the check tells the blend apart, not the
+    copy)."""
+    assert _blend_excess(_wrong_blend(), gbdt_serve) <= 0
+    assert _blend_excess(_wrong_blend(**wrong), gbdt_serve) > 0
 
 
 def test_feature_snapshots_open_in_the_other_package(runs):

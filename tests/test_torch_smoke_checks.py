@@ -141,3 +141,91 @@ def test_bpr_device_ms_times_by_events_where_no_session_recorded(monkeypatch, ke
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps: 0.5)
     assert chip_smoke.bpr_device_ms("fwd", lambda: None) == {
         "fwd_device_kernels_ms": kernels, "fwd_device_ms_by": by, "fwd_device_ms": ms}
+
+
+# ------------------------------------------------------------------ #
+# the sweeps phase's checks                                            #
+# ------------------------------------------------------------------ #
+
+def test_check_steps_launches_is_exact():
+    chip_smoke.check_steps_launches("t", {"bpr_fwd": 7, "bpr_bwd": 7}, 7, True)
+    chip_smoke.check_steps_launches("t", {"bpr_fwd": 0, "bpr_bwd": 0}, 7, False)
+    for bad in ({"bpr_fwd": 8, "bpr_bwd": 7}, {"bpr_fwd": 7, "bpr_bwd": 6}):
+        with pytest.raises(AssertionError, match="launches"):
+            chip_smoke.check_steps_launches("t", bad, 7, True)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_steps_launches("t", {"bpr_fwd": 1, "bpr_bwd": 1}, 7, False)
+
+
+def _blend_rows():
+    return [{"beta": b, "full_ndcg@10": 0.1 + b, "full_recall@20": 0.2, "full_mrr": 0.3,
+             "retrieval_only_ndcg@10": 0.05, "retrieval_only_recall@20": 0.12}
+            for b in (0.0, 1.0, 2.0)]
+
+
+def test_check_blend_rows():
+    chip_smoke.check_blend_rows(_blend_rows(), [0.0, 1.0, 2.0])
+    moved = _blend_rows()
+    moved[2]["retrieval_only_recall@20"] = 0.1200001
+    with pytest.raises(AssertionError, match="moves with beta"):
+        chip_smoke.check_blend_rows(moved, [0.0, 1.0, 2.0])
+    nan = _blend_rows()
+    nan[1]["full_mrr"] = float("nan")
+    with pytest.raises(AssertionError, match="not finite"):
+        chip_smoke.check_blend_rows(nan, [0.0, 1.0, 2.0])
+    with pytest.raises(AssertionError, match="betas"):
+        chip_smoke.check_blend_rows(_blend_rows(), [0.0, 1.0])
+
+
+def test_check_ladder():
+    from recommendit_tpu_torch.scripts.ladder_sweep import KEYS
+
+    line = {k: 0.1 for k in KEYS}
+    chip_smoke.check_ladder([line, dict(line, agg=True)], KEYS)
+    for bad in (float("nan"), float("inf")):
+        with pytest.raises(AssertionError, match="not finite"):
+            chip_smoke.check_ladder([line, dict(line, mrr=bad)], KEYS)
+    with pytest.raises(AssertionError, match="not finite"):
+        chip_smoke.check_ladder([{k: v for k, v in line.items() if k != "mrr"}], KEYS)
+
+
+def test_check_tower_row():
+    row = {"popularity_ndcg@10": 0.031, "retrieval_ndcg@10": 0.06}
+    chip_smoke.check_tower_row(row, 0.031, 0.01)
+    with pytest.raises(AssertionError, match="popularity"):
+        chip_smoke.check_tower_row(row, 0.031 + 1e-12, 0.01)
+    with pytest.raises(AssertionError, match="random"):
+        chip_smoke.check_tower_row(row, 0.031, 0.06)
+
+
+def test_check_headroom():
+    from recommendit_tpu_torch.scripts.ranker_headroom import ORDERINGS
+
+    rep = {"ndcg@10": 0.1, "recall@20": 0.2, "mrr": 0.3}
+    out = {"M": 1e5, "expected_presents": 1005.0, "realized": 1000,
+           "rows": {k: dict(rep) for k in ORDERINGS}}
+    chip_smoke.check_headroom(out, ORDERINGS)
+    with pytest.raises(AssertionError, match="presents"):
+        chip_smoke.check_headroom(dict(out, expected_presents=1011.0), ORDERINGS)
+    bad = {k: dict(rep) for k in ORDERINGS}
+    bad["oracle"]["ndcg@10"] = float("nan")
+    with pytest.raises(AssertionError, match="not finite"):
+        chip_smoke.check_headroom(dict(out, rows=bad), ORDERINGS)
+
+
+def test_check_real_data(tmp_path):
+    import json
+
+    stages = ("features", "embeddings", "index", "ranker")
+    report = {"mode": "golden-fixture", "comparable_to_reference": False,
+              "stage_seconds": {s: 0.1 for s in (*stages, "evaluate")}}
+    out = tmp_path / "REALDATA.json"
+    out.write_text(json.dumps(report))
+    chip_smoke.check_real_data(report, out, stages)
+    with pytest.raises(AssertionError, match="mode"):
+        chip_smoke.check_real_data(dict(report, mode="real"), out, stages)
+    short = dict(report, stage_seconds={s: 0.1 for s in stages})
+    with pytest.raises(AssertionError, match="stages"):
+        chip_smoke.check_real_data(short, out, stages)
+    with pytest.raises(AssertionError, match="not written"):
+        chip_smoke.check_real_data(report, tmp_path / "missing.json", stages)
