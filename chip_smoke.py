@@ -79,6 +79,10 @@ Phases (each failure raises, so the exit code is not 0):
 4. serve phase: ``batch_recommend`` for 2,048 users at batch 1,024 (the
    kernel route: one launch per batch) and 20 single requests (the scan
    route: none), with the launch counts read around exactly that run; then
+   ``MIPSIndex.search_device`` (results left on the card) on the first
+   batch's 1,024 user-tower rows, twice, against ``batch_search`` on the
+   same queries: ids equal after ``canonical_tie_order``, scores within
+   1e-3, one kernel-1 launch a call (``_WindowLaunches``); then
    ``torch.profiler`` over 10 ``serve_batch`` calls of 1,024 users: device
    time per call by kernel group, host clock, the device's idle share;
 5. quantize phase: at 1M x 129, the catalog's augmented f32 rows, the
@@ -96,7 +100,8 @@ Phases (each failure raises, so the exit code is not 0):
    spills of the int8 library; then the dp4a body where the wrapper takes
    it, rows of 400 columns, equal to the twin;
 7. int8 serve phase: the serve phase over the int8 index, with exactly one
-   int8 window launch per batch and none of the bf16 kernel; then the
+   int8 window launch per batch and none of the bf16 kernel, and its
+   ``search_device`` check with one kernel-3 launch a call; then the
    profile of step 4 over 10 int8 batches (``serve_profile_int8``);
 8. HTTP phase: the bf16 serve phase's pipeline behind the port's app
    (``serving/app.py``) on the threaded server at 127.0.0.1, a free port,
@@ -115,7 +120,10 @@ Phases (each failure raises, so the exit code is not 0):
    that user's next list. QPS and p50/p99 per level, batch sizes, the
    first live batch's time and a fresh thread's first and second
    1,024-user batch. Then the 512 level once over the int8 serve phase's
-   pipeline (kernel 3);
+   pipeline (kernel 3); last, a ``{"feature_store": ...}`` line: the
+   backend the served pipelines' stores chose (Redis where the ``redis``
+   package is there and the server answers, else ``in-memory``) and the
+   wire format (``msgpack`` where that package is there, else ``json``);
 9. GBDT serve phase: the bf16 serve path with a random GBDT ranker in
    JAX's format (``write_random_gbdt``: 200 full trees of depth 6 over the
    52 columns, 64 bins whose edges are quantiles of rows assembled from
@@ -201,7 +209,9 @@ Phases (each failure raises, so the exit code is not 0):
    line reports), ``gemm_only_ms`` (``u @ v.T`` in full f32: a yardstick
    the port never calls), the bounds (f32, and 3xTF32 at the TF32 peak)
    and the bpr library's ptxas registers and spills; also at (2048, 256),
-   the host-table path's shape;
+   the host-table path's shape; at each shape ``TwoTower.in_batch_bpr_loss``
+   forward and backward against the twins at the same tolerances, each
+   kernel launched once (``two_tower``);
 17. host-table phase: ``scripts/host_table_scale.py`` at ``ml25m``
    (162,541 users, 62,423 items, dim 256, hidden 512, batch 2,048, 1M
    positives from ``--seed``, ``LOSS_MODE=in_batch``, adagrad rows at lr
@@ -1038,6 +1048,8 @@ def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
     agree = float(np.mean([
         len(set(recs[u]) & {r.item_id for r in singles[u]}) / k
         for u in singles]))
+    search = search_device_check(pipe, users[:batch], device)
+    print(json.dumps({f"search_device_{dtype}": search}), flush=True)
     return {
         "index_dtype": dtype, "load_s": load_s,
         "batch_users": len(users), "batch_size": batch,
@@ -1047,8 +1059,51 @@ def serve_phase(paths, data, device, n_batch_users: int = N_BATCH_USERS,
         "batch_vs_single_top_k_agreement": agree,
         "retrieval_score_abs_err": rerr,
         "stage_split": pipe.get_stats()["stage_split"],
-        "launches": launches,
+        "launches": launches, "search_device": search,
     }, pipe
+
+
+def search_device_check(pipe, users, device, k: int = TOP_K_CANDIDATES,
+                        calls: int = 2):
+    """``MIPSIndex.search_device`` (scores and item ids left on the device)
+    against ``batch_search`` on the same queries, the batch's user-tower
+    rows: ``calls`` calls, each with the launches of the index's window
+    kernel counted by :class:`_WindowLaunches` (one a call on the card over
+    the fused index; no other window kernel); ids equal after
+    ``canonical_tie_order`` and scores within the phase's 1e-3 (the same
+    kernel on the same query bits: expected equal)."""
+    from recommendit_tpu_torch.models.retrieval import _l2_normalize_np
+    from recommendit_tpu_torch.ops import mips_window as mw
+    from recommendit_tpu_torch.ops.topk import canonical_tie_order
+
+    index = pipe.index
+    kernel = SERVE_KERNELS[index.dtype]
+    raw = pipe.model.user_tower(torch.as_tensor(users, device=device)).cpu().numpy()
+    # the query bits batch_search searches with
+    q = torch.as_tensor(_l2_normalize_np(raw), device=device)
+    _reset(mw.LAUNCHES)
+    with _WindowLaunches(kernel, ("search_device",)) as window:
+        outs = [index.search_device(q, k) for _ in range(calls)]
+    launches = dict(mw.LAUNCHES)
+    by = window.check(f"search_device over {index.dtype}", launches[kernel],
+                      torch.device(device).type == "cuda")
+    if any(n for name, n in launches.items() if name != kernel):
+        raise AssertionError(f"search_device launched another window kernel: {launches}")
+    vals, ids = outs[0]
+    if vals.device != q.device or ids.device != q.device:
+        raise AssertionError(f"search_device left the device: {vals.device}, {ids.device}")
+    bv, bid = index.batch_search(raw, k)
+    got_v, got_i = canonical_tie_order(vals.float().cpu(), ids.cpu())
+    want_v, want_i = canonical_tie_order(torch.as_tensor(bv).float(), torch.as_tensor(bid))
+    err = float((got_v - want_v).abs().max())
+    rec = {"queries": len(users), "k": k, "index_dtype": index.dtype,
+           "calls": calls, "launches": by.get("search_device", 0),
+           "ids_equal": bool(torch.equal(got_i, want_i)), "max_abs_err": err,
+           "repeat_bit_identical": all(torch.equal(a, b) for o in outs[1:]
+                                       for a, b in zip(o, outs[0]))}
+    if not rec["ids_equal"] or err > 1e-3 or not rec["repeat_bit_identical"]:
+        raise AssertionError(f"search_device differs from batch_search: {rec}")
+    return rec
 
 
 def _predict_rows(job):
@@ -1518,7 +1573,25 @@ def http_phase(pipe, pipe_i8, device, levels=HTTP_LEVELS, k: int = REQUEST_K,
         out["int8"] = http_serve(pipe_i8, device, "int8", levels[-1:], pool, k,
                                  max_batch, wait_ms, extra_checks=False,
                                  clients=clients)
+    out["feature_store"] = feature_store_record((pipe, pipe_i8))
+    print(json.dumps({"feature_store": out["feature_store"]}), flush=True)
     return out
+
+
+def feature_store_record(pipes) -> dict:
+    """The backend the served pipelines' feature stores chose (Redis where
+    the ``redis`` package is there and the server answers, else memory) and
+    the wire format they write (msgpack where the package is there, else
+    JSON), as ``features/store.py`` decided them in this process."""
+    from recommendit_tpu_torch.features import store
+
+    backends = {p.feature_store.stats()["backend"] for p in pipes}
+    if len(backends) != 1:
+        raise AssertionError(f"the served pipelines' stores differ: {backends}")
+    return {"backend": backends.pop(),
+            "codec": "msgpack" if store.MSGPACK_AVAILABLE else "json",
+            "redis_package": store.REDIS_AVAILABLE,
+            "msgpack_package": store.MSGPACK_AVAILABLE}
 
 
 def quantize_phase(paths, device, seed: int, timer=cuda_ms):
@@ -2564,6 +2637,7 @@ def bpr_kernel_phase(device, seed: int, shapes=BPR_SHAPES, timer=cuda_ms):
             rec["bwd_device_bound_share"] = rec["bound_bwd_ms"] / rec["bwd_device_ms"]
         rec["fwd_bound_share"] = rec["bound_fwd_ms"] / rec["fwd_ms"]
         rec["bwd_bound_share"] = rec["bound_bwd_ms"] / rec["bwd_ms"]
+        rec["two_tower"] = two_tower_bpr_check(u, v, device)
         print(json.dumps({"bpr_check": rec}), flush=True)
         if not rec["loss_rel_err"] <= 1e-5:
             raise AssertionError(f"BPR loss differs from the twin: {rec}")
@@ -2573,6 +2647,35 @@ def bpr_kernel_phase(device, seed: int, shapes=BPR_SHAPES, timer=cuda_ms):
             raise AssertionError(f"BPR kernels differ between two calls: {rec}")
         out.append(rec)
     return out
+
+
+def two_tower_bpr_check(u: torch.Tensor, v: torch.Tensor, device) -> dict:
+    """``TwoTower.in_batch_bpr_loss`` (the model's loss surface) forward and
+    backward on (B, D) rows, with the BPR wrappers' counts set to 0 just
+    before and read just after (one launch of each kernel on the card),
+    against ``in_batch_bpr_loss_ref`` and its twin backward at the phase's
+    tolerances (loss 1e-5 relative, gradients 1e-4 of the twin's largest)."""
+    from recommendit_tpu_torch.models.two_tower import TwoTower
+    from recommendit_tpu_torch.ops import bpr
+
+    ut, vt = (x.detach().clone().requires_grad_(True) for x in (u, v))
+    _reset(bpr.LAUNCHES)
+    loss = TwoTower.in_batch_bpr_loss(ut, vt)
+    loss.backward()
+    launches = dict(bpr.LAUNCHES)
+    ref = bpr.in_batch_bpr_loss_ref(u, v)
+    rdu, rdv = bpr._bpr_bwd_ref(u, v, torch.tensor(1.0, device=u.device))
+    rec = {"launches": launches,
+           "loss_rel_err": abs(float(loss.detach()) - float(ref)) / abs(float(ref)),
+           "du_err": float((ut.grad - rdu).abs().max() / rdu.abs().max()),
+           "dv_err": float((vt.grad - rdv).abs().max() / rdv.abs().max())}
+    once = 1 if torch.device(device).type == "cuda" else 0
+    if launches != {"bpr_fwd": once, "bpr_bwd": once}:
+        raise AssertionError(f"TwoTower.in_batch_bpr_loss launched {launches}, "
+                             f"expected each BPR kernel {once} time(s)")
+    if not (rec["loss_rel_err"] <= 1e-5 and max(rec["du_err"], rec["dv_err"]) <= 1e-4):
+        raise AssertionError(f"TwoTower.in_batch_bpr_loss differs from the twin: {rec}")
+    return rec
 
 
 def bound(n_bytes: float, ops: float = 0.0, kind: str = "f32"):
@@ -4687,41 +4790,51 @@ class _HostTrainings:
 
 
 class _WindowLaunches:
-    """Kernel 1's launches (the window wrapper's count) inside each call of
-    the evaluate stage's three users of the fused index while installed:
-    ``RecommendationPipeline._build_serve_fn`` (its warm-up serve and the
-    15 + 15 serves of ``recalibrate_stage_split``), ``batch_recommend``
-    (one batch of ``SERVE_BATCH`` users a launch) and
+    """A window kernel's launches (its wrapper's count; kernel 1's unless
+    ``kernel`` names another) inside each call of the wrapped methods of
+    the fused index's users while installed. By default the evaluate
+    stage's three: ``RecommendationPipeline._build_serve_fn`` (its warm-up
+    serve and the 15 + 15 serves of ``recalibrate_stage_split``),
+    ``batch_recommend`` (one batch of ``SERVE_BATCH`` users a launch) and
     ``MIPSIndex.batch_search`` (the retrieval-only row: one launch over a
-    fused index; the ranker stage's exact indexes none); over an exact
-    index none of them launches it. ``calls`` holds (method, launches,
-    users, index mode) per call."""
+    fused index; the ranker stage's exact indexes none); ``methods`` may
+    name ``MIPSIndex.search_device`` instead (one launch a call of at least
+    384 queries over a fused index). Over an exact index none of them
+    launches it. ``calls`` holds (method, launches, users, index mode) per
+    call."""
+
+    EVALUATE_METHODS = ("_build_serve_fn", "batch_recommend", "batch_search")
+
+    def __init__(self, kernel: str = "window_mips", methods=EVALUATE_METHODS):
+        self.kernel, self.methods = kernel, methods
 
     def __enter__(self):
         from recommendit_tpu_torch.models.retrieval import MIPSIndex
         from recommendit_tpu_torch.ops import mips_window as mw
         from recommendit_tpu_torch.serving.recommender import RecommendationPipeline
 
+        owners = {"_build_serve_fn": RecommendationPipeline,
+                  "batch_recommend": RecommendationPipeline,
+                  "batch_search": MIPSIndex, "search_device": MIPSIndex}
         self.calls, self._saved = [], []
-        for cls, name in ((RecommendationPipeline, "_build_serve_fn"),
-                          (RecommendationPipeline, "batch_recommend"),
-                          (MIPSIndex, "batch_search")):
+        for name in self.methods:
+            cls = owners[name]
             raw = cls.__dict__[name]
             self._saved.append((cls, name, raw))
             setattr(cls, name, self._wrap(name, raw, mw.LAUNCHES))
         return self
 
     def _wrap(self, name, fn, launches):
-        calls = self.calls
+        calls, kernel = self.calls, self.kernel
 
         def wrapped(obj, *a, **k):
-            before = launches["window_mips"]
+            before = launches[kernel]
             out = fn(obj, *a, **k)
             users = len(a[0]) if a else 0
             # an index's mode, or a pipeline's index's
             mode = getattr(obj, "mode", None) or getattr(
                 getattr(obj, "index", None), "mode", None)
-            calls.append((name, launches["window_mips"] - before, users, mode))
+            calls.append((name, launches[kernel] - before, users, mode))
             return out
 
         return wrapped
@@ -4735,17 +4848,17 @@ class _WindowLaunches:
         outside them; → launches by method."""
         want = {"_build_serve_fn": lambda u: 31,
                 "batch_recommend": lambda u: -(-u // SERVE_BATCH),
-                "batch_search": lambda u: 1}
+                "batch_search": lambda u: 1, "search_device": lambda u: 1}
         by = {}
         for name, got, users, mode in self.calls:
             exp = want[name](users) if on_card and mode == "fused" else 0
             if got != exp:
-                raise AssertionError(f"{label}: {name} on {users} users launched the "
-                                     f"window kernel {got} times, expected {exp}")
+                raise AssertionError(f"{label}: {name} on {users} users launched "
+                                     f"{self.kernel} {got} times, expected {exp}")
             by[name] = by.get(name, 0) + got
         if sum(by.values()) != total:
-            raise AssertionError(f"{label}: {total} window launches, {by} in the "
-                                 "evaluate stage's calls")
+            raise AssertionError(f"{label}: {total} launches of {self.kernel}, {by} "
+                                 f"in the calls of {self.methods}")
         return by
 
 
@@ -5329,6 +5442,7 @@ def main(argv=None) -> int:
     kernels = [{
         "name": "window_mips", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": serve["launches"]["window_mips"],
+        "search_device_launches": serve["search_device"]["launches"],
         "http_launches": sum(lv["launches"]["window_mips"]
                              for lv in http["bf16"]["levels"]),
         "gbdt_launches": gbdt_serve["launches"]["window_mips"],
@@ -5352,6 +5466,7 @@ def main(argv=None) -> int:
     }, {
         "name": "window_mips_i8", "source": I8_SOURCE, "replaces": I8_REPLACES,
         "launches": serve_i8["launches"]["window_mips_i8"],
+        "search_device_launches": serve_i8["search_device"]["launches"],
         "http_launches": sum(lv["launches"]["window_mips_i8"]
                              for lv in http["int8"]["levels"]),
         "capacity_launches": capacity["launches"],
@@ -5387,6 +5502,8 @@ def main(argv=None) -> int:
         "parallel_launches": par["train"]["launches"]["bpr_fwd"],
         "quality_launches": quality["launches"]["bpr_fwd"],
         "sweeps_launches": sweeps["launches"]["bpr_fwd"],
+        "two_tower_loss_launches": sum(c["two_tower"]["launches"]["bpr_fwd"]
+                                       for c in bpr_checks),
         "max_abs_err": max(abs(c["loss"] - c["twin_loss"]) for c in bpr_checks),
         "ms": main_b["fwd_device_ms"], "plain_ms": main_b["twin_fwd_device_ms"],
         "ms_1024x64": train_b["fwd_device_ms"],
@@ -5405,6 +5522,8 @@ def main(argv=None) -> int:
         "parallel_launches": par["train"]["launches"]["bpr_bwd"],
         "quality_launches": quality["launches"]["bpr_bwd"],
         "sweeps_launches": sweeps["launches"]["bpr_bwd"],
+        "two_tower_loss_launches": sum(c["two_tower"]["launches"]["bpr_bwd"]
+                                       for c in bpr_checks),
         "max_abs_err": max(c["grad_max_abs_err"] for c in bpr_checks),
         "ms": main_b["bwd_device_ms"], "plain_ms": main_b["twin_bwd_device_ms"],
         "ms_1024x64": train_b["bwd_device_ms"],

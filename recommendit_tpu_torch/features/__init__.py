@@ -8,4 +8,4 @@ from recommendit_tpu_torch.features.schema import (  # noqa: F401
     N_GENRES,
     feature_columns,
 )
-from recommendit_tpu_torch.features.store import FeatureStore  # noqa: F401
+from recommendit_tpu_torch.features.store import FeatureStore, RedisFeatureStore  # noqa: F401

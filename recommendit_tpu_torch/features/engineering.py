@@ -33,11 +33,11 @@ from __future__ import annotations
 import logging
 import re
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
-from recommendit_tpu_torch.data.movielens import MovieLensData
+from recommendit_tpu_torch.data.movielens import MovieLensData, load_movielens
 from recommendit_tpu_torch.features import schema
 from recommendit_tpu_torch.features.schema import (
     N_GENRES,
@@ -114,11 +114,16 @@ def category_codes(a: np.ndarray) -> np.ndarray:
 class FeatureEngineer:
     """Builds user / item / interaction features for the two-stage pipeline."""
 
-    def __init__(self, seed: int = 0):
+    def __init__(self, data_dir: str = "data/ml-1m", seed: int = 0):
+        self.data_dir = Path(data_dir)
         self.seed = seed
         self.data: Optional[MovieLensData] = None
         self.user_features: Optional[Columns] = None
         self.item_features: Optional[Columns] = None
+
+    def load_data(self) -> None:
+        """The MovieLens ``.dat`` files in ``data_dir``."""
+        self.set_data(load_movielens(str(self.data_dir)))
 
     def set_data(self, data: MovieLensData) -> None:
         """Use in-memory tables (synthetic data, a train view, tests)."""
@@ -356,3 +361,6 @@ class FeatureEngineer:
             setattr(self, attr, cols)
         logger.info("Loaded features from %s", d)
 
+    @staticmethod
+    def get_feature_columns() -> List[str]:
+        return schema.feature_columns()

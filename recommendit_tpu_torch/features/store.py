@@ -1,26 +1,40 @@
 """Online feature store (torch port).
 
 Counterpart of ``recommendit_tpu/features/store.py``: the key contract
-``user:feat:{id}`` / ``item:feat:{id}`` / ``recs:{id}``, the bulk load of the
-flattened feature columns (the port's column dicts in place of
-DataFrames), the recommendation cache and the read-through to a
-memory-mapped :class:`~recommendit_tpu_torch.features.snapshot.FeatureSnapshot`.
-Values are stored serialized (JSON, as the JAX store does when msgpack is
-absent), so a read returns a copy.
+``user:feat:{id}`` / ``item:feat:{id}`` / ``recs:{id}``, the wire format
+(msgpack where the package is importable, else JSON; a msgpack reader also
+takes JSON), TTLs through SETEX, the bulk load of the flattened feature
+columns (the port's column dicts in place of DataFrames) in one pipeline a
+batch, the recommendation cache and the read-through to a memory-mapped
+:class:`~recommendit_tpu_torch.features.snapshot.FeatureSnapshot`.
 
-The backend is the in-memory one, which the JAX store also takes when the
-``redis`` package is missing. The Redis backend is not ported (ROADMAP.md,
-queue A): where ``redis`` is importable the store raises rather than
-quietly keep the features in this process.
+The backend is chosen once, at construction, as JAX's store chooses it:
+Redis at ``redis_url`` where the ``redis`` package is importable and the
+server answers, else the in-memory one. For the same calls the port writes
+the JAX store's bytes under the same keys with the same TTLs
+(``tests/test_torch_store_redis.py``), so a JAX pipeline and a port server
+read each other's keys in one Redis.
 """
 from __future__ import annotations
 
-import importlib.util
 import json
 import logging
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
+
+try:
+    import redis  # type: ignore
+except ImportError:  # pragma: no cover
+    redis = None
+
+try:
+    import msgpack  # type: ignore
+except ImportError:  # pragma: no cover
+    msgpack = None
+
+REDIS_AVAILABLE = redis is not None
+MSGPACK_AVAILABLE = msgpack is not None
 
 logger = logging.getLogger(__name__)
 
@@ -28,6 +42,8 @@ USER_FEATURE_PREFIX = "user:feat:"
 ITEM_FEATURE_PREFIX = "item:feat:"
 RECS_PREFIX = "recs:"
 
+
+# --- serialization ---------------------------------------------------------- #
 
 def _to_native(v: Any) -> Any:
     if isinstance(v, np.ndarray):
@@ -39,15 +55,42 @@ def _to_native(v: Any) -> Any:
     return v
 
 
-def serialize(data: Dict[str, Any]) -> bytes:
-    return json.dumps({k: _to_native(v) for k, v in data.items()}).encode("utf-8")
+def _json_pack(clean: Dict[str, Any]) -> bytes:
+    return json.dumps(clean).encode("utf-8")
 
 
-def deserialize(data: bytes) -> Dict[str, Any]:
+def _json_unpack(data: bytes) -> Dict[str, Any]:
     return json.loads(data.decode("utf-8"))
 
 
-class MemoryBackend:
+def _msgpack_pack(clean: Dict[str, Any]) -> bytes:
+    return msgpack.packb(clean, use_bin_type=True)
+
+
+def _msgpack_unpack(data: bytes) -> Dict[str, Any]:
+    try:
+        return msgpack.unpackb(data, raw=False)
+    except Exception:
+        # a JSON payload written by a producer without msgpack
+        return _json_unpack(data)
+
+
+def serialize(data: Dict[str, Any]) -> bytes:
+    """msgpack if available, else JSON. ``MSGPACK_AVAILABLE`` is read per
+    call, so tests can switch it."""
+    clean = {k: _to_native(v) for k, v in data.items()}
+    pack = _msgpack_pack if MSGPACK_AVAILABLE else _json_pack
+    return pack(clean)
+
+
+def deserialize(data: bytes) -> Dict[str, Any]:
+    unpack = _msgpack_unpack if MSGPACK_AVAILABLE else _json_unpack
+    return unpack(data)
+
+
+# --- backends ---------------------------------------------------------------- #
+
+class _MemoryBackend:
     """Plain-dict KV backend (TTLs are ignored: process lifetime is the TTL)."""
 
     name = "in-memory"
@@ -77,25 +120,70 @@ class MemoryBackend:
         return {"backend": self.name, "keys": len(self._kv)}
 
 
-def _pick_backend(redis_url: str) -> MemoryBackend:
-    if importlib.util.find_spec("redis") is not None:
-        raise NotImplementedError(
-            f"the redis package is installed, but the Redis backend is not "
-            f"ported yet (ROADMAP.md, queue A, features/store.py); {redis_url} "
-            "is not used")
-    logger.info("redis package unavailable; using in-memory store")
-    return MemoryBackend()
+class _RedisBackend:
+    """Redis KV backend. Construction raises when the server does not
+    answer; the store catches that and falls back to memory."""
+
+    name = "redis"
+
+    def __init__(self, url: str) -> None:
+        self.url = url
+        self._r = redis.from_url(url, socket_connect_timeout=2)
+        self._r.ping()
+
+    def read(self, key: str) -> Optional[bytes]:
+        return self._r.get(key)
+
+    def read_many(self, keys: List[str]) -> List[Optional[bytes]]:
+        return self._r.mget(keys)
+
+    def write(self, key: str, value: bytes, ttl: int) -> None:
+        self._r.setex(key, ttl, value)
+
+    def write_many(self, items: Dict[str, bytes], ttl: int) -> None:
+        pipe = self._r.pipeline()
+        for k, v in items.items():
+            pipe.setex(k, ttl, v)
+        pipe.execute()
+
+    def delete(self, key: str) -> None:
+        self._r.delete(key)
+
+    def flush(self) -> None:
+        self._r.flushdb()
+
+    def stats(self) -> Dict[str, Any]:
+        db = self._r.info("keyspace").get("db0", {})
+        return {"backend": self.name, "url": self.url, "keys": db.get("keys", 0)}
+
+
+def _pick_backend(redis_url: str):
+    if not REDIS_AVAILABLE:
+        logger.warning("redis package unavailable; using in-memory store")
+        return _MemoryBackend()
+    try:
+        backend = _RedisBackend(redis_url)
+        logger.info("Connected to Redis at %s", redis_url)
+        return backend
+    except Exception as exc:
+        logger.warning("Redis unreachable (%s); using in-memory store", exc)
+        return _MemoryBackend()
 
 
 class FeatureStore:
-    """Feature keys and the recommendation cache over the in-memory
-    backend, with an optional snapshot to fall through to."""
+    """Feature keys and the recommendation cache over the backend
+    :func:`_pick_backend` chose, with an optional snapshot to fall through
+    to."""
 
     def __init__(self, redis_url: str = "redis://localhost:6379", ttl: int = 3600):
         self.redis_url = redis_url
         self.ttl = ttl
         self._backend = _pick_backend(redis_url)
         self._snapshot = None
+
+    @property
+    def is_redis_available(self) -> bool:
+        return isinstance(self._backend, _RedisBackend)
 
     # --- user and item features --------------------------------------- #
 
@@ -205,3 +293,7 @@ class FeatureStore:
 
     def stats(self) -> Dict[str, Any]:
         return self._backend.stats()
+
+
+# JAX's alias of the reference's class name
+RedisFeatureStore = FeatureStore

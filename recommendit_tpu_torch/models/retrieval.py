@@ -148,9 +148,8 @@ class MIPSIndex:
             raise RuntimeError("Index not built. Call build() first.")
         k = min(k, self.n_total)
         q = _l2_normalize_np(np.asarray(queries, np.float32))
-        vals, pos = self.search_device_positions(
-            torch.as_tensor(q, device=self.device), k)
-        return vals.cpu().numpy(), self._ids_dev[pos].cpu().numpy()
+        vals, ids = self.search_device(torch.as_tensor(q, device=self.device), k)
+        return vals.cpu().numpy(), ids.cpu().numpy()
 
     def _augment(self, queries: torch.Tensor) -> torch.Tensor:
         """[q, 1 (bias column), 0 … (pad columns)] to the device width; an
@@ -186,8 +185,14 @@ class MIPSIndex:
             return lambda q: mips_topk_certified(aug(q), embs, k, block)
         return lambda q: mips_topk(aug(q), embs, k, mode=mode, n_valid=n_valid)
 
+    def search_device(self, queries: torch.Tensor, k: int):
+        """Device-to-device search (nothing copied to the host) → (scores,
+        item ids), both on the device."""
+        vals, pos = self.search_device_positions(queries, k)
+        return vals, self._ids_dev[pos]
+
     def search_device_positions(self, queries: torch.Tensor, k: int):
-        """Device-to-device search → (scores, corpus positions)."""
+        """Like :meth:`search_device`, but → (scores, corpus positions)."""
         return self.make_device_searcher(k)(queries)
 
     # --- persistence (the JAX npz + meta format) ------------------------ #

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from recommendit_tpu_torch.features.schema import N_GENRES
+from recommendit_tpu_torch.ops.bpr import in_batch_bpr_loss, pairwise_bpr_loss
 from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 PARAM_NAMES = (
@@ -177,6 +178,19 @@ class TwoTower(nn.Module):
                     f"{name}: shape {arr.shape}, expected {tuple(p.shape)}")
             p.data.copy_(torch.from_numpy(arr))
         return model
+
+    # --- losses (JAX's parity surface) ---------------------------------- #
+
+    @staticmethod
+    def bpr_loss(user_emb: torch.Tensor, pos_item_emb: torch.Tensor,
+                 neg_item_emb: torch.Tensor) -> torch.Tensor:
+        return pairwise_bpr_loss(user_emb, pos_item_emb, neg_item_emb)
+
+    @staticmethod
+    def in_batch_bpr_loss(user_emb: torch.Tensor, item_emb: torch.Tensor) -> torch.Tensor:
+        """:class:`~recommendit_tpu_torch.ops.bpr.InBatchBPR`: on CUDA
+        tensors the forward and backward kernels."""
+        return in_batch_bpr_loss(user_emb, item_emb)
 
     @torch.no_grad()
     def user_tower(self, user_ids: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,14 @@ class SeenSet:
         max_row = int(np.max(np.diff(self.indptr))) if self.cols.size else 0
         self.search_steps = max(1, int(np.ceil(np.log2(max_row + 1))))
 
+    @property
+    def nnz(self) -> int:
+        return int(self.cols.size)
+
+    def nbytes(self) -> int:
+        """Bytes of the CSR arrays (``cols`` and ``indptr``)."""
+        return int(self.cols.nbytes + self.indptr.nbytes)
+
     def contains(self, user_ids: np.ndarray, item_ids: np.ndarray) -> np.ndarray:
         """Vectorized host-side membership: bool array of the queries' shape."""
         q = (

@@ -223,14 +223,19 @@ class ShardedOptState:
     (JAX has to pin them to the params' shardings, ``init_opt_sharded``;
     built from local tensors they cannot land elsewhere)."""
 
-    def __init__(self, tx: AdamW, params: dict, shardings: Dict[str, Sharding],
-                 mesh):
+    def __init__(self, tx: AdamW, params: dict, mesh):
         self.tx = tx
         self.names = list(params)
-        self.sharded = [shardings[k].axis is not None for k in self.names]
         self.model_group = mesh.get_group(MODEL_AXIS)
         self.adam = OptaxAdamW([params[k] for k in self.names],
                                [True] * len(self.names), tx.weight_decay)
+        # the Sharding of each leaf of state_dict(), set by init_opt_sharded
+        self.shardings: dict = {}
+
+    @property
+    def sharded(self) -> List[bool]:
+        """Per param, whether its moments (and gradient) are row shards."""
+        return [self.shardings["mu"][k].axis is not None for k in self.names]
 
     @torch.no_grad()
     def apply_(self, grads: List[torch.Tensor]) -> None:
@@ -274,12 +279,35 @@ def clip_by_global_norm_sharded_(grads: List[torch.Tensor], sharded: List[bool],
     torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
 
 
+def opt_shardings_like(params: dict, opt_state, mesh,
+                       shardings: Optional[Dict[str, Sharding]] = None):
+    """Sharding tree of an optimizer state (a :class:`ShardedOptState`'s
+    ``state_dict()``, or any tree of dicts, lists and tuples): a dict that
+    mirrors the param dict (AdamW's ``mu`` and ``nu``) takes the params'
+    shardings key by key; every other leaf (the step count) is replicated.
+    ``shardings`` defaults to :func:`params_shardings`."""
+    pshard = params_shardings(params, mesh) if shardings is None else shardings
+    rep = replicated(mesh)
+
+    def rec(node):
+        if isinstance(node, dict):
+            if node.keys() == params.keys():
+                return {k: pshard[k] for k in node}
+            return {k: rec(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(rec(c) for c in node)
+        return rep
+
+    return rec(opt_state)
+
+
 def init_opt_sharded(tx: AdamW, params: dict, mesh,
                      shardings: Optional[Dict[str, Sharding]] = None) -> ShardedOptState:
-    """The optimizer state over this rank's params (already sharded)."""
-    if shardings is None:
-        shardings = params_shardings(params, mesh)
-    return ShardedOptState(tx, params, shardings, mesh)
+    """The optimizer state over this rank's params (already sharded), with
+    the Sharding of each of its leaves (:func:`opt_shardings_like`)."""
+    state = ShardedOptState(tx, params, mesh)
+    state.shardings = opt_shardings_like(params, state.state_dict(), mesh, shardings)
+    return state
 
 
 def pad_to_multiple(x: np.ndarray, multiple: int, axis: int = 0) -> np.ndarray:

@@ -194,6 +194,11 @@ class RecommendationPipeline:
         # copy to the host included)
         self._batch_timing: Dict[str, Any] = {}
 
+    @property
+    def faiss_index(self) -> Optional[MIPSIndex]:
+        """JAX's alias of the reference's attribute name."""
+        return self.index
+
     # --- load ------------------------------------------------------------ #
 
     def load(self, data=None) -> None:

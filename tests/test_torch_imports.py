@@ -376,3 +376,26 @@ print("sweeps", sorted(rec), rec["train_scope_bench"]["line"]["epochs"])
     assert proc.returncode == 0, proc.stderr
     assert ("sweeps ['blend_sweep', 'ladder_sweep', 'launches', 'ranker_headroom', "
             "'real_data', 'seconds', 'tower_sweep', 'train_scope_bench'] 2") in proc.stdout
+
+
+def test_store_and_package_import_without_redis_or_msgpack():
+    """On a machine with neither ``redis`` nor ``msgpack`` (the card's has
+    no ``redis``) the package imports, and the store takes the in-memory
+    backend and writes JSON, as JAX's does there."""
+    code = """
+sys.modules["redis"] = None
+sys.modules["msgpack"] = None
+import json
+import recommendit_tpu_torch
+import chip_smoke
+from recommendit_tpu_torch.features import RedisFeatureStore, store
+assert not store.REDIS_AVAILABLE and not store.MSGPACK_AVAILABLE
+fs = RedisFeatureStore("redis://localhost:6379")
+fs.store_user_features(3, {"avg_rating": 4.0})
+raw = fs._backend.read("user:feat:3")
+print(fs.is_redis_available, fs.stats()["backend"], json.loads(raw), fs.get_user_features(3))
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert ("False in-memory {'avg_rating': 4.0} {'avg_rating': 4.0}"
+            in proc.stdout.splitlines()[-1])

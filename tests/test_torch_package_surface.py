@@ -12,8 +12,9 @@ on the CPU:
 * ``features/snapshot.py``'s native reader on ``native/feature_snapshot.cpp``
   equal to its numpy reader and to JAX's reader;
 * the export lists of the ``__init__``s against JAX's, less
-  ``RedisFeatureStore`` and ``download_movielens`` (not ported) and with
-  ``TwoTower`` where JAX has ``TwoTowerModel``.
+  ``download_movielens`` (not ported: a download) and with ``TwoTower``
+  where JAX has ``TwoTowerModel``; ``RedisFeatureStore`` is the port's
+  ``FeatureStore``, as in JAX.
 """
 import ast
 import json
@@ -29,7 +30,7 @@ from recommendit_tpu_torch.utils.profiling import StageTimer, device_trace, time
 
 ROOT = Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "fixtures" / "ml1m_golden"
-NOT_PORTED = {"RedisFeatureStore", "download_movielens"}
+NOT_PORTED = {"download_movielens"}
 RENAMED = {"TwoTowerModel": "TwoTower"}
 
 
@@ -191,6 +192,8 @@ def test_subpackage_exports_pin_jax_s(sub):
     mod = importlib.import_module(f"recommendit_tpu_torch.{sub}")
     missing = [n for n in want if not hasattr(mod, n)]
     assert not missing, missing
+    if sub == "features":
+        assert mod.RedisFeatureStore is mod.FeatureStore
     ported = _imported_names(ROOT / "recommendit_tpu_torch" / sub / "__init__.py")
     if sub == "models":
         ported = sorted(set(ported) - {"DEFAULT_DEVICE", "Union"} | {"load_ranker"})

@@ -509,17 +509,21 @@ def test_feature_store_holds_the_jax_dicts(runs):
 
 
 def test_store_refuses_redis_it_cannot_use(monkeypatch):
-    """With the redis package importable the store raises: the Redis
-    backend is not ported, and memory would hide that."""
-    import importlib.util
-
+    """With the redis package importable but no server answering, the store
+    takes the in-memory backend, as JAX's does
+    (``tests/test_torch_store_redis.py`` holds the Redis backend itself)."""
     from recommendit_tpu_torch.features import store
 
-    real = importlib.util.find_spec
-    monkeypatch.setattr(importlib.util, "find_spec",
-                        lambda name, *a: object() if name == "redis" else real(name, *a))
-    with pytest.raises(NotImplementedError, match="Redis backend"):
-        store.FeatureStore()
+    class Unreachable:
+        @staticmethod
+        def from_url(url, socket_connect_timeout):
+            raise ConnectionError(f"{url}: connection refused")
+
+    monkeypatch.setattr(store, "redis", Unreachable)
+    monkeypatch.setattr(store, "REDIS_AVAILABLE", True)
+    fs = store.FeatureStore("redis://localhost:9999")
+    assert not fs.is_redis_available
+    assert fs.stats() == {"backend": "in-memory", "keys": 0}
 
 
 def test_skew_report_matches(runs):

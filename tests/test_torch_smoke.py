@@ -142,6 +142,24 @@ def test_serve_phase_checks_pass(small_artifacts):
     assert out["batch_vs_single_top_k_agreement"] == 1.0
     assert out["launches"] == {"window_mips": 0,   # the CPU runs the twins
                                "window_mips_qm": 0, "window_mips_i8": 0}
+    assert out["search_device"] == {
+        "queries": 400, "k": chip_smoke.TOP_K_CANDIDATES, "index_dtype": "bfloat16",
+        "calls": 2, "launches": 0, "ids_equal": True, "max_abs_err": 0.0,
+        "repeat_bit_identical": True}
+
+
+def test_search_device_launches_are_checked(small_artifacts):
+    """The search_device count is held to one launch a call on the card: a
+    run that launched nothing (here, the twins) fails that check."""
+    paths, data = small_artifacts
+    pipe = chip_smoke.load_pipeline(paths, data, "cpu", "int8")
+    q = pipe.model.user_tower(torch.arange(400) % pipe.model.n_users + 1)
+    with chip_smoke._WindowLaunches("window_mips_i8", ("search_device",)) as window:
+        pipe.index.search_device(q, 100)
+    assert window.calls == [("search_device", 0, 400, "fused")]
+    with pytest.raises(AssertionError, match="launched window_mips_i8 0 times, expected 1"):
+        window.check("int8", 0, on_card=True)
+    assert window.check("int8", 0, on_card=False) == {"search_device": 0}
 
 
 def test_artifacts_include_the_int8_index(small_artifacts):
@@ -205,6 +223,9 @@ def test_int8_serve_phase_checks_pass(small_artifacts):
     assert out["batch_vs_single_top_k_agreement"] == 1.0
     assert out["launches"] == {"window_mips": 0, "window_mips_qm": 0,
                                "window_mips_i8": 0}
+    sd = out["search_device"]
+    assert sd["index_dtype"] == "int8" and sd["ids_equal"] and sd["launches"] == 0
+    assert sd["max_abs_err"] == 0.0 and sd["repeat_bit_identical"]
 
 
 def test_capacity_phase_on_the_twin():
@@ -297,6 +318,9 @@ def test_bpr_kernel_phase_on_the_twins():
         assert 0.6 < r["loss"] < 0.8          # ≈ ln 2 for random unit rows
         assert r["repeat_bit_identical"] and r["gemm_only_ms"] > 0
         assert r["bound_fwd_ms"] > 0 and r["bound_bwd_3xtf32_ms"] > 0
+        # TwoTower.in_batch_bpr_loss is the twin on the CPU: no launch
+        assert r["two_tower"] == {"launches": {"bpr_fwd": 0, "bpr_bwd": 0},
+                                  "loss_rel_err": 0.0, "du_err": 0.0, "dv_err": 0.0}
 
 
 def test_bpr_bounds():
@@ -524,6 +548,12 @@ def test_http_phase_checks_pass(small_artifacts):
         assert rec["big_bucket_dispatches"] >= 1 and rec["warm_on_dispatch_thread"]
         assert rec["levels"][-1]["max_batch_size"] > 8
         assert all(set(lv["launches"].values()) == {0} for lv in rec["levels"])
+    from recommendit_tpu_torch.features import store
+
+    assert out["feature_store"] == {
+        "backend": "redis" if any(p.feature_store.is_redis_available for p in pipes)
+        else "in-memory", "codec": "msgpack" if store.MSGPACK_AVAILABLE else "json",
+        "redis_package": store.REDIS_AVAILABLE, "msgpack_package": store.MSGPACK_AVAILABLE}
     assert out["bf16"]["feature_update_user"] >= 1
     assert out["bf16"]["batch_route_users"] == 100
     assert all(p._batcher._thread.is_alive() is False for p in pipes)
