@@ -65,7 +65,18 @@ group.
 Phases (each failure raises, so the exit code is not 0):
 
 1. build the CUDA kernels from ``recommendit_tpu_torch/csrc`` (one nvcc per
-   source, all started together);
+   source, all started together); then, while this process holds nothing
+   on the card, the web100m_shard phase: in a fresh process
+   (``parallel/launch.spawn``, one NCCL rank), one rank of
+   ``scale_smoke --config web100m --full --nproc 4``
+   (``scale_smoke.train_shard`` with ``of_shards=4`` on a (1, 1) mesh:
+   25,000,001 user and 2,500,001 item rows, dim 128, hidden 256, batch
+   4,096, dropout 0.2, clipping 1.0, AdamW 1e-3 / decay 1e-4, the item
+   bias and genre table at all 10,000,004 rows), 6 steps; checks: no
+   out-of-memory error, the losses finite, kernels 5 and 6 once each a
+   step (at (4,096, 128)) and within the BPR phase's tolerances of their
+   twins on the step's own towers, the peak allocated above the state
+   (params, grads, two moments) within ``shard_peak_bound_gib``;
 2. write the artifacts, embed the catalog with the port's item tower and
    build + save the fused bf16 index and, from the same embeddings and
    bias, the fused int8 index (quant seed ``--seed``);
@@ -315,7 +326,9 @@ Phases (each failure raises, so the exit code is not 0):
    batch 4,096) against the single-device joint step, as (a); (e)
    ``scripts/multiproc_smoke.py``'s 4 CTR steps with the state saved at
    step 2, the process group destroyed and made anew, steps 2-3 resumed
-   with losses equal.
+   with losses equal; (f) the chunked ``OptaxAdamW`` step (chunk 2^20, the
+   tables in 56 groups) against its one-pass form at (a)'s params over 3
+   steps of seeded gradients: params, mu and nu bit-equal, and both times.
 25. quality phase: the port's
    ``scripts/quality_at_scale.py`` at the ``ml25m`` catalog's full width
    (162,541 x 62,423, dim 64) with the script's own overrides
@@ -365,8 +378,9 @@ the window kernels (the int8 ones in the int8 kernel phase).
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (each
 kernel's launches on its path, error against its twin, time, twin's time
 — by CUDA events, for the BPR kernels by ``torch.profiler`` —, bound and,
-where one PyTorch call computes the same function, that call's time) and,
-last, ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
+where one PyTorch call computes the same function, that call's time; the
+script fails rather than print a kernel time under its bound) and, last,
+``{"ok": true, "device": {...}}``. Exits non-zero without a GPU.
 """
 from __future__ import annotations
 
@@ -543,6 +557,13 @@ PAR_SERVE_K = 100                 # the serve configuration's top-100 output
 # the 26,660-row table; embed 16, retrieval 32, top (256, 128), batch 4,096)
 PAR_CTR = dict(n_users=20_000, n_items=5_000, batch=4096, embed=16,
                retrieval=32, top=(256, 128))
+PAR_ADAM_CHUNK = 1 << 20          # the chunked step's chunk in the bit-equality check
+# one rank of `scale_smoke --config web100m --full --nproc 4` on one card
+# (the configuration, and the model axis the tables are laid out over):
+# 25,000,001 user and 2,500,001 item rows at dim 128, hidden 256, batch
+# 4,096; the item bias and genre table at all 10,000,004 rows
+SHARD_RUN = ("web100m", 4)
+SHARD_TIMEOUT_S = 600
 
 
 def _demangle(symbol: str):
@@ -798,29 +819,34 @@ def device_events(prof):
             yield evt.key, dev_us, evt.count
 
 
-def profiled(body, keep=None, tries: int = PROFILE_TRIES, setup=None):
+def profiled(body, keep=None, tries: int = PROFILE_TRIES, setup=None, whole=None):
     """``body()`` under ``torch.profiler`` (CPU and CUDA activity), taken
-    again while the session records no device time in a kernel whose
-    short name ``keep`` accepts (any kernel where ``keep`` is None), at
-    most ``tries`` sessions: on an H100 a session now and then comes back
-    with no kernel record at all, between sessions that record every
-    kernel. ``setup()``, where given, runs before each session, outside
-    it, and ``body`` then takes its result. Returns the last session and
-    ``body``'s result in it; the caller sees an empty session as no device
-    events."""
+    again while the session is not whole, at most ``tries`` sessions: on
+    an H100 a session now and then comes back with no kernel record at
+    all, or with the records of only some calls, between sessions that
+    record every kernel. ``whole(kept)`` judges the session from the
+    ``(name, device µs, count)`` of the kernels whose short name ``keep``
+    accepts (any kernel where ``keep`` is None); by default a session is
+    whole where it recorded any of them. ``setup()``, where given, runs
+    before each session, outside it, and ``body`` then takes its result.
+    Returns the last session and ``body``'s result in it; the caller sees
+    an empty session as no device events."""
     from torch.profiler import ProfilerActivity, profile
 
+    whole = whole or bool
     for n in range(1, tries + 1):
         args = () if setup is None else (setup(),)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             res = body(*args)
             torch.cuda.synchronize()
-        if any(keep is None or keep(_short_kernel_name(key))
-               for key, _, _ in device_events(prof)):
+        kept = [(key, us, count) for key, us, count in device_events(prof)
+                if keep is None or keep(_short_kernel_name(key))]
+        if whole(kept):
             break
-        print(json.dumps({"profiler_session_empty": {"session": n, "of": tries}}),
-              flush=True)
+        print(json.dumps({"profiler_session_empty" if not kept else "profiler_session_short": {
+            "session": n, "of": tries,
+            "records": {_short_kernel_name(k): c for k, _, c in kept}}}), flush=True)
     return prof, res
 
 
@@ -829,19 +855,30 @@ def device_kernel_ms(fn, reps: int, keep=None):
     arguments dropped; only names ``keep`` accepts, where given): the
     kernels' own time under ``torch.profiler`` (:func:`profiled`) over
     ``reps`` calls after a warm one, launch gaps and host time left out.
-    Empty where the profiler recorded none of them."""
+    A session is whole where it holds a record of every call's launches —
+    each kernel's count a positive multiple of ``reps`` — and is retaken
+    where not: one that kept the records of some calls only, read as if it
+    had all ``reps``, once put kernel 6 at (1,024, 64) below its bound (its
+    tile and finish kernels both at 15 % of their time). Empty where no
+    session was whole."""
     fn()
 
     def body():
         for _ in range(reps):
             fn()
 
-    prof, _ = profiled(body, keep)
+    def every_call(kept):
+        return bool(kept) and all(count % reps == 0 for _, _, count in kept)
+
+    prof, _ = profiled(body, keep, whole=every_call)
+    kept = [(key, us, count) for key, us, count in device_events(prof)
+            if keep is None or keep(_short_kernel_name(key))]
+    if not every_call(kept):
+        return {}
     out = {}
-    for key, dev_us, _ in device_events(prof):
+    for key, dev_us, _ in kept:
         name = _short_kernel_name(key)
-        if keep is None or keep(name):
-            out[name] = out.get(name, 0.0) + dev_us / 1e3 / reps
+        out[name] = out.get(name, 0.0) + dev_us / 1e3 / reps
     return out
 
 
@@ -2579,12 +2616,57 @@ def bpr_device_ms(name: str, fn, keep=None) -> dict:
             f"{name}_device_ms": sum(kernels.values()) if kernels else cuda_ms(fn, 50)}
 
 
+def bpr_pair_check(u: torch.Tensor, v: torch.Tensor, timer=cuda_ms) -> dict:
+    """Kernels 5 and 6 (``bpr_forward``, ``bpr_backward``) against their
+    twins on (B, D) rows ``u``, ``v``: the loss's relative error, each
+    gradient's largest error over the twin's largest, a second call
+    bit-identical to the first; the time of each and of its twin by
+    ``timer`` over 50 calls (None without one)."""
+    from recommendit_tpu_torch.ops import bpr
+
+    g = torch.tensor(1.0, device=u.device)
+    loss = bpr.bpr_forward(u, v)
+    ref = bpr.in_batch_bpr_loss_ref(u, v)
+    du, dv = bpr.bpr_backward(u, v, g)
+    rdu, rdv = bpr._bpr_bwd_ref(u, v, g)
+    again = (bpr.bpr_forward(u, v), *bpr.bpr_backward(u, v, g))
+    rec = {
+        "b": u.shape[0], "d": u.shape[1], "loss": float(loss), "twin_loss": float(ref),
+        "loss_rel_err": abs(float(loss) - float(ref)) / abs(float(ref)),
+        "du_err": float((du - rdu).abs().max() / rdu.abs().max()),
+        "dv_err": float((dv - rdv).abs().max() / rdv.abs().max()),
+        "grad_max_abs_err": float(max((du - rdu).abs().max(),
+                                      (dv - rdv).abs().max())),
+        "repeat_bit_identical": all(torch.equal(x, y) for x, y in
+                                    zip((loss, du, dv), again)),
+    }
+    calls = {"fwd": lambda: bpr.bpr_forward(u, v),
+             "twin_fwd": lambda: bpr.in_batch_bpr_loss_ref(u, v),
+             "bwd": lambda: bpr.bpr_backward(u, v, g),
+             "twin_bwd": lambda: bpr._bpr_bwd_ref(u, v, g)}
+    for name, fn in calls.items():
+        rec[f"{name}_ms"] = timer(fn, 50) if timer else None
+    return rec
+
+
+def check_bpr_pair(rec: dict) -> None:
+    """The BPR phase's tolerances: the loss within 1e-5 of the twin's,
+    relative; each gradient within 1e-4 of the twin's largest; two calls
+    bit-identical."""
+    if not rec["loss_rel_err"] <= 1e-5:
+        raise AssertionError(f"BPR loss differs from the twin: {rec}")
+    if not max(rec["du_err"], rec["dv_err"]) <= 1e-4:
+        raise AssertionError(f"BPR gradients differ from the twin: {rec}")
+    if not rec["repeat_bit_identical"]:
+        raise AssertionError(f"BPR kernels differ between two calls: {rec}")
+
+
 def bpr_kernel_phase(device, seed: int, shapes=BPR_SHAPES, timer=cuda_ms):
     """The BPR forward and backward (kernels on the card) against their
     twins on seeded unit rows, a second call equal to the first bit for
-    bit; the times of both and of ``u @ v.T`` alone (``gemm_only_ms``, full
-    f32), the bounds and the bpr library's ptxas report. Returns one record
-    per (B, D)."""
+    bit (:func:`bpr_pair_check`); the times of both and of ``u @ v.T``
+    alone (``gemm_only_ms``, full f32), the bounds and the bpr library's
+    ptxas report. Returns one record per (B, D)."""
     from recommendit_tpu_torch.ops import _build, bpr
     from recommendit_tpu_torch.ops.topk import full_f32_matmul
 
@@ -2597,25 +2679,7 @@ def bpr_kernel_phase(device, seed: int, shapes=BPR_SHAPES, timer=cuda_ms):
         u, v = (torch.nn.functional.normalize(torch.randn(b, d, generator=gen),
                                               dim=1).to(device) for _ in "uv")
         g = torch.tensor(1.0, device=device)
-        loss = bpr.bpr_forward(u, v)
-        ref = bpr.in_batch_bpr_loss_ref(u, v)
-        du, dv = bpr.bpr_backward(u, v, g)
-        rdu, rdv = bpr._bpr_bwd_ref(u, v, g)
-        again = (bpr.bpr_forward(u, v), *bpr.bpr_backward(u, v, g))
-        rec = {
-            "b": b, "d": d, "loss": float(loss), "twin_loss": float(ref),
-            "loss_rel_err": abs(float(loss) - float(ref)) / abs(float(ref)),
-            "du_err": float((du - rdu).abs().max() / rdu.abs().max()),
-            "dv_err": float((dv - rdv).abs().max() / rdv.abs().max()),
-            "grad_max_abs_err": float(max((du - rdu).abs().max(),
-                                          (dv - rdv).abs().max())),
-            "repeat_bit_identical": all(torch.equal(x, y) for x, y in
-                                        zip((loss, du, dv), again)),
-        }
-        rec["fwd_ms"] = timer(lambda: bpr.bpr_forward(u, v), 50)
-        rec["twin_fwd_ms"] = timer(lambda: bpr.in_batch_bpr_loss_ref(u, v), 50)
-        rec["bwd_ms"] = timer(lambda: bpr.bpr_backward(u, v, g), 50)
-        rec["twin_bwd_ms"] = timer(lambda: bpr._bpr_bwd_ref(u, v, g), 50)
+        rec = bpr_pair_check(u, v, timer)
         with full_f32_matmul():
             rec["gemm_only_ms"] = timer(lambda: u @ v.T, 50)
         for name, (ms, by) in bpr_bounds(b, d).items():
@@ -2639,12 +2703,7 @@ def bpr_kernel_phase(device, seed: int, shapes=BPR_SHAPES, timer=cuda_ms):
         rec["bwd_bound_share"] = rec["bound_bwd_ms"] / rec["bwd_ms"]
         rec["two_tower"] = two_tower_bpr_check(u, v, device)
         print(json.dumps({"bpr_check": rec}), flush=True)
-        if not rec["loss_rel_err"] <= 1e-5:
-            raise AssertionError(f"BPR loss differs from the twin: {rec}")
-        if not max(rec["du_err"], rec["dv_err"]) <= 1e-4:
-            raise AssertionError(f"BPR gradients differ from the twin: {rec}")
-        if not rec["repeat_bit_identical"]:
-            raise AssertionError(f"BPR kernels differ between two calls: {rec}")
+        check_bpr_pair(rec)
         out.append(rec)
     return out
 
@@ -2685,6 +2744,34 @@ def bound(n_bytes: float, ops: float = 0.0, kind: str = "f32"):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_time_bounds(kern: dict):
+    """(time key, bound key) of each kernel time of a kernels-line entry:
+    ``ms`` and each ``ms_<shape>`` against ``bound_ms`` and
+    ``bound_ms_<shape>``, each ``<path>_ms`` against ``<path>_bound_ms``
+    (plain, library and bound times are not the kernel's)."""
+    for key in kern:
+        if key == "ms" or key.startswith("ms_"):
+            yield key, "bound_" + key
+        elif (key.endswith("_ms") and not key.endswith("_bound_ms")
+              and not key.startswith(("plain_", "library_", "bound_"))):
+            yield key, key[:-len("ms")] + "bound_ms"
+
+
+def check_kernel_times(kernels) -> None:
+    """Refuse a kernels line that prints a time no card can give: every
+    kernel time has its bound, and none is under it."""
+    bad = []
+    for kern in kernels:
+        for t, b in kernel_time_bounds(kern):
+            if b not in kern:
+                bad.append(f"{kern['name']}.{t}: no {b}")
+            elif not kern[t] >= kern[b]:
+                bad.append(f"{kern['name']}.{t} = {kern[t]} ms, under its bound "
+                           f"{b} = {kern[b]} ms")
+    if bad:
+        raise AssertionError("kernels line: " + "; ".join(bad))
 
 
 def fold_bounds(rec):
@@ -4581,7 +4668,8 @@ def parallel_ctr_check(mesh, device, seed: int, ctr=PAR_CTR, timed: int = PAR_TI
 def parallel_phase(paths, device, seed: int, workdir: Path, card: str,
                    two_tower=PAR_TWO_TOWER, steps: int = PAR_CHECK_STEPS,
                    timed: int = PAR_TIMED_STEPS, merge_q: int = PAR_MERGE_Q,
-                   serve_users: int = BATCH, ctr=PAR_CTR, timer=cuda_ms):
+                   serve_users: int = BATCH, ctr=PAR_CTR, adam_chunk: int = PAR_ADAM_CHUNK,
+                   timer=cuda_ms):
     """The multi-device layer (``recommendit_tpu_torch/parallel``) at world
     size 1 — NCCL on the card, a ``(1, 1)`` mesh (one card cannot hold two
     NCCL ranks) — through its entry points: ``distributed_init``,
@@ -4591,7 +4679,9 @@ def parallel_phase(paths, device, seed: int, workdir: Path, card: str,
     checkpoint resumed across a restart of the process group
     (``scripts/multiproc_smoke.py``'s ``ctr_run`` / ``ctr_resume``: 4 CTR
     steps, the state saved at step 2, the group destroyed and made anew,
-    steps 2-3 again with losses equal)."""
+    steps 2-3 again with losses equal); after the train check,
+    :func:`adamw_chunk_check` at the same widths (the chunked ``OptaxAdamW``
+    step bit-equal to its one-pass form at ``adam_chunk``)."""
     import tempfile
 
     import torch.distributed as dist
@@ -4614,6 +4704,8 @@ def parallel_phase(paths, device, seed: int, workdir: Path, card: str,
         t0 = time.perf_counter()
         rec["train"] = parallel_train_check(mesh, device, seed, two_tower, steps, timed)
         rec["train_s"] = time.perf_counter() - t0
+        rec["adamw_chunks"] = adamw_chunk_check(device, seed, two_tower, steps,
+                                                adam_chunk, timer)
         torch.cuda.empty_cache()
         rec["merges"] = parallel_merge_check(mesh, paths, device, seed, merge_q,
                                              timer=timer)
@@ -4649,6 +4741,149 @@ def parallel_phase(paths, device, seed: int, workdir: Path, card: str,
               f"host clock, {p['device_us_per_step']:.1f} us of kernels in "
               f"{p['launches_per_step']:.1f} launches, idle {p['device_idle_share']:.1%}",
               flush=True)
+    return rec
+
+
+def adamw_chunk_check(device, seed: int, two_tower=PAR_TWO_TOWER,
+                      steps: int = PAR_CHECK_STEPS, chunk: int = PAR_ADAM_CHUNK,
+                      timer=cuda_ms) -> dict:
+    """``OptaxAdamW.step`` a ``chunk`` at a time against its one-pass form
+    (``_step_unchunked``) at the two-tower's params (``init_params`` at
+    ``two_tower``'s widths), from the same params over ``steps`` steps of
+    seeded gradients (the tables' rows 80 % zero, as a lookup's are):
+    params, mu and nu bit-equal after each step; then ms a step of both
+    (``timer``)."""
+    from recommendit_tpu_torch.models.two_tower import init_params
+    from recommendit_tpu_torch.training.train_embeddings import OptaxAdamW
+
+    device = torch.device(device)
+    n_users, n_items, dim, hidden, _ = two_tower
+    start = init_params(torch.Generator().manual_seed(seed), n_users, n_items, dim,
+                        hidden, device="cpu")
+    names = list(start)
+    decay = [k != "item_bias" for k in names]
+    chunked = OptaxAdamW([start[k].to(device, copy=True) for k in names], decay, 1e-4,
+                         chunk=chunk)
+    one_pass = OptaxAdamW([start[k].to(device, copy=True) for k in names], decay, 1e-4)
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+
+    def grads():
+        out = []
+        for p in chunked.params:
+            g = torch.randn(p.shape, generator=gen, device=device)
+            if p.dim() == 2 and p.shape[0] > 1000:
+                g *= torch.rand(p.shape[0], 1, generator=gen, device=device) < 0.2
+            out.append(g)
+        return out
+
+    equal = []
+    for _ in range(steps):
+        g = grads()
+        chunked.step(g, 1e-3)
+        one_pass._step_unchunked(g, 1e-3)
+        equal.append(all(torch.equal(a, b) for x, y in
+                         ((chunked.params, one_pass.params), (chunked.mu, one_pass.mu),
+                          (chunked.nu, one_pass.nu)) for a, b in zip(x, y)))
+    rec = {"params": sum(p.numel() for p in chunked.params), "chunk": chunk,
+           "groups": len(chunked.groups), "steps": steps, "bit_equal": equal}
+    if not all(equal):
+        raise AssertionError(f"the chunked AdamW step differs from the one-pass: {rec}")
+    g = grads()
+    rec["chunked_ms"] = timer(lambda: chunked.step(g, 1e-3), 5)
+    rec["one_pass_ms"] = timer(lambda: one_pass._step_unchunked(g, 1e-3), 5)
+    return rec
+
+
+def shard_peak_bound_gib(rows: int, batch: int, dim: int, hidden: int,
+                         chunk: int) -> dict:
+    """What a sharded two-tower step may hold above its state (params,
+    grads, two moments), in GiB, worked out from the shapes: the genre
+    table on the card (``rows`` x 18 f32); two chunks of the optimizer's
+    scratch (``OptaxAdamW`` holds at most two chunk-sized temporaries at
+    once); the towers' activations, counted generously as 64 f32 tensors
+    of (batch, max(dim, hidden)); two (batch, batch) f32 matrices of the
+    loss. The gradients are summed in place (nothing at one data rank)."""
+    terms = {"genre_table": rows * 18 * 4, "optimizer_scratch": 2 * chunk * 4,
+             "tower_activations": 64 * batch * max(dim, hidden) * 4,
+             "loss_matrices": 2 * batch * batch * 4}
+    out = {k: v / 2**30 for k, v in terms.items()}
+    out["bound"] = sum(terms.values()) / 2**30
+    return out
+
+
+def web100m_shard_rank(config: str, full: bool, row_cap: int, of_shards: int,
+                       seed: int) -> dict:
+    """The rank of the web100m_shard phase (a fresh process of its own):
+    ``scale_smoke.train_shard`` on a (1, 1) mesh laid out as one rank of
+    ``of_shards``, the BPR wrappers' counts set to 0 just before and read
+    just after; then kernels 5 and 6 against their twins on the last
+    step's gathered towers, the (B, D) the step gave them."""
+    from recommendit_tpu_torch.ops import bpr
+    from recommendit_tpu_torch.parallel import create_mesh
+    from recommendit_tpu_torch.scripts.scale_smoke import train_shard
+
+    mesh = create_mesh(shape=(1, 1))
+    seen = {}
+
+    def loss_fn(u, v):
+        seen["u"], seen["v"] = u.detach(), v.detach()
+        return bpr.in_batch_bpr_loss(u, v)
+
+    _reset(bpr.LAUNCHES)
+    rec = train_shard(mesh, config, full, row_cap, of_shards, loss_fn=loss_fn, seed=seed)
+    rec["launches"] = dict(bpr.LAUNCHES)
+    on_card = seen["u"].device.type == "cuda"
+    rec["twins"] = bpr_pair_check(seen["u"], seen["v"], cuda_ms if on_card else None)
+    return rec
+
+
+def web100m_shard_phase(device, seed: int, card: str, run=SHARD_RUN, full: bool = True,
+                        row_cap: int = 4096, timeout: float = SHARD_TIMEOUT_S) -> dict:
+    """One rank of ``scale_smoke --config web100m --full --nproc 4`` on one
+    card, in a fresh process (``parallel/launch.spawn``, one NCCL rank, so
+    the allocator starts empty): ``make_sharded_train_step`` at web100m's
+    widths over exactly the rows that rank holds (``run``: the
+    configuration and the model axis). Checks: the step runs (an
+    out-of-memory error fails the phase), every loss finite, kernels 5 and
+    6 once each a step, each within the BPR phase's tolerances of its twin
+    at the step's (B, D); on the card, the peak allocated
+    (``torch.cuda.max_memory_allocated``) above the state (params, grads,
+    two moments) within :func:`shard_peak_bound_gib`."""
+    from recommendit_tpu_torch.parallel.launch import spawn
+    from recommendit_tpu_torch.scripts.scale_smoke import CONFIGS
+    from recommendit_tpu_torch.training.train_embeddings import ADAM_CHUNK
+
+    config, of_shards = run
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    rec = spawn(web100m_shard_rank, 1, (config, full, row_cap, of_shards, seed),
+                device=torch.device(device).type, timeout=timeout)[0]
+    rec["seconds"] = time.perf_counter() - t0
+    _, _, dim, hidden, _, _ = CONFIGS[config]
+    rec["peak_bound_gib"] = shard_peak_bound_gib(rec["items"] + 1, rec["batch"], dim,
+                                                 hidden, ADAM_CHUNK)
+    if on_card:
+        rec["peak_over_state_gib"] = rec["peak_gib"] - rec["state_gib"]
+    print(json.dumps({"web100m_shard": rec, "card": card}), flush=True)
+    steps = len(rec["losses"])
+    if not np.isfinite(rec["losses"]).all():
+        raise AssertionError(f"web100m_shard: non-finite losses {rec['losses']}")
+    want = steps if on_card else 0
+    if rec["launches"] != {"bpr_fwd": want, "bpr_bwd": want}:
+        raise AssertionError(f"web100m_shard: launches {rec['launches']}, expected "
+                             f"{want} of each BPR kernel ({steps} steps)")
+    check_bpr_pair(rec["twins"])
+    if on_card and not rec["peak_over_state_gib"] <= rec["peak_bound_gib"]["bound"]:
+        raise AssertionError(
+            f"web100m_shard: peak {rec['peak_gib']:.3f} GiB is "
+            f"{rec['peak_over_state_gib']:.3f} GiB over the state, above the bound "
+            f"{rec['peak_bound_gib']}")
+    if on_card:
+        print(f"web100m_shard ({card}): {rec['user_rows']:,} + {rec['item_rows']:,} rows "
+              f"of {of_shards} shards, state {rec['state_gib']:.3f} GiB, peak "
+              f"{rec['peak_gib']:.3f} GiB ({rec['peak_over_state_gib']:.3f} over, bound "
+              f"{rec['peak_bound_gib']['bound']:.3f}); {rec['step_ms']:.1f} ms a step; "
+              f"BPR launches {rec['launches']} in {steps} steps", flush=True)
     return rec
 
 
@@ -5057,7 +5292,8 @@ SWEEPS_CUTS = {"tower_sweep": {"TRAIN_EPOCHS": "10 of 60", "seeds": "1 (the defa
                                "work-dir": "the quality phase's (its depth cut)"},
                "ladder_sweep": {"epochs": "5 of 60", "RANKER_EPOCHS": "5 of 40"},
                "ranker_headroom": {"models": "ladder_sweep's (5 epochs)"},
-               "real_data": {"data": "the golden fixture (no ML-1M set, no download)"},
+               "real_data": {"data": "the golden fixture (no ML-1M set; the "
+                                     "download's URL a missing local file)"},
                "train_scope_bench": {"epochs": "2 of 5"}}
 SWEEPS_BPR = ("bpr_fwd", "bpr_bwd")
 DAT_FILES = ("ratings.dat", "users.dat", "movies.dat")
@@ -5125,10 +5361,13 @@ def check_headroom(out: dict, orderings) -> None:
 
 
 def check_real_data(report: dict, out: Path, stages) -> None:
-    """real_data on a data dir without a data set: the golden-fixture mode,
-    every stage timed, the report written where ``--out`` says."""
+    """real_data on a data dir without a data set and a download that
+    fails: the golden-fixture mode with the download's error, every stage
+    timed, the report written where ``--out`` says."""
     if report["mode"] != "golden-fixture" or report["comparable_to_reference"]:
         raise AssertionError(f"real_data mode {report['mode']}")
+    if not (report["blocked_syscall"] or "").startswith("download_movielens: "):
+        raise AssertionError(f"real_data: no download error {report['blocked_syscall']}")
     if list(report["stage_seconds"]) != [*stages, "evaluate"]:
         raise AssertionError(f"real_data stages {list(report['stage_seconds'])}")
     if not out.exists() or json.loads(out.read_text()) != report:
@@ -5177,6 +5416,7 @@ def sweeps_phase(device, seed: int, workdir: Path, card: str, args=SWEEPS_ARGS,
     import shutil
 
     from recommendit_tpu_torch.config import Settings
+    from recommendit_tpu_torch.data import movielens
     from recommendit_tpu_torch.data.movielens import save_movielens
     from recommendit_tpu_torch.data.synthetic import make_synthetic_movielens
     from recommendit_tpu_torch.scripts import (
@@ -5258,14 +5498,20 @@ def sweeps_phase(device, seed: int, workdir: Path, card: str, args=SWEEPS_ARGS,
     done("ranker_headroom", run, M=out["M"], expected_presents=out["expected_presents"],
          realized=out["realized"], rows=out["rows"])
 
-    # real_data: a data dir with no data set takes the golden fixture
+    # real_data: a data dir with no data set; its download from a missing
+    # local file fails (no socket), so it takes the golden fixture
     real = root / "real"
     a = real_data.parse_args([*args["real_data"], *dev,
                               "--data-dir", str(real / "ml-1m"),
                               "--models-dir", str(real / "models"),
                               "--features-dir", str(real / "features"),
                               "--out", str(real / "REALDATA.json")])
-    report, run, steps, _, window = _script_run(lambda: real_data.run(a), device)
+    url = movielens.MOVIELENS_1M_URL
+    movielens.MOVIELENS_1M_URL = (real / "no-such-ml-1m.zip").resolve().as_uri()
+    try:
+        report, run, steps, _, window = _script_run(lambda: real_data.run(a), device)
+    finally:
+        movielens.MOVIELENS_1M_URL = url
     check_steps_launches("real_data", run["launches"], steps, on_card)
     if on_card and not steps:
         raise AssertionError("real_data trained no tower step")
@@ -5317,6 +5563,8 @@ def main(argv=None) -> int:
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "nvcc_s": {n: _build.build_seconds[n] for n in LIBRARIES}}),
           flush=True)
+    # first, while this process holds nothing on the card: one web100m rank
+    shard = web100m_shard_phase(device, args.seed, card)
     stages = ctypes.c_int(0)
     d_dev = -(-(DIM + 1) // 8) * 8           # the bias column, padded to 8
     smem = _build.load_library("window_mips").window_mips_bf16_smem(
@@ -5437,8 +5685,11 @@ def main(argv=None) -> int:
     main_q = checks[-1]
     main_i8 = checks_i8[-1]
     main_b, train_b = bpr_checks[0], bpr_checks[1]   # (2048, 256), (1024, 64)
+    shard_b = shard["twins"]                          # (4096, 128)
     main_qm = checks_qm[-1]
     b, d = main_b["b"], main_b["d"]
+    b_train, b_shard = (bpr_bounds(r["b"], r["d"]) for r in (train_b, shard_b))
+    shape_train, shape_shard = (f"{r['b']}x{r['d']}" for r in (train_b, shard_b))
     kernels = [{
         "name": "window_mips", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": serve["launches"]["window_mips"],
@@ -5504,10 +5755,16 @@ def main(argv=None) -> int:
         "sweeps_launches": sweeps["launches"]["bpr_fwd"],
         "two_tower_loss_launches": sum(c["two_tower"]["launches"]["bpr_fwd"]
                                        for c in bpr_checks),
-        "max_abs_err": max(abs(c["loss"] - c["twin_loss"]) for c in bpr_checks),
+        "web100m_shard_launches": shard["launches"]["bpr_fwd"],
+        "max_abs_err": max(abs(c["loss"] - c["twin_loss"]) for c in [*bpr_checks, shard_b]),
         "ms": main_b["fwd_device_ms"], "plain_ms": main_b["twin_fwd_device_ms"],
-        "ms_1024x64": train_b["fwd_device_ms"],
-        "plain_ms_1024x64": train_b["twin_fwd_device_ms"],
+        f"ms_{shape_train}": train_b["fwd_device_ms"],
+        f"plain_ms_{shape_train}": train_b["twin_fwd_device_ms"],
+        f"bound_ms_{shape_train}": b_train["fwd"][0],
+        # the web100m shard's (B, D), by CUDA events
+        f"ms_{shape_shard}": shard_b["fwd_ms"],
+        f"plain_ms_{shape_shard}": shard_b["twin_fwd_ms"],
+        f"bound_ms_{shape_shard}": b_shard["fwd"][0],
         # the (B, B) score matrix; the softplus per pair is not counted
         "bound": bpr_bounds(b, d)["fwd"], "library_ms": None,
     }, {
@@ -5524,10 +5781,15 @@ def main(argv=None) -> int:
         "sweeps_launches": sweeps["launches"]["bpr_bwd"],
         "two_tower_loss_launches": sum(c["two_tower"]["launches"]["bpr_bwd"]
                                        for c in bpr_checks),
-        "max_abs_err": max(c["grad_max_abs_err"] for c in bpr_checks),
+        "web100m_shard_launches": shard["launches"]["bpr_bwd"],
+        "max_abs_err": max(c["grad_max_abs_err"] for c in [*bpr_checks, shard_b]),
         "ms": main_b["bwd_device_ms"], "plain_ms": main_b["twin_bwd_device_ms"],
-        "ms_1024x64": train_b["bwd_device_ms"],
-        "plain_ms_1024x64": train_b["twin_bwd_device_ms"],
+        f"ms_{shape_train}": train_b["bwd_device_ms"],
+        f"plain_ms_{shape_train}": train_b["twin_bwd_device_ms"],
+        f"bound_ms_{shape_train}": b_train["bwd"][0],
+        f"ms_{shape_shard}": shard_b["bwd_ms"],
+        f"plain_ms_{shape_shard}": shard_b["twin_bwd_ms"],
+        f"bound_ms_{shape_shard}": b_shard["bwd"][0],
         # the scores, then du = G V and dv = G^T U
         "bound": bpr_bounds(b, d)["bwd"], "library_ms": None,
     }, {
@@ -5547,6 +5809,7 @@ def main(argv=None) -> int:
     for kern in kernels:
         kern["route"] = "cuda"
         kern["bound_ms"], kern["bound_by"] = kern.pop("bound")
+    check_kernel_times(kernels)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

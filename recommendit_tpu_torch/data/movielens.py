@@ -5,16 +5,20 @@ ratings are four aligned int64 arrays (timestamps in seconds), the users
 table is its ids and demographics, the catalog is its ids, titles, genre
 strings and an (n_items, 18) genre multi-hot matrix. :func:`load_movielens`
 reads the ML-1M ``::``-separated ``.dat`` files (latin-1) from a local
-directory and :func:`save_movielens` writes them. Nothing is downloaded:
-the real ML-1M files are placed in the data directory by hand. The reader
-parses with numpy and rejects a malformed line; the native parser
-(``data/native.py``, which skips such lines, as JAX's does) is not used
-here.
+directory and :func:`save_movielens` writes them; :func:`download_movielens`
+fetches and extracts the ML-1M archive from ``MOVIELENS_1M_URL`` (JAX's
+``:108-140``: verify, fetch, extract, remove the zip, verify again, a
+``RuntimeError`` where the fetch fails). The reader parses with numpy and
+rejects a malformed line; the native parser (``data/native.py``, which
+skips such lines, as JAX's does) is not used here.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
+import urllib.request
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -22,6 +26,7 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
+MOVIELENS_1M_URL = "https://files.grouplens.org/datasets/movielens/ml-1m.zip"
 EXPECTED_FILES = ("ratings.dat", "users.dat", "movies.dat", "README")
 ENCODING = "latin-1"
 
@@ -138,6 +143,39 @@ def verify_dataset(data_dir) -> bool:
         logger.warning("Dataset incomplete, missing: %s", missing)
         return False
     return True
+
+
+def download_movielens(output_dir: str = "data") -> Path:
+    """Fetch and extract MovieLens-1M into ``<output_dir>/ml-1m`` → that
+    directory (nothing fetched where the files are already there). Reads
+    ``MOVIELENS_1M_URL`` when called; a fetch that fails (no network, a
+    missing ``file://`` path) raises ``RuntimeError``, as JAX's does."""
+    out = Path(output_dir)
+    target = out / "ml-1m"
+    if verify_dataset(target):
+        logger.info("Dataset already present at %s", target)
+        return target
+
+    out.mkdir(parents=True, exist_ok=True)
+    zip_path = out / "ml-1m.zip"
+    try:
+        logger.info("Downloading %s ...", MOVIELENS_1M_URL)
+        urllib.request.urlretrieve(MOVIELENS_1M_URL, zip_path)  # noqa: S310
+    except (OSError, ValueError) as exc:
+        raise RuntimeError(
+            f"Cannot download MovieLens-1M ({exc}). Place the extracted "
+            f"dataset at {target} or use make_synthetic_movielens() for "
+            "offline development."
+        ) from exc
+
+    with zipfile.ZipFile(zip_path) as zf:
+        zf.extractall(out)
+    os.remove(zip_path)
+
+    if not verify_dataset(target):
+        raise RuntimeError(f"Downloaded dataset at {target} failed verification")
+    logger.info("Dataset ready at %s", target)
+    return target
 
 
 def _write_lines(path: Path, columns) -> None:

@@ -33,6 +33,9 @@ from recommendit_tpu_torch.parallel.retrieval import (
 )
 
 MERGES = {"allgather": sharded_mips_topk, "ring": sharded_mips_topk_ring}
+# sharded_grads' bucket in the in-place case: below the tables and the
+# (16, 32) weights, above the biases, so both kinds of reduction run
+PARITY_BUCKET = 64
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -104,6 +107,7 @@ def _retrieval(mesh, inp) -> dict:
 
 def _train(mesh, inp) -> dict:
     from recommendit_tpu_torch.parallel.train import (
+        _sharded_grads_flat,
         init_sharded_state,
         make_sharded_loss_fn,
         make_sharded_train_step,
@@ -116,14 +120,23 @@ def _train(mesh, inp) -> dict:
     # the first step's gradients, summed over data
     params, state = init_sharded_state(mesh, AdamW(c["lr"]), c["params"])
     loss_of = make_sharded_loss_fn(mesh, c["genre"])
+
+    def whole(grads):
+        return {k: _whole(g, mesh) if k.endswith("_embed") else _np(g)
+                for k, g in zip(state.names, grads)}
+
+    # in place with small buckets (the larger gradients alone), and the
+    # flat reduction the in-place one replaced
+    out["grads_bucketed"] = whole(sharded_grads(
+        mesh, params, state.names, loss_of(params, batch), bucket=PARITY_BUCKET))
+    out["grads_flat"] = whole(_sharded_grads_flat(mesh, params, state.names,
+                                                  loss_of(params, batch)))
     grads = sharded_grads(mesh, params, state.names, loss_of(params, batch))
-    out["grads"] = {k: _whole(g, mesh) if k.endswith("_embed") else _np(g)
-                    for k, g in zip(state.names, grads)}
+    out["grads"] = whole(grads)
     # the same gradients clipped by the global norm over the shards
     clip_by_global_norm_sharded_(grads, state.sharded, c["clip_norm"],
                                  mesh.get_group(MODEL_AXIS))
-    out["clipped_grads"] = {k: _whole(g, mesh) if k.endswith("_embed") else _np(g)
-                            for k, g in zip(state.names, grads)}
+    out["clipped_grads"] = whole(grads)
     out["b1_raises"] = _raises(lambda: loss_of(params, tuple(x[:1] for x in batch)))
     for name, tx in (("adam", AdamW(c["lr"])),
                      ("clip_adamw", AdamW(c["lr"], weight_decay=c["weight_decay"],

@@ -80,13 +80,74 @@ def _check_tx(opt_state: ShardedOptState, tx: AdamW) -> None:
                          f"the step for {tx}")
 
 
-def sharded_grads(mesh, params: dict, names, loss: torch.Tensor):
-    """Gradients of the global ``loss`` w.r.t. ``params[names]``, summed
-    over ``data`` (one flat all-reduce): the whole batch's gradient of
-    each rank's tensor (the table shards' of their own rows)."""
+# elements of one all-reduce of small gradients packed together (64 MiB of
+# f32); a larger gradient is reduced in place, alone
+GRAD_BUCKET = 1 << 24
+
+
+def _grads(params: dict, names, loss: torch.Tensor):
+    """Each rank's gradients of ``loss`` w.r.t. ``params[names]`` (zeros
+    where the loss does not reach a param), contiguous and each its own
+    tensor: autograd hands one tensor to two leaves where their sum is
+    used (``a + b``), and the in-place reduction and clipping would then
+    count it twice."""
     leaves = [params[k] for k in names]
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    out, seen = [], set()
+    for p, g in zip(leaves, torch.autograd.grad(loss, leaves, allow_unused=True)):
+        g = torch.zeros_like(p) if g is None else g.contiguous()
+        if id(g) in seen:
+            g = g.clone()
+        seen.add(id(g))
+        out.append(g)
+    return out
+
+
+def all_reduce_(tensors, group, bucket: int = GRAD_BUCKET) -> None:
+    """Sum each of ``tensors`` (contiguous) over ``group`` in place: one
+    all-reduce a tensor of at least ``bucket`` elements, the smaller ones
+    packed, in order, into flat buckets of at most ``bucket`` elements (a
+    copy of one bucket at a time). Per element a sum over one or two ranks
+    is exact whatever the packing; over more, the collective's order of
+    summation follows the element's place in its buffer."""
+    small: list = []
+
+    def flush():
+        flat = torch.cat([t.reshape(-1) for t in small])
+        dist.all_reduce(flat, group=group)
+        for t, f in zip(small, flat.split([t.numel() for t in small])):
+            t.copy_(f.view_as(t))
+        small.clear()
+
+    for t in tensors:
+        if t.numel() >= bucket:
+            dist.all_reduce(t, group=group)
+            continue
+        if small and sum(x.numel() for x in small) + t.numel() > bucket:
+            flush()
+        small.append(t)
+    if small:
+        flush()
+
+
+def sharded_grads(mesh, params: dict, names, loss: torch.Tensor,
+                  bucket: int = GRAD_BUCKET):
+    """Gradients of the global ``loss`` w.r.t. ``params[names]``, summed
+    over ``data`` in place (:func:`all_reduce_`; nothing to sum where the
+    axis has one rank): the whole batch's gradient of each rank's tensor
+    (the table shards' of their own rows). No second copy of the gradients
+    is made: the step's peak stays params + grads + moments, as in JAX's
+    donated step."""
+    grads = _grads(params, names, loss)
+    if axis_size(mesh, DATA_AXIS) > 1:
+        all_reduce_(grads, mesh.get_group(DATA_AXIS), bucket)
+    return grads
+
+
+def _sharded_grads_flat(mesh, params: dict, names, loss: torch.Tensor):
+    """:func:`sharded_grads` by one all-reduce of every gradient copied into
+    one flat buffer (two copies of the gradients at once): the reference
+    the in-place form is held to."""
+    grads = _grads(params, names, loss)
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat, group=mesh.get_group(DATA_AXIS))
     return [f.view_as(g) for f, g in

@@ -1,17 +1,19 @@
-"""Real-data parity run — torch port of ``scripts/real_data.py``, its
-golden-fixture branch.
+"""Real-data parity run — torch port of ``scripts/real_data.py``.
 
-Runs the whole real-data path: parse → ``features`` → ``embeddings`` →
-``index`` → ``ranker`` → the temporal ``evaluate`` → a report beside the
-reference's published MovieLens-1M ladder (``REFERENCE_TARGETS``). The
-port downloads nothing: when ``--data-dir`` holds no complete ML-1M set
-(``ratings.dat``, ``users.dat``, ``movies.dat``, ``README``) the run falls
-back to the golden ML-1M-format fixture (``tests/fixtures/ml1m_golden``:
-real file quirks — latin-1 titles, non-contiguous ids, ZIP+4 codes), with
-JAX's shrunk settings, so every byte of the real-data path still runs;
-the report is then marked ``"mode": "golden-fixture"`` and its quality
-rows are not comparable. Place the real files in ``--data-dir`` by hand
-for the ``"real"`` mode.
+Runs the whole real-data path: download → parse → ``features`` →
+``embeddings`` → ``index`` → ``ranker`` → the temporal ``evaluate`` → a
+report beside the reference's published MovieLens-1M ladder
+(``REFERENCE_TARGETS``). When ``--data-dir`` holds no complete ML-1M set
+(``ratings.dat``, ``users.dat``, ``movies.dat``, ``README``) the run
+downloads it into that directory's parent
+(``data/movielens.download_movielens``, from ``MOVIELENS_1M_URL``); where
+the download fails (``RuntimeError``: no network, or a URL that answers
+nothing) it falls back to the golden ML-1M-format fixture
+(``tests/fixtures/ml1m_golden``: real file quirks — latin-1 titles,
+non-contiguous ids, ZIP+4 codes), with JAX's shrunk settings, so every
+byte of the real-data path still runs; the report is then marked
+``"mode": "golden-fixture"``, its quality rows are not comparable, and
+``blocked_syscall`` holds the download's error.
 
 Usage (on the card; ``--device cpu`` runs it on the CPU):
   python -m recommendit_tpu_torch.scripts.real_data [--data-dir DIR] \\
@@ -38,8 +40,6 @@ REFERENCE_TARGETS = {
 GOLDEN = Path(__file__).resolve().parents[2] / "tests" / "fixtures" / "ml1m_golden"
 DAT_FILES = ("ratings.dat", "users.dat", "movies.dat", "README")
 STAGES = ("features", "embeddings", "index", "ranker")
-NO_DOWNLOAD = ("none: the port has no download path; place the ML-1M files "
-               "in --data-dir by hand")
 
 
 def parse_args(argv=None):
@@ -59,21 +59,24 @@ def parse_args(argv=None):
 def run(args) -> dict:
     """→ the report, also written to ``--out``."""
     from recommendit_tpu_torch.config import Settings
-    from recommendit_tpu_torch.data.movielens import verify_dataset
+    from recommendit_tpu_torch.data.movielens import download_movielens, verify_dataset
     from recommendit_tpu_torch.pipelines.run_pipeline import PipelineOrchestrator
     from recommendit_tpu_torch.scripts.quality_at_scale import apply_overrides
 
     data_dir = Path(args.data_dir)
-    mode = "real"
+    mode, blocked = "real", None
     if verify_dataset(data_dir):
         print(f"dataset present at {data_dir}")
     else:
-        print(f"no ML-1M set at {data_dir} and no download in the port; "
-              f"falling back to the golden ml-1m-format fixture at {GOLDEN}")
-        mode = "golden-fixture"
-        data_dir.mkdir(parents=True, exist_ok=True)
-        for f in DAT_FILES:
-            shutil.copy(GOLDEN / f, data_dir / f)
+        try:
+            download_movielens(str(data_dir.parent))
+        except RuntimeError as exc:
+            print(f"download blocked ({exc}); falling back to the golden "
+                  f"ml-1m-format fixture at {GOLDEN}")
+            mode, blocked = "golden-fixture", f"download_movielens: {exc}"
+            data_dir.mkdir(parents=True, exist_ok=True)
+            for f in DAT_FILES:
+                shutil.copy(GOLDEN / f, data_dir / f)
     assert verify_dataset(data_dir), "dataset incomplete after setup"
 
     cfg = Settings(TRAIN_EPOCHS=args.epochs)
@@ -114,7 +117,7 @@ def run(args) -> dict:
         "eval_users": rep.get("n_users"),
         "stage_seconds": {k: round(v, 1)
                           for k, v in orch.stage_times.items()},
-        "blocked_syscall": None if mode == "real" else NO_DOWNLOAD,
+        "blocked_syscall": blocked,
     }
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "w") as f:
@@ -130,8 +133,8 @@ def main(argv=None) -> int:
     print(json.dumps(report, indent=2))
     if report["mode"] == "golden-fixture":
         print("NOTE: golden-fixture mode — quality rows are NOT comparable "
-              "to the reference ladder; place the real ML-1M files in "
-              "--data-dir for the real parity report.")
+              "to the reference ladder; re-run with network access, or place "
+              "the real ML-1M files in --data-dir, for the real parity report.")
     return 0
 
 

@@ -50,6 +50,7 @@ resumed run is not the run it continues would have been.
 from __future__ import annotations
 
 import logging
+import math
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -129,6 +130,64 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
 ADAM_EPS = 1e-8
+# elements of one chunk of the optimizer step (256 MiB of f32): a step's
+# temporaries are at most two chunks, whatever the params' sizes
+ADAM_CHUNK = 1 << 26
+
+
+def _adamw_update(params, grads, mu, nu, decayed, weight_decay, s) -> None:
+    """``optax.adamw``'s update of ``params``, ``mu``, ``nu`` in place, given
+    ``grads`` and the step's f32 host scalars ``s``; ``decayed`` indexes the
+    params with weight decay. Elementwise: on views of the tensors it
+    computes what it computes on the whole, bit for bit."""
+    torch._foreach_mul_(mu, s["b1"])
+    torch._foreach_add_(mu, torch._foreach_mul(grads, s["1-b1"]))
+    sq = torch._foreach_mul(grads, grads)
+    torch._foreach_mul_(sq, s["1-b2"])
+    torch._foreach_mul_(nu, s["b2"])
+    torch._foreach_add_(nu, sq)
+    del sq
+    den = torch._foreach_div(nu, s["bc2"])
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, ADAM_EPS)
+    upd = torch._foreach_div(mu, s["bc1"])
+    torch._foreach_div_(upd, den)
+    del den
+    if weight_decay and decayed:
+        torch._foreach_add_([upd[i] for i in decayed],
+                            torch._foreach_mul([params[i] for i in decayed],
+                                               weight_decay))
+    torch._foreach_mul_(upd, s["-lr"])
+    torch._foreach_add_(params, upd)
+
+
+def chunk_groups(shapes, chunk: int = ADAM_CHUNK):
+    """Cut tensors of ``shapes`` into row ranges and pack them, in order,
+    into groups of at most ``chunk`` elements → a list of groups, each a
+    list of ``(tensor index, first row, end row, whole)``; ``whole`` marks
+    a range that is its whole tensor. A row longer than ``chunk`` is a
+    group alone; empty tensors are left out (an update of nothing)."""
+    groups, group, room = [], [], chunk
+    for i, shape in enumerate(shapes):
+        n = shape[0] if len(shape) else 1
+        row = math.prod(shape[1:]) if len(shape) else 1
+        a = 0
+        while a < n and row:
+            take = min(n - a, room // row)
+            if not take and group:
+                groups.append(group)
+                group, room = [], chunk
+                continue
+            take = max(take, 1)
+            group.append((i, a, a + take, take == n))
+            room -= take * row
+            a += take
+            if room <= 0:
+                groups.append(group)
+                group, room = [], chunk
+    if group:
+        groups.append(group)
+    return groups
 
 
 class OptaxAdamW:
@@ -144,41 +203,73 @@ class OptaxAdamW:
     Every scalar is an f32 value computed on the host from the step count
     (numpy's f32 power equals XLA's for the bias corrections), and every
     tensor operation is a ``torch._foreach_*`` call, so a step never waits
-    for the device."""
+    for the device.
+
+    The step runs in place over row ranges of the params, their gradients
+    and moments, packed into groups of at most ``chunk`` elements
+    (:func:`chunk_groups`), one group after another: its temporaries are a
+    group's size, so a step's peak is params + grads + two moments plus
+    two chunks, as XLA's in-place (donated) update of JAX's step. The
+    operations are elementwise, so the result is bit-equal to
+    :meth:`_step_unchunked` (the one-pass step, with full-size
+    temporaries). Gradients must have their params' shapes; the moments
+    are updated in place (restore them with ``copy_``)."""
 
     def __init__(self, params: List[torch.Tensor], decay: List[bool],
-                 weight_decay: float):
+                 weight_decay: float, chunk: int = ADAM_CHUNK):
         self.params = list(params)
         self.decayed = [i for i, d in enumerate(decay) if d]
         self.weight_decay = weight_decay
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        self.groups = chunk_groups([p.shape for p in self.params], chunk)
+        self._group_decayed = [[j for j, (i, *_) in enumerate(g) if decay[i]]
+                               for g in self.groups]
+
+    def _scalars(self, lr: float) -> dict:
+        """The step's f32 host scalars (the step count advanced)."""
+        f32 = np.float32
+        self.count += 1
+        return {"b1": float(f32(ADAM_B1)), "b2": float(f32(ADAM_B2)),
+                "1-b1": float(f32(1 - ADAM_B1)), "1-b2": float(f32(1 - ADAM_B2)),
+                "bc1": float(f32(1) - f32(ADAM_B1) ** f32(self.count)),
+                "bc2": float(f32(1) - f32(ADAM_B2) ** f32(self.count)),
+                "-lr": -float(f32(lr))}
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor], lr: float) -> None:
-        f32 = np.float32
-        self.count += 1
-        b1, b2 = float(f32(ADAM_B1)), float(f32(ADAM_B2))
-        bc1 = float(f32(1) - f32(ADAM_B1) ** f32(self.count))
-        bc2 = float(f32(1) - f32(ADAM_B2) ** f32(self.count))
-        torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, torch._foreach_mul(grads, float(f32(1 - ADAM_B1))))
+        s = self._scalars(lr)
+        for group, decayed in zip(self.groups, self._group_decayed):
+            p, g, m, v = ([t[i] if whole else t[i][a:b] for i, a, b, whole in group]
+                          for t in (self.params, grads, self.mu, self.nu))
+            _adamw_update(p, g, m, v, decayed, self.weight_decay, s)
+
+    @torch.no_grad()
+    def _step_unchunked(self, grads: List[torch.Tensor], lr: float) -> None:
+        """The step as it was before it ran by chunks: one pass over the
+        whole lists, every temporary a full-size copy of the params (the
+        squares, the denominators and the update alive together). The
+        reference :meth:`step` equals bit for bit; only the tests and
+        ``chip_smoke.py`` call it."""
+        s = self._scalars(lr)
+        torch._foreach_mul_(self.mu, s["b1"])
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, s["1-b1"]))
         sq = torch._foreach_mul(grads, grads)
-        torch._foreach_mul_(sq, float(f32(1 - ADAM_B2)))
-        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_mul_(sq, s["1-b2"])
+        torch._foreach_mul_(self.nu, s["b2"])
         torch._foreach_add_(self.nu, sq)
-        den = torch._foreach_div(self.nu, bc2)
+        den = torch._foreach_div(self.nu, s["bc2"])
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, ADAM_EPS)
-        upd = torch._foreach_div(self.mu, bc1)
+        upd = torch._foreach_div(self.mu, s["bc1"])
         torch._foreach_div_(upd, den)
         if self.weight_decay:
             torch._foreach_add_(
                 [upd[i] for i in self.decayed],
                 torch._foreach_mul([self.params[i] for i in self.decayed],
                                    self.weight_decay))
-        torch._foreach_mul_(upd, -float(f32(lr)))
+        torch._foreach_mul_(upd, s["-lr"])
         torch._foreach_add_(self.params, upd)
 
 

@@ -228,15 +228,39 @@ paths, _ = chip_smoke.make_artifacts(wd, seed=1, device="cpu", n_users=120,
     n_items=3000, dim=16, hidden=16, n_ratings=4000, block_size=512, gbdt_trees=10)
 rec = chip_smoke.parallel_phase(
     paths, "cpu", 0, wd, "cpu", two_tower=(300, 200, 16, 32, 64), timed=2,
-    merge_q=16, serve_users=32, timer=lambda fn, reps: 0.0,
+    merge_q=16, serve_users=32, adam_chunk=1000, timer=lambda fn, reps: 0.0,
     ctr=dict(n_users=300, n_items=100, batch=256, embed=8, retrieval=8, top=(32,)))
 assert rec["backend"] == "gloo" and rec["serve"]["identical"], rec
 assert rec["resume"]["resumed"] == rec["resume"]["straight"][2:], rec
+assert all(rec["adamw_chunks"]["bit_equal"]) and rec["adamw_chunks"]["groups"] > 1, rec
 print("parallel", rec["train"]["steps"])
 """
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "parallel 3" in proc.stdout
+
+
+def test_web100m_shard_phase_runs_without_jax_or_pandas():
+    """chip_smoke's web100m_shard phase (one rank of a four-way table
+    layout on a (1, 1) mesh, in a fresh gloo process) at ``ml1m``'s widths
+    with the rows capped: the rank holds a quarter of each table, kernels
+    5, 6 are their twins here (no launch), the losses finite, the twins'
+    check run on the step's own (B, D); all three blocked."""
+    code = """
+import torch
+import chip_smoke
+torch.set_num_threads(1)
+rec = chip_smoke.web100m_shard_phase("cpu", 0, "cpu", run=("ml1m", 4), full=False,
+                                     row_cap=1000)
+assert rec["launches"] == {"bpr_fwd": 0, "bpr_bwd": 0}, rec
+assert rec["twins"]["loss_rel_err"] == 0.0 and rec["twins"]["fwd_ms"] is None, rec
+assert rec["peak_bound_gib"]["bound"] > 0 and "peak_gib" not in rec, rec
+print("shard", rec["users"], rec["user_rows"], rec["item_rows"], rec["of_shards"],
+      rec["mesh"], len(rec["losses"]), (rec["twins"]["b"], rec["twins"]["d"]))
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "shard 1003 251 251 4 {'data': 1, 'model': 1} 6 (512, 64)" in proc.stdout
 
 
 def test_pipeline_runs_without_jax_or_pandas(tmp_path):

@@ -11,8 +11,7 @@ on the CPU:
   cases, ``None`` for a missing file;
 * ``features/snapshot.py``'s native reader on ``native/feature_snapshot.cpp``
   equal to its numpy reader and to JAX's reader;
-* the export lists of the ``__init__``s against JAX's, less
-  ``download_movielens`` (not ported: a download) and with ``TwoTower``
+* the export lists of the ``__init__``s against JAX's, with ``TwoTower``
   where JAX has ``TwoTowerModel``; ``RedisFeatureStore`` is the port's
   ``FeatureStore``, as in JAX.
 """
@@ -30,7 +29,6 @@ from recommendit_tpu_torch.utils.profiling import StageTimer, device_trace, time
 
 ROOT = Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "fixtures" / "ml1m_golden"
-NOT_PORTED = {"download_movielens"}
 RENAMED = {"TwoTowerModel": "TwoTower"}
 
 
@@ -179,7 +177,7 @@ def _imported_names(path: Path):
 
 
 def _port_names(jax_names):
-    return sorted(RENAMED.get(n, n) for n in jax_names if n not in NOT_PORTED)
+    return sorted(RENAMED.get(n, n) for n in jax_names)
 
 
 @pytest.mark.parametrize("sub", ["features", "data", "utils", "models"])

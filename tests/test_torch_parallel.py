@@ -20,7 +20,9 @@ initialisers as numpy arrays. Cases mirror ``tests/test_parallel.py``:
   loss within 1e-5 of JAX's and the params after 3 steps within f32
   rounding of JAX's sharded step, under ``optax.adam`` and under
   ``clip_by_global_norm`` + ``adamw`` with clipping active (C.56: the norm
-  over shards); the optimizer state of the shard's shape;
+  over shards); the optimizer state of the shard's shape; the gradients
+  summed over ``data`` in place (C.64) equal to the flat reduction they
+  replaced;
 * the serve ids equal to JAX's; the CTR losses (plain and joint) within
   1e-5 of JAX's for 3 steps.
 """
@@ -376,6 +378,44 @@ def test_first_step_gradients_equal_dense(ranks, jax_ref):
         for k, want in jax_ref["ref_grads"].items():
             np.testing.assert_allclose(r["grads"][k], want, rtol=0, atol=GRAD_TOL,
                                        err_msg=k)
+
+
+def test_in_place_reduction_equals_the_flat_one(ranks):
+    """``sharded_grads`` sums over ``data`` in place, a gradient or a small
+    bucket at a time (C.64), where it once copied every gradient into one
+    flat buffer. At data-axis sizes 1 and 2 — meshes (1, 4), (2, 2) — it is
+    bit-equal to that flat reduction with buckets small enough that both
+    kinds run (a sum over one or two ranks is exact, whatever the packing);
+    at 4 the collective's order of summation may follow the packing, so
+    within the JAX tolerance. At the default bucket these gradients pack
+    as the flat buffer did: bit-equal at every size."""
+    n_data = max(r["coordinate"][0] for r in ranks) + 1
+    for r in ranks:
+        assert set(r["grads_bucketed"]) == set(r["grads_flat"]) == set(r["grads"])
+        for k, want in r["grads_flat"].items():
+            np.testing.assert_array_equal(r["grads"][k], want, err_msg=k)
+            if n_data <= 2:
+                np.testing.assert_array_equal(r["grads_bucketed"][k], want, err_msg=k)
+            else:
+                np.testing.assert_allclose(r["grads_bucketed"][k], want, rtol=0,
+                                           atol=GRAD_TOL, err_msg=k)
+
+
+def test_each_gradient_is_its_own_tensor():
+    """Autograd hands one tensor to two leaves whose sum is used; the
+    gradients ``sharded_grads`` reduces and clips in place must not share
+    it, or the shared one would be summed and scaled twice."""
+    from recommendit_tpu_torch.parallel.train import _grads
+
+    params = {k: torch.randn(3, requires_grad=True) for k in "abc"}
+    loss = ((params["a"] + params["b"]) * 2).sum() + params["c"].sum()
+    ga, gb = torch.autograd.grad(loss, [params["a"], params["b"]], retain_graph=True)
+    assert ga is gb
+    grads = _grads(params, list(params), loss)
+    assert len({id(g) for g in grads}) == 3
+    assert len({g.data_ptr() for g in grads}) == 3
+    for g, want in zip(grads, (2.0, 2.0, 1.0)):
+        assert torch.equal(g, torch.full((3,), want))
 
 
 def test_clipping_uses_the_global_norm_over_shards(ranks, jax_ref):

@@ -3,12 +3,14 @@ real_data.py``) against JAX's (``scripts/real_data.py``) on its
 golden-fixture branch, on the CPU.
 
 Both drivers run with a ``--data-dir`` that holds no data set, so both
+try the download, and both packages' ``MOVIELENS_1M_URL`` point at a
+``file://`` path that does not exist: the download raises
+``RuntimeError``, as a blocked one does, no socket is opened, and both
 copy ``tests/fixtures/ml1m_golden`` (30 users x 21 movies, the real
-files' quirks) and run every stage with JAX's shrunk settings. JAX's
-``download_movielens`` is replaced by one that raises ``RuntimeError``, as
-a blocked download does, so no network is touched. Held: the report's
-keys are JAX's, ``mode`` is ``"golden-fixture"`` in both and every stage
-has its seconds; JAX's ``features`` stage on the port's copy of the data
+files' quirks) and run every stage with JAX's shrunk settings. Held: the
+report's keys are JAX's, ``mode`` is ``"golden-fixture"`` in both, the
+port's ``blocked_syscall`` is its download's error, and every stage has
+its seconds; JAX's ``features`` stage on the port's copy of the data
 and JAX's ``evaluate`` over the port's models directory give the port's
 evaluation within 1e-6 (its report rounds to 4 decimals, as JAX's does);
 the port's default paths lie under the temp directory and its run with
@@ -49,25 +51,25 @@ def _repo_status():
 def runs(tmp_path_factory):
     import recommendit_tpu.data.movielens as jml
     import recommendit_tpu.pipelines.run_pipeline as jrp
+    import recommendit_tpu_torch.data.movielens as tml
 
     tmp = tmp_path_factory.mktemp("real")
+    missing = (tmp / "no-such-ml-1m.zip").as_uri()
     before = _repo_status()
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     with pytest.MonkeyPatch.context() as mp:
         # the port's defaults, under this test's temp directory
         mp.setattr(tempfile, "tempdir", str(tmp / "port_tmp"))
+        mp.setattr(tml, "MOVIELENS_1M_URL", missing)
         (tmp / "port_tmp").mkdir()
         defaults = real_data.parse_args(ARGS + ["--device", "cpu"])
         report = real_data.run(defaults)
     torch.set_num_threads(n)
 
-    def blocked(*a, **k):
-        raise RuntimeError("download blocked in this test")
-
     jax_dir = tmp / "jax"
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jml, "download_movielens", blocked)
+        mp.setattr(jml, "MOVIELENS_1M_URL", missing)
         mp.setattr(sys, "argv", ["real_data.py", *ARGS,
                                  "--data-dir", str(jax_dir / "ml-1m"),
                                  "--models-dir", str(jax_dir / "models"),
@@ -84,7 +86,7 @@ def runs(tmp_path_factory):
     jax_eval = orch.run_stage("evaluate")
     port_eval = json.loads((Path(defaults.models_dir) / "evaluation.json").read_text())
     return dict(report=report, jax_report=jax_report, jax_eval=jax_eval,
-                port_eval=port_eval, defaults=defaults, tmp=tmp,
+                port_eval=port_eval, defaults=defaults, tmp=tmp, missing=missing,
                 repo_changed=_repo_status() != before)
 
 
@@ -98,7 +100,9 @@ def test_reports_have_jax_s_keys_and_mode(runs):
     assert list(got["stage_seconds"]) == list(want["stage_seconds"]) == \
         ["features", "embeddings", "index", "ranker", "evaluate"]
     assert got["eval_users"] == want["eval_users"] > 0
-    assert "no download" in got["blocked_syscall"]
+    assert got["blocked_syscall"].startswith(
+        "download_movielens: Cannot download MovieLens-1M")
+    assert str(Path(runs["missing"][len("file://"):])) in got["blocked_syscall"]
     written = json.loads(Path(runs["defaults"].out).read_text())
     assert written == got
 

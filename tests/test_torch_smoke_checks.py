@@ -1,8 +1,10 @@
 """Helpers of ``chip_smoke.py``'s checks, on the CPU: the profiler windows
 that ``check_profiled_windows`` expects against those ``torch.profiler``'s
 schedule makes, the sparse seen mask of the quality phase against the
-dense mask that ``check_eval_lists`` reads elsewhere, and the profiler
-sessions taken again where one recorded no kernel (``profiled``)."""
+dense mask that ``check_eval_lists`` reads elsewhere, the profiler
+sessions taken again where one recorded no kernel (``profiled``) or the
+records of only some calls (``device_kernel_ms``), and the kernels line's
+rule that no kernel time is under its bound (``check_kernel_times``)."""
 import warnings
 
 import numpy as np
@@ -143,6 +145,67 @@ def test_bpr_device_ms_times_by_events_where_no_session_recorded(monkeypatch, ke
         "fwd_device_kernels_ms": kernels, "fwd_device_ms_by": by, "fwd_device_ms": ms}
 
 
+@pytest.mark.parametrize("sessions, taken, want", [
+    # the records of 7 of 50 calls (a reading of kernel 6 at (1,024, 64) once), then all 50
+    ([[("bpr_bwd_tile_kernel", 7 * 19.7, 7), ("bpr_bwd_finish_kernel", 7 * 4.1, 7)],
+      [("bpr_bwd_tile_kernel", 50 * 19.7, 50), ("bpr_bwd_finish_kernel", 50 * 4.1, 50)]],
+     2, {"bpr_bwd_tile_kernel": 0.0197, "bpr_bwd_finish_kernel": 0.0041}),
+    # two launches a call: 100 records are whole, 99 not
+    ([[("bpr_x", 99.0, 99)], [("bpr_x", 100.0, 100)]], 2, {"bpr_x": 0.002}),
+    # never whole: no reading (the caller times by events)
+    ([[("bpr_bwd_tile_kernel", 1.0, 7)]] * chip_smoke.PROFILE_TRIES,
+     chip_smoke.PROFILE_TRIES, {}),
+])
+def test_device_kernel_ms_retakes_a_session_short_of_calls(monkeypatch, sessions,
+                                                           taken, want):
+    """A session that kept the records of only some of the calls is not
+    read as if it had them all: it is taken again, and where no session
+    is whole there is no profiler reading."""
+    import torch.profiler
+
+    opened = []
+
+    def session(activities):
+        opened.append(_Session(activities))
+        return opened[-1]
+
+    monkeypatch.setattr(torch.profiler, "profile", session)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "device_events",
+                        lambda prof: iter(sessions[opened.index(prof)]))
+    got = chip_smoke.device_kernel_ms(lambda: None, 50, lambda k: k.startswith("bpr_"))
+    assert len(opened) == taken
+    assert got.keys() == want.keys()
+    for k, ms in want.items():
+        assert got[k] == pytest.approx(ms)
+
+
+def _kernels_line(**bwd):
+    return [{"name": "window_mips", "ms": 0.55, "plain_ms": 22.1, "library_ms": None,
+             "w512_10m_ms": 1.34, "w512_10m_bound_ms": 0.767, "bound_ms": 0.267,
+             "bound_by": "operations"},
+            {"name": "bpr_bwd", "ms": 0.577, "plain_ms": 0.25, "bound_ms": 0.0962,
+             "ms_1024x64": 0.0238, "plain_ms_1024x64": 0.057, "bound_ms_1024x64": 0.0060,
+             "bound_by": "operations", "library_ms": None, **bwd}]
+
+
+def test_kernels_line_refuses_a_time_under_its_bound():
+    """The kernels line cannot print a kernel time no card can give: each
+    time (``ms``, ``ms_<shape>``, ``<path>_ms``) at or above its bound, and
+    every time with one; plain and library times are not held to it."""
+    chip_smoke.check_kernel_times(_kernels_line())
+    pairs = dict(chip_smoke.kernel_time_bounds(_kernels_line()[0]))
+    assert pairs == {"ms": "bound_ms", "w512_10m_ms": "w512_10m_bound_ms"}
+    with pytest.raises(AssertionError, match="bpr_bwd.ms_1024x64 = 0.00355 ms, under"):
+        chip_smoke.check_kernel_times(_kernels_line(ms_1024x64=0.00355))
+    with pytest.raises(AssertionError, match="bpr_bwd.ms_4096x128: no bound_ms_4096x128"):
+        chip_smoke.check_kernel_times(_kernels_line(ms_4096x128=0.9))
+    with pytest.raises(AssertionError, match="under its bound"):
+        chip_smoke.check_kernel_times(_kernels_line(ms=float("nan")))
+    chip_smoke.check_kernel_times(_kernels_line(ms_4096x128=0.9, bound_ms_4096x128=0.38,
+                                                plain_ms_4096x128=0.0001))
+
+
 # ------------------------------------------------------------------ #
 # the sweeps phase's checks                                            #
 # ------------------------------------------------------------------ #
@@ -218,12 +281,15 @@ def test_check_real_data(tmp_path):
 
     stages = ("features", "embeddings", "index", "ranker")
     report = {"mode": "golden-fixture", "comparable_to_reference": False,
-              "stage_seconds": {s: 0.1 for s in (*stages, "evaluate")}}
+              "stage_seconds": {s: 0.1 for s in (*stages, "evaluate")},
+              "blocked_syscall": "download_movielens: Cannot download MovieLens-1M"}
     out = tmp_path / "REALDATA.json"
     out.write_text(json.dumps(report))
     chip_smoke.check_real_data(report, out, stages)
     with pytest.raises(AssertionError, match="mode"):
         chip_smoke.check_real_data(dict(report, mode="real"), out, stages)
+    with pytest.raises(AssertionError, match="no download error"):
+        chip_smoke.check_real_data(dict(report, blocked_syscall=None), out, stages)
     short = dict(report, stage_seconds={s: 0.1 for s in stages})
     with pytest.raises(AssertionError, match="stages"):
         chip_smoke.check_real_data(short, out, stages)

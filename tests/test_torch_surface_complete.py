@@ -6,7 +6,8 @@ methods (class-level aliases included); each must have a counterpart of the
 same name in the port's module of the same path. The exceptions are the
 explicit :data:`RENAMED` map (the port's names for JAX's Pallas / XLA
 pairs, and one module split in two) and :data:`NOT_PORTED` (each with its
-reason); ``logger`` is ignored.
+reason; empty since the download was ported, ``tests/test_torch_download.py``);
+``logger`` is ignored.
 
 Then the names this check found missing are held against JAX's on the same
 numpy inputs: ``TwoTower.bpr_loss`` / ``in_batch_bpr_loss`` and their
@@ -50,13 +51,8 @@ RENAMED = {
     ("ops.seen", "seen_mask_jnp"): "seen_mask",
     ("features.schema", "assemble_packed_jnp"): "assemble_packed",
 }
-# (JAX module, JAX name) -> why the port has no counterpart
-NOT_PORTED = {
-    ("data.movielens", "download_movielens"):
-        "a download; neither machine may reach the network, the files are "
-        "placed by hand",
-    ("data.movielens", "MOVIELENS_1M_URL"): "the download's address",
-}
+# (JAX module, JAX name) -> why the port has no counterpart: none left
+NOT_PORTED = {}
 IGNORED = {"logger"}
 
 
@@ -138,7 +134,7 @@ def test_exception_lists_name_real_jax_names():
         if port_name is not None:
             assert any(hasattr(m, port_name) for m in ports), (key, port_name)
     assert set(MODULE_SPLITS) <= set(JAX_MODULES)
-    assert {n for _, n in NOT_PORTED} == {"download_movielens", "MOVIELENS_1M_URL"}
+    assert NOT_PORTED == {}
 
 
 def test_the_walk_sees_methods_and_aliases():
