@@ -66,8 +66,9 @@ Phases (each failure raises, so the exit code is not 0):
 
 1. build the CUDA kernels from ``recommendit_tpu_torch/csrc`` (one nvcc per
    source, all started together); then, while this process holds nothing
-   on the card, the web100m_shard phase: in a fresh process
-   (``parallel/launch.spawn``, one NCCL rank), one rank of
+   on the card, each in a fresh process (``parallel/launch.spawn``, one
+   NCCL rank): the BPR kernel phase (16 below), then the web100m_shard
+   phase, one rank of
    ``scale_smoke --config web100m --full --nproc 4``
    (``scale_smoke.train_shard`` with ``of_shards=4`` on a (1, 1) mesh:
    25,000,001 user and 2,500,001 item rows, dim 128, hidden 256, batch
@@ -211,7 +212,9 @@ Phases (each failure raises, so the exit code is not 0):
    padded rows, the tail masked, against the twin on 8 queries as above); ``recall_curve``
    (1M x 128, batch 256: exact, verified, four approx rows, int8-exact);
    ``bound_turf`` (d = 128, 512, 1,024); ``tail_probe``;
-16. BPR kernel phase: at B=1024 and a ragged B=1000, D=64 f32, the forward
+16. BPR kernel phase (run in step 1, in a fresh process: late in a long
+   process every ``torch.profiler`` session of it lost its first launches,
+   ROADMAP B.17): at B=1024 and a ragged B=1000, D=64 f32, the forward
    and backward kernels against their twins — the loss within 1e-5
    relative, du and dv within 1e-4 of the twin's largest entry, a second
    call equal bit for bit — all four times by CUDA events and, since by
@@ -244,9 +247,14 @@ Phases (each failure raises, so the exit code is not 0):
    above a random ranking's;
 20. pipeline phase: the pipeline CLI's ``all``
    (``recommendit_tpu_torch.pipelines.run_pipeline``) on the train phase's
-   data written as ML-1M ``.dat`` files (read back equal; the ``data``
-   stage finds them): ``features``; ``embeddings`` (Settings defaults but
-   ``LOSS_MODE=in_batch``, 2 epochs not 60); ``index`` (exact f32);
+   data written as ML-1M ``.dat`` files (read back equal) and zipped as
+   GroupLens's archive lays them out (``ml-1m/ratings.dat``, ...):
+   ``data`` fetches that archive from its ``file://`` address
+   (``MOVIELENS_1M_URL`` pointed there for the run and restored after,
+   every socket connect refused) and extracts it into an empty
+   ``ml-1m/``, the files byte-equal to those written; ``features``;
+   ``embeddings`` (Settings defaults but ``LOSS_MODE=in_batch``, 2 epochs
+   not 60); ``index`` (exact f32);
    ``ranker`` (candidate mode: two inner towers on the 0.9 and 0.8
    histories, their exact indexes, 200 negatives a query, the LambdaRank
    MLP (128, 64) over 52 features with query norm, 40 epochs with early
@@ -263,9 +271,12 @@ Phases (each failure raises, so the exit code is not 0):
    ``two_tower_ckpt/best`` with no step and the same model; the packed
    tables equal, bit for bit, to those ``RecommendationPipeline.load``
    recomputes; then ``index`` and ``evaluate`` again for the fused bf16
-   and int8 index. Every evaluate run covers every user with held-out
-   positives — every value finite, the full and popularity lists 20
-   distinct unrated items, the retrieval-only lists the first 20 unrated
+   and int8 index, the window kernels' launches counted around each
+   evaluate (none at this catalog: JAX's window rule gives W=4 over 3,952
+   rows at k=500, and the fused route scans exactly). Every evaluate run
+   covers every user with held-out positives — every value finite, the
+   full and popularity lists 20 distinct unrated items, the
+   retrieval-only lists the first 20 unrated
    items of the index's top-500, and its NDCG@10 and Recall@20 above a
    seeded random ranking's — and ``skew`` reads max KL 0.0 over 50
    features. It prints the stage times, the ranker's holdout report, best
@@ -372,6 +383,11 @@ Phases (each failure raises, so the exit code is not 0):
    ``train_scope_bench`` at ML-1M shape (kernels 5, 6 once a step; its
    line printed beside the card).
 
+Each phase starts with a ``{"phase_start": ...}`` line (the seconds since
+the start, the live threads, the host's resident memory, the card's
+reserved memory), and a ``{"phase_records": [...]}`` line before the
+kernels line sums them.
+
 Usage, from the repository root: ``python3 chip_smoke.py [--seed N]``.
 After the build it prints ptxas's registers, spills and shared memory of
 the window kernels (the int8 ones in the int8 kernel phase).
@@ -390,12 +406,14 @@ import json
 import logging
 import multiprocessing
 import re
+import socket
 import subprocess
 import sys
 import threading
 import time
 import urllib.error
 import urllib.request
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -564,6 +582,7 @@ PAR_ADAM_CHUNK = 1 << 20          # the chunked step's chunk in the bit-equality
 # 4,096; the item bias and genre table at all 10,000,004 rows
 SHARD_RUN = ("web100m", 4)
 SHARD_TIMEOUT_S = 600
+BPR_TIMEOUT_S = 300               # the BPR phase's fresh process
 
 
 def _demangle(symbol: str):
@@ -599,6 +618,44 @@ def ptxas_summary(log: str):
             out[name]["registers"] = int(m.group(1))
             out[name]["static_smem"] = int(m.group(2) or 0)
     return out
+
+
+PHASE_RECORDS = []
+
+
+def _status_gib(keys=("VmRSS", "VmHWM")) -> dict:
+    """This process's ``/proc/self/status`` sizes ``keys`` in GiB (none
+    where the file is not there)."""
+    out = {}
+    try:
+        lines = Path("/proc/self/status").read_text().splitlines()
+    except OSError:
+        return out
+    for line in lines:
+        key, _, val = line.partition(":")
+        if key in keys:
+            out[key] = int(val.split()[0]) / 2**20      # kB
+    return out
+
+
+def phase_start(name: str, t_start: float) -> dict:
+    """One record at a phase's start, printed and kept in
+    ``PHASE_RECORDS``: the seconds since the script began, the live threads
+    (counted by name, digits folded), the host's resident memory now and at
+    its peak, and what the caching allocator holds on the card (B.19)."""
+    names = {}
+    for t in threading.enumerate():
+        key = re.sub(r"\d+", "N", t.name)
+        names[key] = names.get(key, 0) + 1
+    mem = _status_gib()
+    rec = {"phase": name, "since_start_s": time.perf_counter() - t_start,
+           "threads": sum(names.values()), "thread_names": names,
+           "rss_gib": mem.get("VmRSS"), "rss_peak_gib": mem.get("VmHWM"),
+           "cuda_reserved_gib": (torch.cuda.memory_reserved() / 2**30
+                                 if torch.cuda.is_available() else None)}
+    PHASE_RECORDS.append(rec)
+    print(json.dumps({"phase_start": rec}), flush=True)
+    return rec
 
 
 def card_line() -> str:
@@ -2708,6 +2765,48 @@ def bpr_kernel_phase(device, seed: int, shapes=BPR_SHAPES, timer=cuda_ms):
     return out
 
 
+def host_ms(fn, reps: int, warm: int = 1) -> float:
+    """Mean host-clock time of ``fn()`` in ms after warm-up: the timer
+    where there are no CUDA events (the CPU)."""
+    for _ in range(warm):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def bpr_kernel_rank(device_type: str, seed: int, shapes) -> list:
+    """The rank of the BPR phase (a fresh process of its own):
+    :func:`bpr_kernel_phase` on this rank's device, timed by CUDA events on
+    the card and by the host clock on the CPU."""
+    from recommendit_tpu_torch.ops import _build
+
+    on_card = device_type == "cuda"
+    if on_card:
+        _build.load_library("bpr")     # built by the parent: its ptxas report
+    return bpr_kernel_phase(torch.device(device_type), seed, shapes,
+                            timer=cuda_ms if on_card else host_ms)
+
+
+def bpr_phase(device, seed: int, card: str, shapes=BPR_SHAPES,
+              timeout: float = BPR_TIMEOUT_S) -> list:
+    """:func:`bpr_kernel_phase` in a fresh process
+    (``parallel/launch.spawn``, one rank): late in a long process every
+    ``torch.profiler`` session of it lost its first 10–14 launches, where
+    in a fresh one every session is whole (ROADMAP B.17), so the kernels'
+    own device times are read there. Its checks and records unchanged."""
+    from recommendit_tpu_torch.parallel.launch import spawn
+
+    dev = torch.device(device).type
+    t0 = time.perf_counter()
+    recs = spawn(bpr_kernel_rank, 1, (dev, seed, shapes), device=dev,
+                 timeout=timeout)[0]
+    print(json.dumps({"bpr_phase_s": time.perf_counter() - t0, "card": card}),
+          flush=True)
+    return recs
+
+
 def two_tower_bpr_check(u: torch.Tensor, v: torch.Tensor, device) -> dict:
     """``TwoTower.in_batch_bpr_loss`` (the model's loss surface) forward and
     backward on (B, D) rows, with the BPR wrappers' counts set to 0 just
@@ -3094,7 +3193,7 @@ def host_pipeline_phase(data, device, seed: int, workdir: Path, card: str,
     cfg = Settings(LOSS_MODE="in_batch", TRAIN_EPOCHS=epochs, SEED=seed,
                    EMBEDDING_DIM=dim, HIDDEN_DIM=hidden, BATCH_SIZE=batch,
                    HOST_TABLE=True)
-    orch = PipelineOrchestrator(cfg=cfg, data_dir=str(root / "ml"),
+    orch = PipelineOrchestrator(cfg=cfg, data_dir=str(root / "ml-1m"),
                                 models_dir=str(root / "models_host"),
                                 features_dir=str(root / "features"), device=device)
     for name in bpr.LAUNCHES:
@@ -3956,15 +4055,63 @@ def check_profiled_windows(run, window=TRAIN_PROFILE_WINDOW):
     return lost
 
 
+ML1M_FILES = ("ratings.dat", "users.dat", "movies.dat", "README")
+
+
+def write_ml1m_archive(src: Path, path: Path) -> Path:
+    """The four ML-1M files of ``src`` zipped at ``path`` as GroupLens's
+    archive lays them out (``ml-1m/<name>``, deflated)."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
+        for name in ML1M_FILES:
+            zf.write(src / name, f"ml-1m/{name}")
+    return path
+
+
+def _refuse_connect(*args, **kwargs):
+    raise AssertionError(f"a socket connect in an offline stage: {args}")
+
+
+def offline(fn):
+    """``fn`` with every socket connect refused while it runs."""
+    def run(*args, **kwargs):
+        saved = socket.socket.connect, socket.create_connection
+        socket.socket.connect = socket.create_connection = _refuse_connect
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            socket.socket.connect, socket.create_connection = saved
+    return run
+
+
+def check_download(staged: Path, data_dir: Path, archive: Path, seconds: float) -> dict:
+    """The ``data`` stage's download: every file it extracted into
+    ``data_dir`` byte-equal to the one archived from ``staged``, and the
+    fetched zip removed from beside it."""
+    unequal = [name for name in ML1M_FILES
+               if (data_dir / name).read_bytes() != (staged / name).read_bytes()]
+    left = sorted(p.name for p in data_dir.parent.glob("*.zip"))
+    if unequal or left:
+        raise AssertionError(f"the data stage's download: files {unequal} differ "
+                             f"from the archived ones, zips {left} left beside them")
+    return {"archive_bytes": archive.stat().st_size,
+            "files_bytes": sum((data_dir / n).stat().st_size for n in ML1M_FILES),
+            "files_equal": True, "data_stage_s": seconds}
+
+
 def pipeline_phase(data, device, seed: int, workdir: Path, card: str,
                    epochs: int = TRAIN_EPOCHS, dim: int = TRAIN_DIM,
                    hidden: int = TRAIN_HIDDEN, batch: int = TRAIN_BATCH,
                    ranker_cfg=None):
     """The pipeline CLI on ``data`` (the train phase's synthetic ML-1M-shape
     set), as ``python -m recommendit_tpu_torch.pipelines.run_pipeline
-    --stage all`` runs it: the ``.dat`` files written and read back equal;
-    ``all`` (Settings defaults but ``LOSS_MODE=in_batch`` and ``epochs``,
-    and ``ranker_cfg`` where given): data (the files found), features,
+    --stage all`` runs it: the ``.dat`` files written and read back equal,
+    then zipped as GroupLens's archive and ``MOVIELENS_1M_URL`` pointed at
+    that ``file://`` path for the run (restored after); ``all`` over an
+    empty ``<root>/ml-1m`` (Settings defaults but ``LOSS_MODE=in_batch``
+    and ``epochs``, and ``ranker_cfg`` where given): data (the archive
+    fetched and extracted with every socket connect refused, the files
+    byte-equal to those archived), features,
     embeddings, index (exact f32), ranker (two inner towers, the ranker
     trained), load_features, skew, evaluate; one launch of each BPR kernel
     per step of the three tower trainings, by the wrappers' counts and the
@@ -3973,37 +4120,46 @@ def pipeline_phase(data, device, seed: int, workdir: Path, card: str,
     equal to the feature files; a second ``embeddings`` run resuming from
     the checkpoint with no step and writing the same model; the packed
     tables equal to those ``RecommendationPipeline.load`` recomputes; then
-    ``index`` and ``evaluate`` again for the fused bf16 and int8 index."""
+    ``index`` and ``evaluate`` again for the fused bf16 and int8 index,
+    the window kernels' launches counted around exactly each evaluate (none
+    where JAX's window rule sends the catalog to the exact route)."""
     import dataclasses
     import shutil
 
     from recommendit_tpu_torch.config import Settings
-    from recommendit_tpu_torch.data.movielens import load_movielens, save_movielens
+    from recommendit_tpu_torch.data import movielens
     from recommendit_tpu_torch.features.schema import ITEM_PACKED_DIM
     from recommendit_tpu_torch.ops import bpr
+    from recommendit_tpu_torch.ops import mips_window as mw
     from recommendit_tpu_torch.pipelines.run_pipeline import PipelineOrchestrator
     from recommendit_tpu_torch.serving.recommender import RecommendationPipeline
 
     root = workdir / "pipeline"
     shutil.rmtree(root, ignore_errors=True)
     rec = {"ratings": len(data), "users": data.n_users, "items": data.n_items}
+    staged = root / "dat"
     t0 = time.perf_counter()
-    save_movielens(data, str(root / "ml"))
+    movielens.save_movielens(data, str(staged))
     rec["save_dat_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    again = load_movielens(str(root / "ml"))
+    again = movielens.load_movielens(str(staged))
     rec["load_dat_s"] = time.perf_counter() - t0
     for f in dataclasses.fields(data):
         if not np.array_equal(getattr(again, f.name), getattr(data, f.name)):
             raise AssertionError(f"the .dat round trip changed {f.name}")
+    t0 = time.perf_counter()
+    archive = write_ml1m_archive(staged, root / "archive" / "ml-1m.zip")
+    rec["archive_s"] = time.perf_counter() - t0
 
     cfg = Settings(LOSS_MODE="in_batch", TRAIN_EPOCHS=epochs, SEED=seed,
                    EMBEDDING_DIM=dim, HIDDEN_DIM=hidden, BATCH_SIZE=batch,
                    **(ranker_cfg or {}))
-    orch = PipelineOrchestrator(cfg=cfg, data_dir=str(root / "ml"),
+    data_dir = root / "ml-1m"
+    orch = PipelineOrchestrator(cfg=cfg, data_dir=str(data_dir),
                                 models_dir=str(root / "models"),
                                 features_dir=str(root / "features"),
                                 eval_users=data.n_users + 1, device=device)
+    orch.run_data = offline(orch.run_data)
     from recommendit_tpu_torch.models.ranker import LambdaRankScorer
     from recommendit_tpu_torch.training.train_ranker import RankerTrainer
 
@@ -4013,11 +4169,23 @@ def pipeline_phase(data, device, seed: int, workdir: Path, card: str,
         "ranker_train": (LambdaRankScorer, "train"),
         "holdout": (RankerTrainer, "_evaluate_holdout"),
         "importance": (LambdaRankScorer, "top_features")}
+    url = movielens.MOVIELENS_1M_URL
+    movielens.MOVIELENS_1M_URL = archive.resolve().as_uri()
     for name in bpr.LAUNCHES:
         bpr.LAUNCHES[name] = 0
-    with _TowerTrainings(device) as towers, _MethodTimes(device, ranker_parts) as parts:
-        report = orch.run_stage("all")
+    try:
+        with _TowerTrainings(device) as towers, \
+                _MethodTimes(device, ranker_parts) as parts:
+            report = orch.run_stage("all")
+    finally:
+        movielens.MOVIELENS_1M_URL = url
     launches = dict(bpr.LAUNCHES)
+    rec["download"] = check_download(staged, data_dir, archive, orch.stage_times["data"])
+    print(f"pipeline data stage ({card}): {archive.name} ({rec['download']['archive_bytes']:,} "
+          f"bytes) fetched from file:// and extracted into {data_dir.name}/ in "
+          f"{rec['download']['data_stage_s']:.3f} s, the {len(ML1M_FILES)} files "
+          f"({rec['download']['files_bytes']:,} bytes) byte-equal to those archived",
+          flush=True)
     rec["stage_s"] = dict(orch.stage_times)
     rec["ranker_parts_s"] = parts.seconds
     rec["ranker_parts_calls"] = parts.calls
@@ -4122,8 +4290,16 @@ def pipeline_phase(data, device, seed: int, workdir: Path, card: str,
                 INDEX_MODE=mode, INDEX_DTYPE=dtype,
                 INDEX_PATH=str(root / "models" / f"mips_{name}.index.npz"))
             orch.run_stage("index")
+            _reset(mw.LAUNCHES)
             report = orch.run_stage("evaluate")
+            window_launches = mw.LAUNCHES[SERVE_KERNELS[dtype]]
             index_s, evaluate_s = orch.stage_times["index"], orch.stage_times["evaluate"]
+            # JAX's window rule: below a window of 8 the fused route scans exactly
+            window = mw.fused_window(len(data.item_ids), orch.cfg.TOP_K_CANDIDATES)
+            if (window < 8 and window_launches) or (window >= 8 and on_card
+                                                     and not window_launches):
+                raise AssertionError(f"{name}: {window_launches} launches of "
+                                     f"{SERVE_KERNELS[dtype]} at window {window}")
         bad = [k for k, v in report.items()
                if not isinstance(v, list) and not np.isfinite(v)]
         if bad:
@@ -4145,6 +4321,8 @@ def pipeline_phase(data, device, seed: int, workdir: Path, card: str,
                 report.get("paired_ndcg10_full_minus_retrieval"),
             "paired_ndcg10_se": report.get("paired_ndcg10_se"),
             "index_s": index_s, "evaluate_s": evaluate_s}
+        if mode != "exact":
+            reports[name].update(window=window, window_launches=window_launches)
     skew = json.loads((root / "models" / "skew_report.json").read_text())
     if skew["max_kl"] != 0.0 or skew["skew_detected"] or \
             skew["n_features_checked"] != 50:
@@ -4172,7 +4350,10 @@ def pipeline_phase(data, device, seed: int, workdir: Path, card: str,
                                   for k, v in vals.items())
             for row, vals in r["rows"].items())
             + f"; paired ndcg@10 full - retrieval-only="
-            f"{r['paired_ndcg10_full_minus_retrieval']}", flush=True)
+            f"{r['paired_ndcg10_full_minus_retrieval']}"
+            + (f"; {SERVE_KERNELS[name.split('_')[1]]} launches in its evaluate "
+               f"{r['window_launches']} (window {r['window']})" if "window" in r else ""),
+            flush=True)
     return rec
 
 
@@ -4209,7 +4390,7 @@ def gbdt_pipeline_phase(data, device, seed: int, workdir: Path, card: str, mlp,
     cfg = Settings(LOSS_MODE="in_batch", TRAIN_EPOCHS=epochs, SEED=seed,
                    EMBEDDING_DIM=dim, HIDDEN_DIM=hidden, BATCH_SIZE=batch,
                    RANKER_TYPE="gbdt", **(ranker_cfg or {}))
-    orch = PipelineOrchestrator(cfg=cfg, data_dir=str(root / "ml"),
+    orch = PipelineOrchestrator(cfg=cfg, data_dir=str(root / "ml-1m"),
                                 models_dir=str(root / "models"),
                                 features_dir=str(root / "features"),
                                 eval_users=data.n_users + 1, device=device)
@@ -5563,7 +5744,11 @@ def main(argv=None) -> int:
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "nvcc_s": {n: _build.build_seconds[n] for n in LIBRARIES}}),
           flush=True)
-    # first, while this process holds nothing on the card: one web100m rank
+    # first, while this process holds nothing on the card, each in a fresh
+    # process: the BPR kernels' own times, then one web100m rank
+    phase_start("bpr", t_start)
+    bpr_checks = bpr_phase(device, args.seed, card)
+    phase_start("web100m_shard", t_start)
     shard = web100m_shard_phase(device, args.seed, card)
     stages = ctypes.c_int(0)
     d_dev = -(-(DIM + 1) // 8) * 8           # the bias column, padded to 8
@@ -5574,34 +5759,44 @@ def main(argv=None) -> int:
             "d": d_dev, "dynamic_bytes": smem, "stages": stages.value}}),
           flush=True)
 
+    phase_start("artifacts", t_start)
     t0 = time.perf_counter()
     paths, data = make_artifacts(workdir, args.seed, device)
     print(json.dumps({"artifacts_s": time.perf_counter() - t0}), flush=True)
 
+    phase_start("kernel", t_start)
     checks = kernel_phase(paths, device, args.seed)
     torch.cuda.empty_cache()
+    phase_start("serve", t_start)
     serve, pipe = serve_phase(paths, data, device)
     print(json.dumps({"serve": serve, "card": card}), flush=True)
     torch.cuda.empty_cache()
+    phase_start("serve_profile", t_start)
     profile_phase(paths, data, device)
     torch.cuda.empty_cache()
 
+    phase_start("quantize", t_start)
     quant = quantize_phase(paths, device, args.seed)
     torch.cuda.empty_cache()
+    phase_start("int8_kernel", t_start)
     checks_i8, _ = int8_kernel_phase(paths, device, args.seed)
     torch.cuda.empty_cache()
+    phase_start("serve_int8", t_start)
     serve_i8, pipe_i8 = serve_phase(paths, data, device, dtype="int8")
     print(json.dumps({"serve_int8": serve_i8, "card": card}), flush=True)
     torch.cuda.empty_cache()
+    phase_start("serve_profile_int8", t_start)
     profile_phase(paths, data, device, dtype="int8")
     torch.cuda.empty_cache()
 
+    phase_start("http", t_start)
     t0 = time.perf_counter()
     http = http_phase(pipe, pipe_i8, device, seed=args.seed)
     print(json.dumps({"http": http, "http_s": time.perf_counter() - t0,
                       "card": card}), flush=True)
     del pipe, pipe_i8
     torch.cuda.empty_cache()
+    phase_start("serve_gbdt", t_start)
     t0 = time.perf_counter()
     gbdt_serve, pipe = gbdt_serve_phase(paths, data, device)
     print(json.dumps({"serve_gbdt": gbdt_serve, "serve_gbdt_s": time.perf_counter() - t0,
@@ -5609,33 +5804,41 @@ def main(argv=None) -> int:
     del pipe
     torch.cuda.empty_cache()
 
+    phase_start("qm_window", t_start)
     checks_qm = qm_window_phase(paths, device, args.seed)
     torch.cuda.empty_cache()
+    phase_start("router", t_start)
     router_phase(paths, device, args.seed)
     torch.cuda.empty_cache()
+    phase_start("fold", t_start)
     fold = fold_phase(paths, device, args.seed)
     torch.cuda.empty_cache()
+    phase_start("gather", t_start)
     gath = gather_phase(paths, device, args.seed)
     torch.cuda.empty_cache()
+    phase_start("probe", t_start)
     probes, probe_launches = probe_phase(device)
     print(json.dumps({"probe_launches": probe_launches, "card": card}),
           flush=True)
+    phase_start("verified", t_start)
     t0 = time.perf_counter()
     verified = verified_phase(paths, data, device, args.seed, card)
     print(json.dumps({"verified_s": time.perf_counter() - t0}), flush=True)
     del data      # the parallel phase, last, reads paths' files again
     torch.cuda.empty_cache()
 
+    phase_start("drivers", t_start)
     drivers = drivers_phase(device, args.seed, workdir, card)
     capacity = drivers["capacity_30m"]
     print(json.dumps({"capacity": capacity, "card": card}), flush=True)
     torch.cuda.empty_cache()
 
-    bpr_checks = bpr_kernel_phase(device, args.seed)
+    phase_start("host_table", t_start)
     t0 = time.perf_counter()
     host = host_table_phase(device, args.seed, workdir, card)
     print(json.dumps({"host_table_s": time.perf_counter() - t0}), flush=True)
     torch.cuda.empty_cache()
+    phase_start("train", t_start)
     t0 = time.perf_counter()
     data, view = make_train_data(args.seed)
     print(json.dumps({"train_data": {
@@ -5644,44 +5847,56 @@ def main(argv=None) -> int:
         flush=True)
     model, train = train_phase(view, device, args.seed, workdir)
     print(json.dumps({"train": train, "card": card}), flush=True)
+    phase_start("train_profile", t_start)
     train_profile_phase(view, device, args.seed)
+    phase_start("index", t_start)
     index = index_phase(model, data, view, device, args.seed, workdir)
     print(json.dumps({"index": index}), flush=True)
     del model
     torch.cuda.empty_cache()
+    phase_start("pipeline", t_start)
     t0 = time.perf_counter()
     pipeline = pipeline_phase(data, device, args.seed, workdir, card)
     print(json.dumps({"pipeline_s": time.perf_counter() - t0,
                       "pipeline_bpr_launches": pipeline["bpr_launches"],
                       "pipeline_tower_steps": pipeline["tower_steps"]}),
           flush=True)
+    phase_start("gbdt_pipeline", t_start)
     t0 = time.perf_counter()
     gbdt_pipe = gbdt_pipeline_phase(data, device, args.seed, workdir, card, pipeline)
     print(json.dumps({"gbdt_pipeline_s": time.perf_counter() - t0,
                       "gbdt_bpr_launches": gbdt_pipe["bpr_launches"]}), flush=True)
+    phase_start("host_pipeline", t_start)
     t0 = time.perf_counter()
     host_pipe = host_pipeline_phase(data, device, args.seed, workdir, card)
     print(json.dumps({"host_pipeline_s": time.perf_counter() - t0,
                       "host_pipeline_bpr_launches": host_pipe["launches"]}), flush=True)
     del data, view
     torch.cuda.empty_cache()
+    phase_start("ctr", t_start)
     t0 = time.perf_counter()
     ctr_phase(device, args.seed, card)
     print(json.dumps({"ctr_s": time.perf_counter() - t0}), flush=True)
     torch.cuda.empty_cache()
+    phase_start("parallel", t_start)
     par = parallel_phase(paths, device, args.seed, workdir, card)
     print(json.dumps({"parallel_s": par["seconds"]}), flush=True)
     torch.cuda.empty_cache()
+    phase_start("quality", t_start)
     t0 = time.perf_counter()
     quality = quality_phase(device, args.seed, workdir, card)
     print(json.dumps({"quality_s": time.perf_counter() - t0,
                       "quality_launches": quality["launches"]}), flush=True)
     torch.cuda.empty_cache()
+    phase_start("sweeps", t_start)
     sweeps = sweeps_phase(device, args.seed, workdir, card)
     print(json.dumps({"sweeps_s": sweeps["seconds"],
                       "sweeps_launches": sweeps["launches"]}), flush=True)
 
     print(json.dumps({"total_s": time.perf_counter() - t_start}), flush=True)
+    print(json.dumps({"phase_records": [
+        {k: r[k] for k in ("phase", "since_start_s", "threads", "rss_gib",
+                           "cuda_reserved_gib")} for r in PHASE_RECORDS]}), flush=True)
     main_q = checks[-1]
     main_i8 = checks_i8[-1]
     main_b, train_b = bpr_checks[0], bpr_checks[1]   # (2048, 256), (1024, 64)

@@ -10,14 +10,20 @@ load_features, skew, evaluate). The stages run on the card unless
     python -m recommendit_tpu_torch.pipelines.run_pipeline --stage all \\
         --data-dir data/ml-1m --models-dir models
 
-Nothing is downloaded: the ML-1M files (``ratings.dat``, ``users.dat``,
-``movies.dat``, ``README``) are placed in ``--data-dir`` by hand, and the
-``data`` stage checks that they are there; ``--synthetic`` writes a
-synthetic set there instead. ``embeddings`` keeps a train-state
-checkpoint at ``<models-dir>/two_tower_ckpt/best`` (a ``torch.save`` file)
-and resumes from it when it exists, as JAX's stage does from its Orbax
-directory. ``load_features`` loads the feature files into the feature
-store and writes ``features.fsnap`` beside them.
+The ``data`` stage does what JAX's does: without ``--synthetic`` it calls
+``download_movielens`` on the parent of ``--data-dir``, which fetches
+``MOVIELENS_1M_URL`` (a ``file://`` address works too) and extracts the
+archive into ``<parent>/ml-1m``, unless that directory already holds the
+four ML-1M files (``ratings.dat``, ``users.dat``, ``movies.dat``,
+``README``), where it fetches nothing. So a ``--data-dir`` named ``ml-1m``
+is filled or found in place; one named otherwise is left as it is and the
+files land beside it. A fetch that fails raises ``RuntimeError``.
+``--synthetic`` writes a synthetic set into ``--data-dir`` instead.
+``embeddings`` keeps a train-state checkpoint at
+``<models-dir>/two_tower_ckpt/best`` (a ``torch.save`` file) and resumes
+from it when it exists, as JAX's stage does from its Orbax directory.
+``load_features`` loads the feature files into the feature store and
+writes ``features.fsnap`` beside them.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import numpy as np
 from recommendit_tpu_torch.config import Settings, settings as default_settings
 from recommendit_tpu_torch.data.movielens import (
     MovieLensData,
+    download_movielens,
     load_or_synthesize,
     save_movielens,
     timestamp_order,
@@ -188,13 +195,8 @@ class PipelineOrchestrator:
         if self.synthetic:
             self._data = self._synthesize()
             logger.info("Synthetic dataset written to %s", self.data_dir)
-        elif verify_dataset(Path(self.data_dir)):
-            logger.info("Dataset already present at %s", self.data_dir)
         else:
-            raise RuntimeError(
-                "downloading MovieLens-1M needs the network; place "
-                "ratings.dat, users.dat, movies.dat and README in "
-                f"{self.data_dir} by hand, or pass --synthetic")
+            download_movielens(str(Path(self.data_dir).parent))
 
     def run_features(self):
         fe = FeatureEngineer(seed=self.cfg.SEED)

@@ -263,9 +263,33 @@ print("shard", rec["users"], rec["user_rows"], rec["item_rows"], rec["of_shards"
     assert "shard 1003 251 251 4 {'data': 1, 'model': 1} 6 (512, 64)" in proc.stdout
 
 
+def test_bpr_phase_runs_in_a_fresh_process_without_jax_or_pandas():
+    """chip_smoke's BPR phase in a fresh gloo process
+    (``parallel/launch.spawn``, one rank) at small shapes, all three
+    blocked: the twins' checks run there (the wrappers take their twins on
+    the CPU: no launch, losses equal) and every record comes back to the
+    caller, timed by the host clock."""
+    code = """
+import torch
+import chip_smoke
+torch.set_num_threads(1)
+recs = chip_smoke.bpr_phase("cpu", 0, "cpu", shapes=((128, 16), (100, 16)))
+assert all(r["loss_rel_err"] == 0.0 and r["repeat_bit_identical"] for r in recs), recs
+assert all(r["two_tower"]["launches"] == {"bpr_fwd": 0, "bpr_bwd": 0} for r in recs)
+assert all(r["fwd_ms"] > 0 and "fwd_device_ms" not in r for r in recs), recs
+print("bpr", [(r["b"], r["d"]) for r in recs], sorted(k for k in recs[0]
+      if k.startswith("bound_") and k.endswith("_ms")))
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert ("bpr [(128, 16), (100, 16)] ['bound_bwd_3xtf32_ms', 'bound_bwd_ms', "
+            "'bound_fwd_3xtf32_ms', 'bound_fwd_ms']") in proc.stdout
+
+
 def test_pipeline_runs_without_jax_or_pandas(tmp_path):
     """chip_smoke's pipeline phase (the CLI's ``all``: every stage from the
-    .dat files to the evaluate report, the ranker stage's two inner towers
+    .dat files, fetched by the data stage from a local archive, to the
+    evaluate report, the ranker stage's two inner towers
     and ranker training included, then a resumed ``embeddings``) at a small
     size on the CPU with all three blocked."""
     code = f"""
@@ -280,12 +304,19 @@ rec = chip_smoke.pipeline_phase(data, "cpu", 0, Path({str(tmp_path)!r}), "cpu",
                                                 RANKER_HIDDEN_DIMS=(16, 8)))
 print("pipeline", rec["eval_users"], rec["skew"]["max_kl"], sorted(rec["stage_s"]),
       len(rec["tower_steps"]), rec["ranker"]["best_iteration"] >= 1)
+print("download", rec["download"]["files_equal"], sorted(p.name for p in
+      (Path({str(tmp_path)!r}) / "pipeline" / "ml-1m").iterdir()),
+      [(r["window"], r["window_launches"]) for n, r in sorted(rec["reports"].items())
+       if n != "exact_float32"])
 """
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "pipeline" in proc.stdout and " 0.0 " in proc.stdout
     assert ("['data', 'embeddings', 'evaluate', 'features', 'index', 'load_features', "
             "'ranker', 'skew'] 3 True") in proc.stdout
+    # the data stage fetched the archive from its file:// address into ml-1m/
+    assert ("download True ['README', 'movies.dat', 'ratings.dat', 'users.dat'] "
+            "[(1, 0), (1, 0)]") in proc.stdout
 
 
 def test_app_serves_metrics_without_prometheus_client():

@@ -657,24 +657,68 @@ def test_cli_data_stage_writes_the_files(tmp_path):
         assert (tmp_path / "ml" / f).exists()
 
 
+def _offline(mp, url: str) -> None:
+    """Both packages' ``MOVIELENS_1M_URL`` at ``url``, and no socket may
+    connect."""
+    import socket
+
+    import recommendit_tpu.data.movielens as jml
+    import recommendit_tpu_torch.data.movielens as tml
+
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"a test tried to open a connection: {args}")
+
+    mp.setattr(socket.socket, "connect", refuse)
+    mp.setattr(socket, "create_connection", refuse)
+    for mod in (jml, tml):
+        mp.setattr(mod, "MOVIELENS_1M_URL", url)
+
+
 def test_data_stage_without_synthetic_raises(tmp_path):
-    orch = PipelineOrchestrator(cfg=Settings(), data_dir=str(tmp_path / "ml"),
-                                models_dir=str(tmp_path), device="cpu")
-    with pytest.raises(RuntimeError, match="by hand"):
-        orch.run_stage("data")
+    """Without ``--synthetic`` and without the files, both packages' ``data``
+    stage try the download (``download_movielens`` on the parent of
+    ``data_dir``); from an address that answers nothing both raise JAX's
+    ``RuntimeError``. ``tests/test_torch_download.py`` holds the download
+    itself."""
+    import recommendit_tpu.pipelines.run_pipeline as jrp
+
+    missing = tmp_path / "no-such-ml-1m.zip"
+    with pytest.MonkeyPatch.context() as mp:
+        _offline(mp, missing.as_uri())
+        for orch in (jrp.PipelineOrchestrator(cfg=JaxSettings(),
+                                              data_dir=str(tmp_path / "jax" / "ml"),
+                                              models_dir=str(tmp_path / "jax")),
+                     PipelineOrchestrator(cfg=Settings(), data_dir=str(tmp_path / "ml"),
+                                          models_dir=str(tmp_path), device="cpu")):
+            with pytest.raises(RuntimeError, match="Cannot download MovieLens-1M") as err:
+                orch.run_stage("data")
+            assert str(missing) in str(err.value)
+    assert not (tmp_path / "ml-1m").exists() and not (tmp_path / "jax" / "ml-1m").exists()
 
 
 def test_data_stage_finds_files_placed_by_hand(tmp_path):
+    """Files placed by hand in ``<parent>/ml-1m`` are found by both
+    packages' ``data`` stage, which fetches nothing and leaves them as they
+    are (the address a fetch would read answers nothing)."""
+    import recommendit_tpu.pipelines.run_pipeline as jrp
     from recommendit_tpu_torch.data.movielens import save_movielens
     from recommendit_tpu_torch.data.synthetic import make_synthetic_movielens
 
-    save_movielens(make_synthetic_movielens(30, 20, 300, seed=2), str(tmp_path / "ml"))
-    before = {f.name: f.read_bytes() for f in (tmp_path / "ml").iterdir()}
-    orch = PipelineOrchestrator(cfg=Settings(), data_dir=str(tmp_path / "ml"),
-                                models_dir=str(tmp_path), device="cpu")
-    orch.run_stage("data")
-    assert {f.name: f.read_bytes() for f in (tmp_path / "ml").iterdir()} == before
-    assert "data" in orch.stage_times
+    save_movielens(make_synthetic_movielens(30, 20, 300, seed=2), str(tmp_path / "ml-1m"))
+    before = {f.name: f.read_bytes() for f in (tmp_path / "ml-1m").iterdir()}
+    orchs = {"jax": jrp.PipelineOrchestrator(cfg=JaxSettings(),
+                                             data_dir=str(tmp_path / "ml-1m"),
+                                             models_dir=str(tmp_path)),
+             "port": PipelineOrchestrator(cfg=Settings(), data_dir=str(tmp_path / "ml-1m"),
+                                          models_dir=str(tmp_path), device="cpu")}
+    with pytest.MonkeyPatch.context() as mp:
+        _offline(mp, (tmp_path / "gone.zip").as_uri())
+        for orch in orchs.values():
+            orch.run_stage("data")
+            assert {f.name: f.read_bytes()
+                    for f in (tmp_path / "ml-1m").iterdir()} == before
+            assert "data" in orch.stage_times
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["ml-1m"]
 
 
 def test_embeddings_stage_refuses_what_is_not_ported(tmp_path):

@@ -3,8 +3,11 @@ that ``check_profiled_windows`` expects against those ``torch.profiler``'s
 schedule makes, the sparse seen mask of the quality phase against the
 dense mask that ``check_eval_lists`` reads elsewhere, the profiler
 sessions taken again where one recorded no kernel (``profiled``) or the
-records of only some calls (``device_kernel_ms``), and the kernels line's
-rule that no kernel time is under its bound (``check_kernel_times``)."""
+records of only some calls (``device_kernel_ms``), the kernels line's
+rule that no kernel time is under its bound (``check_kernel_times``), the
+record each phase starts with (``phase_start``) and the archive the
+pipeline phase's ``data`` stage downloads (``write_ml1m_archive``,
+``check_download``)."""
 import warnings
 
 import numpy as np
@@ -295,3 +298,54 @@ def test_check_real_data(tmp_path):
         chip_smoke.check_real_data(short, out, stages)
     with pytest.raises(AssertionError, match="not written"):
         chip_smoke.check_real_data(report, tmp_path / "missing.json", stages)
+
+
+def test_phase_start_records_the_host_state(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "PHASE_RECORDS", [])
+    t0 = chip_smoke.time.perf_counter()
+    rec = chip_smoke.phase_start("a phase", t0 - 2.0)
+    assert chip_smoke.PHASE_RECORDS == [rec] and rec["phase"] == "a phase"
+    assert rec["since_start_s"] >= 2.0
+    assert rec["threads"] == sum(rec["thread_names"].values()) >= 1
+    assert rec["thread_names"].get("MainThread") == 1
+    assert 0 < rec["rss_gib"] <= rec["rss_peak_gib"]
+    assert rec["cuda_reserved_gib"] is None or rec["cuda_reserved_gib"] >= 0
+
+
+def test_the_archive_round_trip_is_checked(tmp_path):
+    """``write_ml1m_archive`` lays the files out as GroupLens's archive
+    (``ml-1m/<name>``); ``check_download`` passes the extracted copy and
+    refuses one changed byte or a zip left beside it."""
+    import zipfile
+
+    staged = tmp_path / "dat"
+    staged.mkdir()
+    for i, name in enumerate(chip_smoke.ML1M_FILES):
+        (staged / name).write_bytes(bytes(range(i, i + 50)) * 7)
+    archive = chip_smoke.write_ml1m_archive(staged, tmp_path / "archive" / "ml-1m.zip")
+    with zipfile.ZipFile(archive) as zf:
+        assert sorted(zf.namelist()) == sorted(f"ml-1m/{n}" for n in chip_smoke.ML1M_FILES)
+        zf.extractall(tmp_path / "out")
+    got = chip_smoke.check_download(staged, tmp_path / "out" / "ml-1m", archive, 0.5)
+    assert got["files_equal"] and got["files_bytes"] == 4 * 350
+    (tmp_path / "out" / "ml-1m.zip").write_bytes(b"")
+    with pytest.raises(AssertionError, match="left beside"):
+        chip_smoke.check_download(staged, tmp_path / "out" / "ml-1m", archive, 0.5)
+    (tmp_path / "out" / "ml-1m.zip").unlink()
+    (tmp_path / "out" / "ml-1m" / "users.dat").write_bytes(b"changed")
+    with pytest.raises(AssertionError, match="users.dat"):
+        chip_smoke.check_download(staged, tmp_path / "out" / "ml-1m", archive, 0.5)
+
+
+def test_offline_refuses_a_connect_and_restores_it():
+    import socket
+
+    connect = socket.socket.connect
+
+    def dial():
+        with socket.socket() as sock:
+            sock.connect(("127.0.0.1", 9))
+
+    with pytest.raises(AssertionError, match="offline"):
+        chip_smoke.offline(dial)()
+    assert socket.socket.connect is connect
