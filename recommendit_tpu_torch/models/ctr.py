@@ -45,11 +45,11 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from recommendit_tpu_torch.data.ctr import N_DENSE, N_SPARSE, N_USER_FIELDS
 from recommendit_tpu_torch.ops.topk import full_f32_matmul
 from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from recommendit_tpu_torch.utils.profiling import span
 
 Params = Dict[str, torch.Tensor]
 
@@ -161,7 +161,7 @@ def _l2norm(x, eps=1e-12):
 def embed_fields(params: Params, stacked_ids: torch.Tensor,
                  compute_dtype=None) -> torch.Tensor:
     """(B, F) globally-offset ids -> (B, F, D) embedding rows, one gather."""
-    with record_function("ctr::gather"):
+    with span("ctr::gather"):
         b, f = stacked_ids.shape
         emb = params["embed"].index_select(0, stacked_ids.reshape(-1).long())
         emb = emb.reshape(b, f, -1)
@@ -171,7 +171,7 @@ def embed_fields(params: Params, stacked_ids: torch.Tensor,
 
 
 def _tower(params: Params, field_emb: torch.Tensor, side: str) -> torch.Tensor:
-    with record_function("ctr::towers"):
+    with span("ctr::towers"):
         pooled = field_emb.mean(dim=1).float()
         out = _mlp2(pooled, params[f"{side}_w1"], params[f"{side}_b1"],
                     params[f"{side}_w2"], params[f"{side}_b2"])
@@ -201,11 +201,11 @@ def ctr_forward_from_embed(
     dot product fed as an explicit top-MLP feature. Returns (B,) logits.
     """
     cdt = compute_dtype or torch.float32
-    with record_function("ctr::mlp"):
+    with span("ctr::mlp"):
         d = _mlp2(dense.to(cdt),
                   params["bot_w1"].to(cdt), params["bot_b1"].to(cdt),
                   params["bot_w2"].to(cdt), params["bot_b2"].to(cdt))  # (B, D)
-    with record_function("ctr::interaction"):
+    with span("ctr::interaction"):
         z = torch.cat([d[:, None, :], field_emb.to(cdt)], dim=1).float()
         # products of bf16 operands are exact in f32: JAX's bf16 einsum
         # with f32 accumulation
@@ -216,7 +216,7 @@ def ctr_forward_from_embed(
         sim = (torch.zeros(dense.shape[0], dtype=torch.float32, device=dense.device)
                if similarity is None else similarity.float())
         x = torch.cat([d.float(), inter, sim[:, None]], dim=1)
-    with record_function("ctr::mlp"):
+    with span("ctr::mlp"):
         n_layers = _n_top_layers(params)
         for li in range(1, n_layers + 1):
             w = params[f"top_w{li}"].to(cdt)
@@ -255,7 +255,7 @@ def ctr_forward(
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean sigmoid binary cross-entropy (the Criteo objective), with
     JAX's gradients at a logit of 0 (C.49)."""
-    with record_function("ctr::loss"):
+    with span("ctr::loss"):
         abs_logits = torch.where(logits >= 0, logits, -logits)
         return (_relu(logits) - logits * labels
                 + torch.log1p(torch.exp(-abs_logits))).mean()
@@ -271,7 +271,7 @@ def weighted_in_batch_softmax(
     """In-batch sampled softmax where only weighted rows (clicks) are
     positives; non-clicked impressions still serve as negatives for other
     rows. logQ-corrected as ``ops/bpr.in_batch_softmax_loss`` is."""
-    with record_function("ctr::softmax"):
+    with span("ctr::softmax"):
         scores = (user_emb @ item_emb.T) / temperature
         if log_q is not None:
             scores = scores - log_q[None, :]

@@ -51,6 +51,7 @@ from recommendit_tpu_torch.ops.topk import (
     round_queries,
     score_matrix,
 )
+from recommendit_tpu_torch.utils.profiling import span
 
 # Router constants, kept at the JAX package's values (measured on a TPU
 # v5e, pallas_mips.py:208,665); both are to be re-measured on the H100.
@@ -447,8 +448,10 @@ def mips_topk_window_im(
     do not depend on how the corpus is blocked."""
     n_valid = _check_window_args(item_embs.shape[0], k, block_items, window,
                                  n_valid)
-    cv, ca = window_candidates(queries, item_embs, window, n_valid, precision)
-    return _select(cv, ca, k, window)
+    with span("retrieve.score"):
+        cv, ca = window_candidates(queries, item_embs, window, n_valid, precision)
+    with span("retrieve.select"):
+        return _select(cv, ca, k, window)
 
 
 def mips_topk_window_im_ref(
@@ -476,12 +479,14 @@ def _int8_window_topk(candidates, queries, items_i8, item_scales, k,
         raise ValueError("item_scales length mismatch")
     n_valid = _check_window_args(items_i8.shape[0], k, block_items, window,
                                  n_valid)
-    q_i8, q_scale = quantize_queries(queries.float())
-    cv, ca = candidates(q_i8, items_i8, item_scales, window, n_valid)
-    vals, idx = _select(cv, ca, k, window)
-    # the per-query scale is positive and uniform along a row: applied
-    # after the selection, it cannot change any order
-    return vals * q_scale[:, None], idx
+    with span("retrieve.score"):
+        q_i8, q_scale = quantize_queries(queries.float())
+        cv, ca = candidates(q_i8, items_i8, item_scales, window, n_valid)
+    with span("retrieve.select"):
+        vals, idx = _select(cv, ca, k, window)
+        # the per-query scale is positive and uniform along a row: applied
+        # after the selection, it cannot change any order
+        return vals * q_scale[:, None], idx
 
 
 def mips_topk_window_im_int8(
@@ -587,7 +592,10 @@ def mips_topk_fused_route(
             return mips_topk_int8(queries, item_embs[:n], scales[:n], k, mode)
         if route == "exact":   # f32 queries at "highest", as in JAX
             return mips_topk(queries, item_embs[:n], k, mode="exact")
-        return fast_topk(score_matrix(queries, item_embs[:n], precision), k)
+        with span("retrieve.score"):
+            scores = score_matrix(queries, item_embs[:n], precision)
+        with span("retrieve.select"):
+            return fast_topk(scores, k)
     bn = max(window, block_items - block_items % window)
     if scales is not None:
         return mips_topk_window_im_int8(queries, item_embs, scales, k, bn,

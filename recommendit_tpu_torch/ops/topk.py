@@ -45,8 +45,8 @@ import torch
 import torch.nn.functional as F
 
 from recommendit_tpu_torch.ops._build import count_launch
-
 from recommendit_tpu_torch.ops.quantize import row_scales
+from recommendit_tpu_torch.utils.profiling import span
 
 PRECISIONS = ("default", "highest")
 INT8_MAX_DIM = 1024               # f32 sums of int8 products stay exact
@@ -156,7 +156,10 @@ def mips_topk(
             # few queries within one chunk: one product and one top-k; the
             # window-max pruning's extra launches cost more than they save
             # below 32 queries over 1M rows (tools/exact_topk_ab.py)
-            vals, idx = fast_topk(score_matrix(queries.float(), item_embs, _EXACT), k)
+            with span("retrieve.score"):
+                scores = score_matrix(queries.float(), item_embs, _EXACT)
+            with span("retrieve.select"):
+                vals, idx = fast_topk(scores, k)
         else:
             vals, idx = _exact_topk(queries, item_embs, k)
         return canonical_tie_order(vals, idx) if canonical else (vals, idx)
@@ -216,20 +219,23 @@ def mips_topk_int8(
         raise ValueError(f"unknown mips_topk_int8 mode {mode!r} (exact | approx)")
     if n_valid is not None:
         items_i8, item_scales = items_i8[:n_valid], item_scales[:n_valid]
-    q_i8, q_scale = quantize_queries(queries.float())
+    with span("retrieve.score"):
+        q_i8, q_scale = quantize_queries(queries.float())
     chunk = max(k, _INT8_SCORE_BUDGET // max(1, queries.shape[0]))
     vals = idxs = None
     for s in range(0, items_i8.shape[0], chunk):
-        scores = score_int8(q_i8, q_scale, items_i8[s:s + chunk],
-                            item_scales[s:s + chunk])
-        v, i = fast_topk(scores, min(k, scores.shape[1]))
-        if vals is None:
-            vals, idxs = v, i + s
-            continue
-        cand_v = torch.cat([vals, v], dim=1)
-        cand_i = torch.cat([idxs, i + s], dim=1)
-        vals, sel = fast_topk(cand_v, k)
-        idxs = torch.gather(cand_i, 1, sel)
+        with span("retrieve.score"):
+            scores = score_int8(q_i8, q_scale, items_i8[s:s + chunk],
+                                item_scales[s:s + chunk])
+        with span("retrieve.select"):
+            v, i = fast_topk(scores, min(k, scores.shape[1]))
+            if vals is None:
+                vals, idxs = v, i + s
+                continue
+            cand_v = torch.cat([vals, v], dim=1)
+            cand_i = torch.cat([idxs, i + s], dim=1)
+            vals, sel = fast_topk(cand_v, k)
+            idxs = torch.gather(cand_i, 1, sel)
     return vals, idxs
 
 
@@ -277,12 +283,14 @@ def mips_topk_dense(queries: torch.Tensor, item_embs: torch.Tensor, k: int,
     "default" precision (the exact top-k of those scores, C.4). ``n_valid``
     masks a padded tail."""
     exact = recall_target >= 1.0
-    scores = score_matrix(queries, item_embs, _EXACT if exact else "default")
-    if n_valid is not None and n_valid < scores.shape[1]:
-        scores[:, n_valid:] = _NEG_INF
-    if exact:
-        return _chunked_exact_reduce(scores, k)
-    return fast_topk(scores, k)
+    with span("retrieve.score"):
+        scores = score_matrix(queries, item_embs, _EXACT if exact else "default")
+        if n_valid is not None and n_valid < scores.shape[1]:
+            scores[:, n_valid:] = _NEG_INF
+    with span("retrieve.select"):
+        if exact:
+            return _chunked_exact_reduce(scores, k)
+        return fast_topk(scores, k)
 
 
 def _scan_topk(queries: torch.Tensor, item_embs: torch.Tensor, k: int,
@@ -298,11 +306,13 @@ def _scan_topk(queries: torch.Tensor, item_embs: torch.Tensor, k: int,
     queries = queries.float()
     vals, idxs = _init_topk(queries.shape[0], k, queries.device)
     for start in range(0, n, bs):
-        scores = _pad_cols_to(
-            score_matrix(queries, item_embs[start:start + bs], precision), bs)
-        scores[:, max(0, n_valid - start):] = _NEG_INF
-        bv, bsel = fast_topk(scores, min(k, bs))
-        vals, idxs = _merge(vals, idxs, bv, bsel + start, k)
+        with span("retrieve.score"):
+            scores = _pad_cols_to(
+                score_matrix(queries, item_embs[start:start + bs], precision), bs)
+            scores[:, max(0, n_valid - start):] = _NEG_INF
+        with span("retrieve.select"):
+            bv, bsel = fast_topk(scores, min(k, bs))
+            vals, idxs = _merge(vals, idxs, bv, bsel + start, k)
     return vals, idxs
 
 
@@ -335,13 +345,16 @@ def _windowed_exact_topk(scores: torch.Tensor, k: int):
     wpad = max(512, -(-(k + 1) // 128) * 128)
     n_win = -(-w // L)
     if n_win <= 4 * wpad:
-        return _chunked_exact_reduce(scores, k)
-    blocks = _pad_cols_to(scores, n_win * L).view(q, n_win, L)
-    _, widx = _chunked_exact_reduce(blocks.amax(dim=2), wpad)
-    slab = torch.gather(blocks, 1, widx[:, :, None].expand(-1, -1, L))
-    mv, ms = _chunked_exact_reduce(slab.reshape(q, wpad * L), k)
-    win = torch.gather(widx, 1, ms // L)
-    return mv, win * L + ms % L
+        with span("retrieve.select"):
+            return _chunked_exact_reduce(scores, k)
+    with span("retrieve.prune"):
+        blocks = _pad_cols_to(scores, n_win * L).view(q, n_win, L)
+        _, widx = _chunked_exact_reduce(blocks.amax(dim=2), wpad)
+        slab = torch.gather(blocks, 1, widx[:, :, None].expand(-1, -1, L))
+    with span("retrieve.select"):
+        mv, ms = _chunked_exact_reduce(slab.reshape(q, wpad * L), k)
+        win = torch.gather(widx, 1, ms // L)
+        return mv, win * L + ms % L
 
 
 def _score_chunk(q: int) -> int:
@@ -382,15 +395,19 @@ def _exact_topk(queries: torch.Tensor, item_embs: torch.Tensor, k: int):
     queries = queries.float()
     blocks = exact_score_blocks(queries.shape[0], item_embs.shape[0])
     if len(blocks) == 1:
-        return _windowed_exact_topk(score_matrix(queries, item_embs, _EXACT), k)
+        with span("retrieve.score"):
+            scores = score_matrix(queries, item_embs, _EXACT)
+        return _windowed_exact_topk(scores, k)
     chunk = blocks[0][1]
     vals, idxs = _init_topk(queries.shape[0], k, queries.device)
     for start, stop in blocks:
-        scores = _pad_cols_to(
-            score_matrix(queries, item_embs[start:stop], _EXACT), chunk)
+        with span("retrieve.score"):
+            scores = _pad_cols_to(
+                score_matrix(queries, item_embs[start:stop], _EXACT), chunk)
         bv, bi = _windowed_exact_topk(scores, min(k, chunk))
         del scores      # one chunk's scores live at a time
-        vals, idxs = _merge(vals, idxs, bv, bi + start, k, _chunked_exact_reduce)
+        with span("retrieve.select"):
+            vals, idxs = _merge(vals, idxs, bv, bi + start, k, _chunked_exact_reduce)
     return vals, idxs
 
 

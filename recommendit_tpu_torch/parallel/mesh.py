@@ -37,6 +37,7 @@ import torch.distributed as dist
 
 from recommendit_tpu_torch.training.train_embeddings import OptaxAdamW
 from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from recommendit_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -240,10 +241,13 @@ class ShardedOptState:
     @torch.no_grad()
     def apply_(self, grads: List[torch.Tensor]) -> None:
         """Clip (over the global norm of every shard) and step in place."""
-        if self.tx.clip_norm is not None:
-            clip_by_global_norm_sharded_(grads, self.sharded, self.tx.clip_norm,
-                                         self.model_group)
-        self.adam.step(grads, self.tx.lr)
+        with span("train.optim"):
+            if self.tx.clip_norm is not None:
+                with span("train.clip"):
+                    clip_by_global_norm_sharded_(grads, self.sharded,
+                                                 self.tx.clip_norm, self.model_group)
+            with span("train.adamw"):
+                self.adam.step(grads, self.tx.lr)
 
     def state_dict(self) -> dict:
         return {"mu": dict(zip(self.names, self.adam.mu)),

@@ -46,6 +46,7 @@ from recommendit_tpu_torch.parallel.mesh import (
     params_shardings,
     shard_tree,
 )
+from recommendit_tpu_torch.utils.profiling import span
 
 
 def shard_params(params: dict, mesh) -> Dict[str, torch.Tensor]:
@@ -137,9 +138,11 @@ def sharded_grads(mesh, params: dict, names, loss: torch.Tensor,
     (the table shards' of their own rows). No second copy of the gradients
     is made: the step's peak stays params + grads + moments, as in JAX's
     donated step."""
-    grads = _grads(params, names, loss)
+    with span("train.backward"):
+        grads = _grads(params, names, loss)
     if axis_size(mesh, DATA_AXIS) > 1:
-        all_reduce_(grads, mesh.get_group(DATA_AXIS), bucket)
+        with span("train.allreduce"):
+            all_reduce_(grads, mesh.get_group(DATA_AXIS), bucket)
     return grads
 
 
@@ -162,8 +165,9 @@ def make_sharded_loss_fn(mesh, genre_table, dropout_rate: float = 0.0,
 
     def loss(params, batch, rng: Optional[torch.Generator] = None):
         u_ids, i_ids = (data_slice(x, mesh) for x in batch)
-        ue_rows, ie_rows = sharded_dual_lookup(
-            params["user_embed"], params["item_embed"], u_ids, i_ids, mesh)
+        with span("train.lookup"):
+            ue_rows, ie_rows = sharded_dual_lookup(
+                params["user_embed"], params["item_embed"], u_ids, i_ids, mesh)
         genres = genre_table[i_ids.long()]
         ue = user_tower_from_embed(params, ue_rows, dropout_rate, rng)
         ie = item_tower_from_embed(params, ie_rows, genres, dropout_rate, rng)
@@ -189,8 +193,9 @@ def make_sharded_train_step(mesh, tx: AdamW, genre_table,
 
     def step(params, opt_state, batch, rng: Optional[torch.Generator] = None):
         _check_tx(opt_state, tx)
-        with full_f32_matmul():
-            loss = loss_of(params, batch, rng)
+        with span("train.step"), full_f32_matmul():
+            with span("train.forward"):
+                loss = loss_of(params, batch, rng)
             opt_state.apply_(sharded_grads(mesh, params, opt_state.names, loss))
         return params, opt_state, loss.detach()
 

@@ -52,6 +52,7 @@ from recommendit_tpu_torch.ops.topk import fast_topk
 from recommendit_tpu_torch.serving.batcher import MicroBatcher, QueueFullError
 from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from recommendit_tpu_torch.utils.latency import LatencyTracker
+from recommendit_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -324,24 +325,35 @@ class RecommendationPipeline:
         """(B,) user ids → (B, k_out) ranked item ids, scores and retrieval
         scores, as tensors on the device; the whole two-stage pipeline for
         B users (recommender.py:334-363)."""
-        uids = torch.as_tensor(user_ids, device=self.device).long().reshape(-1)
-        q = self.model.user_tower(uids)
-        rvals, pos = self._retrieve(q)
-        cand_ids = self._item_ids_dev[pos]                       # (B, C)
-        feats = assemble_packed(self._user_packed[uids],
-                                self._item_packed[cand_ids])     # (B, C, 50)
-        if self._seen is not None:
-            indptr, cols = self._seen_dev
-            seen = seen_mask(indptr, cols, self._seen_steps, uids[:, None],
-                             cand_ids)
-        else:
-            seen = torch.zeros(cand_ids.shape, dtype=torch.bool, device=self.device)
-        feats = _with_extras(feats, rvals, ~seen, self._extra_feats)
-        scores = _blend(self._score_fn(feats), rvals, ~seen, self._beta)
-        scores = scores.masked_fill(seen, float("-inf"))
-        top_scores, sel = fast_topk(scores, self._k_out)
-        return (torch.gather(cand_ids, 1, sel), top_scores,
-                torch.gather(rvals, 1, sel))
+        with span("serve.batch"):
+            with span("serve.tower"):
+                uids = torch.as_tensor(user_ids, device=self.device).long().reshape(-1)
+                q = self.model.user_tower(uids)
+            with span("serve.retrieve"):
+                rvals, pos = self._retrieve(q)
+            with span("rank.features"):
+                cand_ids = self._item_ids_dev[pos]                       # (B, C)
+                feats = assemble_packed(self._user_packed[uids],
+                                        self._item_packed[cand_ids])     # (B, C, 50)
+            with span("rank.select"):
+                if self._seen is not None:
+                    indptr, cols = self._seen_dev
+                    seen = seen_mask(indptr, cols, self._seen_steps, uids[:, None],
+                                     cand_ids)
+                else:
+                    seen = torch.zeros(cand_ids.shape, dtype=torch.bool,
+                                       device=self.device)
+                unseen = ~seen
+            with span("rank.features"):
+                feats = _with_extras(feats, rvals, unseen, self._extra_feats)
+            with span("rank.scorer"):
+                ranked = self._score_fn(feats)
+            with span("rank.select"):
+                scores = _blend(ranked, rvals, unseen, self._beta)
+                scores = scores.masked_fill(seen, float("-inf"))
+                top_scores, sel = fast_topk(scores, self._k_out)
+                return (torch.gather(cand_ids, 1, sel), top_scores,
+                        torch.gather(rvals, 1, sel))
 
     def serve(self, user_id: int):
         """One user → (k_out,) ids, scores and retrieval scores on device."""
@@ -503,8 +515,10 @@ class RecommendationPipeline:
         """``serve_batch`` brought to the host in one copy: (ids, scores,
         retrieval scores) as numpy arrays. The ids and the f32 scores are
         exact in f64."""
-        packed = torch.stack([t.double() for t in self.serve_batch(user_ids)])
-        ids, scores, rvals = packed.cpu().numpy()
+        out = self.serve_batch(user_ids)
+        with span("serve.copy"):
+            packed = torch.stack([t.double() for t in out])
+            ids, scores, rvals = packed.cpu().numpy()
         return ids.astype(np.int64), scores.astype(np.float32), rvals.astype(np.float32)
 
     # --- inference ------------------------------------------------------- #

@@ -36,7 +36,6 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from recommendit_tpu_torch.config import Settings, settings as default_settings
 from recommendit_tpu_torch.data.ctr import CTRDataset
@@ -61,6 +60,7 @@ from recommendit_tpu_torch.training.train_embeddings import (
     cosine_lr,
 )
 from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from recommendit_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -207,13 +207,13 @@ class CTRTrainer:
             grads = torch.autograd.grad(loss, wrt, allow_unused=True)
             grads = [torch.zeros_like(p) if g is None else g
                      for p, g in zip(wrt, grads)]
-            with record_function("ctr::adamw"):
+            with span("ctr::adamw"):
                 dense_grads = grads[:len(state.train)]
                 clip_by_global_norm_(dense_grads, cfg.GRAD_CLIP_NORM)
                 state.opt.step(dense_grads, cosine_lr(cfg.CTR_LEARNING_RATE,
                                                       state.opt.count, decay_steps))
             if state.sparse:
-                with record_function("ctr::sparse_update"):
+                with span("ctr::sparse_update"):
                     sparse_table_update(
                         state.params["embed"], state.accum, ids, grads[-1],
                         self.model.vocab_sizes, lr=cfg.CTR_TABLE_LR,

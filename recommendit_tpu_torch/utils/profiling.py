@@ -1,5 +1,15 @@
-"""Profiling — ``torch.profiler`` traces and stage timers (torch port of
-``recommendit_tpu/utils/profiling.py``).
+"""Profiling — program spans, ``torch.profiler`` traces and stage timers
+(torch port of ``recommendit_tpu/utils/profiling.py``).
+
+:func:`span` names a stage of the program on the profiler's clock: while a
+``torch.profiler`` session records, it opens ``record_function(name)``,
+which lands in the Chrome trace beside the device operations launched
+inside it (tied to them by their launch records' correlation ids); with no
+session recording it returns one shared null context, at the cost of one
+flag check. There is no switch: :func:`device_trace`, or any other
+profiler session, turns the spans on. :data:`SPANS` names every span the
+program opens. Spans nest, and a call's span (``serve.batch``,
+``train.step``) holds the spans of its stages on the calling thread.
 
 :func:`device_trace` records a ``torch.profiler`` trace of the block (CPU
 activity, and CUDA activity where a card is present) and writes it as a
@@ -19,8 +29,36 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 logger = logging.getLogger(__name__)
+
+# Every span the program opens, by the stage it names.
+SPANS = (
+    # serving/recommender.py: a serve_batch call and its stages
+    "serve.batch", "serve.tower", "serve.retrieve",
+    "rank.features", "rank.scorer", "rank.select",
+    "serve.copy",                 # the results to the host (_serve_rows)
+    # the searchers, inside serve.retrieve (ops/mips_window.py, ops/topk.py)
+    "retrieve.score", "retrieve.prune", "retrieve.select",
+    # parallel/train.py make_sharded_train_step, parallel/mesh.py apply_
+    "train.step", "train.forward", "train.lookup", "train.backward",
+    "train.allreduce", "train.optim", "train.clip", "train.adamw",
+    # the CTR family: models/ctr.py, training/train_ctr.py
+    "ctr::gather", "ctr::towers", "ctr::mlp", "ctr::interaction", "ctr::loss",
+    "ctr::softmax", "ctr::adamw", "ctr::sparse_update",
+)
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``record_function(name)`` while a ``torch.profiler`` session records,
+    else the one shared null context. ``name`` is one of :data:`SPANS`."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
 
 
 def _sync() -> None:
