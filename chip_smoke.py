@@ -76,8 +76,17 @@ Phases (each failure raises, so the exit code is not 0):
    bias and genre table at all 10,000,004 rows), 6 steps; checks: no
    out-of-memory error, the losses finite, kernels 5 and 6 once each a
    step (at (4,096, 128)) and within the BPR phase's tolerances of their
-   twins on the step's own towers, the peak allocated above the state
-   (params, grads, two moments) within ``shard_peak_bound_gib``;
+   twins on the step's own towers, the optimizer's kernel
+   (``csrc/adamw.cu``) once a step, the peak allocated above the state
+   (params, grads, two moments) within ``shard_peak_bound_gib``; then the
+   adamw_fused phase: the optimizer's kernel at that rank's exact params
+   (``web100m_shard_shapes``: the towers, the item bias at 10,000,004
+   rows, 25,000,001 and 2,500,001 table rows x 128; 3.53 G elements)
+   against its foreach path, every chunk group bit-equal after one step
+   by row ranges, then the groups of each param's last rows and of
+   element 2^31 bit-equal after the step's one launch over the whole
+   tensors, its ms against its bound (28 bytes an element) and the
+   foreach path's, the clip's norm's and ``torch._fused_adamw_``'s ms;
 2. write the artifacts, embed the catalog with the port's item tower and
    build + save the fused bf16 index and, from the same embeddings and
    bias, the fused int8 index (quant seed ``--seed``);
@@ -226,6 +235,10 @@ Phases (each failure raises, so the exit code is not 0):
    the host-table path's shape; at each shape ``TwoTower.in_batch_bpr_loss``
    forward and backward against the twins at the same tolerances, each
    kernel launched once (``two_tower``);
+   From here to the parallel phase (17, 18, 20, 22-24) every
+   ``OptaxAdamW.step`` on the card is counted around each phase and must
+   launch the optimizer's kernel once (``_AdamWSteps``; the kernels
+   line's ``<phase>_launches`` of ``adamw_fused``);
 17. host-table phase: ``scripts/host_table_scale.py`` at ``ml25m``
    (162,541 users, 62,423 items, dim 256, hidden 512, batch 2,048, 1M
    positives from ``--seed``, ``LOSS_MODE=in_batch``, adagrad rows at lr
@@ -337,9 +350,10 @@ Phases (each failure raises, so the exit code is not 0):
    batch 4,096) against the single-device joint step, as (a); (e)
    ``scripts/multiproc_smoke.py``'s 4 CTR steps with the state saved at
    step 2, the process group destroyed and made anew, steps 2-3 resumed
-   with losses equal; (f) the chunked ``OptaxAdamW`` step (chunk 2^20, the
-   tables in 56 groups) against its one-pass form at (a)'s params over 3
-   steps of seeded gradients: params, mu and nu bit-equal, and both times.
+   with losses equal; (f) the ``OptaxAdamW`` step (on the card its kernel;
+   its foreach path cuts the tables into 56 groups at chunk 2^20) against
+   its one-pass form at (a)'s params over 3 steps of seeded gradients:
+   params, mu and nu bit-equal, and both times.
 25. quality phase: the port's
    ``scripts/quality_at_scale.py`` at the ``ml25m`` catalog's full width
    (162,541 x 62,423, dim 64) with the script's own overrides
@@ -404,6 +418,7 @@ import argparse
 import ctypes
 import json
 import logging
+import math
 import multiprocessing
 import re
 import socket
@@ -446,8 +461,10 @@ FOLD_SOURCE = "recommendit_tpu_torch/csrc/fold_mips.cu"
 FOLD_REPLACES = "recommendit_tpu/ops/pallas_mips.py:57"
 GATHER_SOURCE = "recommendit_tpu_torch/csrc/gather_rows.cu"
 GATHER_REPLACES = "recommendit_tpu/ops/gather.py:27"
+ADAMW_SOURCE = "recommendit_tpu_torch/csrc/adamw.cu"
+ADAMW_REPLACES = None             # no TPU kernel: XLA fuses optax's update
 LIBRARIES = ("window_mips", "bpr", "window_mips_i8", "quantize_i8",
-             "fold_mips", "gather_rows")
+             "fold_mips", "gather_rows", "adamw")
 
 # the router's two routes (mips_topk_fused_auto) timed at these batch sizes
 ROUTER_QS = (1, 16, 64, 128, 256, 384, 512, 1024)
@@ -582,6 +599,8 @@ PAR_ADAM_CHUNK = 1 << 20          # the chunked step's chunk in the bit-equality
 # 4,096; the item bias and genre table at all 10,000,004 rows
 SHARD_RUN = ("web100m", 4)
 SHARD_TIMEOUT_S = 600
+ADAMW_REPS = 10                   # the adamw_fused phase's timed steps: the kernel
+ADAMW_PLAIN_REPS = 3              # ... and its foreach path
 BPR_TIMEOUT_S = 300               # the BPR phase's fresh process
 
 
@@ -4928,8 +4947,9 @@ def parallel_phase(paths, device, seed: int, workdir: Path, card: str,
 def adamw_chunk_check(device, seed: int, two_tower=PAR_TWO_TOWER,
                       steps: int = PAR_CHECK_STEPS, chunk: int = PAR_ADAM_CHUNK,
                       timer=cuda_ms) -> dict:
-    """``OptaxAdamW.step`` a ``chunk`` at a time against its one-pass form
-    (``_step_unchunked``) at the two-tower's params (``init_params`` at
+    """``OptaxAdamW.step`` (on the card one launch of ``csrc/adamw.cu``;
+    elsewhere its foreach path, a ``chunk`` at a time) against its one-pass
+    form (``_step_unchunked``) at the two-tower's params (``init_params`` at
     ``two_tower``'s widths), from the same params over ``steps`` steps of
     seeded gradients (the tables' rows 80 % zero, as a lookup's are):
     params, mu and nu bit-equal after each step; then ms a step of both
@@ -4975,16 +4995,15 @@ def adamw_chunk_check(device, seed: int, two_tower=PAR_TWO_TOWER,
     return rec
 
 
-def shard_peak_bound_gib(rows: int, batch: int, dim: int, hidden: int,
-                         chunk: int) -> dict:
-    """What a sharded two-tower step may hold above its state (params,
-    grads, two moments), in GiB, worked out from the shapes: the genre
-    table on the card (``rows`` x 18 f32); two chunks of the optimizer's
-    scratch (``OptaxAdamW`` holds at most two chunk-sized temporaries at
-    once); the towers' activations, counted generously as 64 f32 tensors
-    of (batch, max(dim, hidden)); two (batch, batch) f32 matrices of the
-    loss. The gradients are summed in place (nothing at one data rank)."""
-    terms = {"genre_table": rows * 18 * 4, "optimizer_scratch": 2 * chunk * 4,
+def shard_peak_bound_gib(rows: int, batch: int, dim: int, hidden: int) -> dict:
+    """What a sharded two-tower step on the card may hold above its state
+    (params, grads, two moments), in GiB, worked out from the shapes: the
+    genre table on the card (``rows`` x 18 f32); the towers' activations,
+    counted generously as 64 f32 tensors of (batch, max(dim, hidden)); two
+    (batch, batch) f32 matrices of the loss. The optimizer adds nothing
+    (one launch of ``csrc/adamw.cu``, no temporary) and the gradients are
+    summed in place (nothing at one data rank)."""
+    terms = {"genre_table": rows * 18 * 4,
              "tower_activations": 64 * batch * max(dim, hidden) * 4,
              "loss_matrices": 2 * batch * batch * 4}
     out = {k: v / 2**30 for k, v in terms.items()}
@@ -4997,9 +5016,10 @@ def web100m_shard_rank(config: str, full: bool, row_cap: int, of_shards: int,
     """The rank of the web100m_shard phase (a fresh process of its own):
     ``scale_smoke.train_shard`` on a (1, 1) mesh laid out as one rank of
     ``of_shards``, the BPR wrappers' counts set to 0 just before and read
-    just after; then kernels 5 and 6 against their twins on the last
-    step's gathered towers, the (B, D) the step gave them."""
-    from recommendit_tpu_torch.ops import bpr
+    just after, with the optimizer kernel's (``adamw_launches``); then
+    kernels 5 and 6 against their twins on the last step's gathered
+    towers, the (B, D) the step gave them."""
+    from recommendit_tpu_torch.ops import adamw, bpr
     from recommendit_tpu_torch.parallel import create_mesh
     from recommendit_tpu_torch.scripts.scale_smoke import train_shard
 
@@ -5010,9 +5030,10 @@ def web100m_shard_rank(config: str, full: bool, row_cap: int, of_shards: int,
         seen["u"], seen["v"] = u.detach(), v.detach()
         return bpr.in_batch_bpr_loss(u, v)
 
-    _reset(bpr.LAUNCHES)
+    _reset(bpr.LAUNCHES, adamw.LAUNCHES)
     rec = train_shard(mesh, config, full, row_cap, of_shards, loss_fn=loss_fn, seed=seed)
     rec["launches"] = dict(bpr.LAUNCHES)
+    rec["adamw_launches"] = adamw.LAUNCHES["adamw_fused"]
     on_card = seen["u"].device.type == "cuda"
     rec["twins"] = bpr_pair_check(seen["u"], seen["v"], cuda_ms if on_card else None)
     return rec
@@ -5026,13 +5047,13 @@ def web100m_shard_phase(device, seed: int, card: str, run=SHARD_RUN, full: bool 
     widths over exactly the rows that rank holds (``run``: the
     configuration and the model axis). Checks: the step runs (an
     out-of-memory error fails the phase), every loss finite, kernels 5 and
-    6 once each a step, each within the BPR phase's tolerances of its twin
+    6 and the optimizer's kernel once each a step (none on the CPU), 5 and
+    6 within the BPR phase's tolerances of their twins
     at the step's (B, D); on the card, the peak allocated
     (``torch.cuda.max_memory_allocated``) above the state (params, grads,
     two moments) within :func:`shard_peak_bound_gib`."""
     from recommendit_tpu_torch.parallel.launch import spawn
     from recommendit_tpu_torch.scripts.scale_smoke import CONFIGS
-    from recommendit_tpu_torch.training.train_embeddings import ADAM_CHUNK
 
     config, of_shards = run
     on_card = torch.device(device).type == "cuda"
@@ -5042,7 +5063,7 @@ def web100m_shard_phase(device, seed: int, card: str, run=SHARD_RUN, full: bool 
     rec["seconds"] = time.perf_counter() - t0
     _, _, dim, hidden, _, _ = CONFIGS[config]
     rec["peak_bound_gib"] = shard_peak_bound_gib(rec["items"] + 1, rec["batch"], dim,
-                                                 hidden, ADAM_CHUNK)
+                                                 hidden)
     if on_card:
         rec["peak_over_state_gib"] = rec["peak_gib"] - rec["state_gib"]
     print(json.dumps({"web100m_shard": rec, "card": card}), flush=True)
@@ -5053,6 +5074,9 @@ def web100m_shard_phase(device, seed: int, card: str, run=SHARD_RUN, full: bool 
     if rec["launches"] != {"bpr_fwd": want, "bpr_bwd": want}:
         raise AssertionError(f"web100m_shard: launches {rec['launches']}, expected "
                              f"{want} of each BPR kernel ({steps} steps)")
+    if rec["adamw_launches"] != want:
+        raise AssertionError(f"web100m_shard: {rec['adamw_launches']} launches of the "
+                             f"optimizer's kernel, expected {want} ({steps} steps)")
     check_bpr_pair(rec["twins"])
     if on_card and not rec["peak_over_state_gib"] <= rec["peak_bound_gib"]["bound"]:
         raise AssertionError(
@@ -5065,6 +5089,198 @@ def web100m_shard_phase(device, seed: int, card: str, run=SHARD_RUN, full: bool 
               f"{rec['peak_gib']:.3f} GiB ({rec['peak_over_state_gib']:.3f} over, bound "
               f"{rec['peak_bound_gib']['bound']:.3f}); {rec['step_ms']:.1f} ms a step; "
               f"BPR launches {rec['launches']} in {steps} steps", flush=True)
+    return rec
+
+
+def web100m_shard_shapes(run=SHARD_RUN) -> dict:
+    """The shape of each param of one rank of ``run`` (configuration,
+    model shards), in ``scale_smoke.train_shard``'s order: the towers, the
+    item bias at every row, the rank's user and item table shards."""
+    from recommendit_tpu_torch.models.two_tower import init_params
+    from recommendit_tpu_torch.scripts.scale_smoke import CONFIGS, padded_rows
+
+    config, of_shards = run
+    n_users, n_items, dim, hidden, _, _ = CONFIGS[config]
+    users, items = padded_rows(n_users, of_shards), padded_rows(n_items, of_shards)
+    towers = init_params(torch.Generator().manual_seed(0), 1, 1, dim, hidden, device="cpu")
+    shapes = {k: tuple(v.shape) for k, v in towers.items()
+              if not k.endswith("_embed") and k != "item_bias"}
+    shapes["item_bias"] = (items + 1,)
+    shapes["user_embed"] = ((users + 1) // of_shards, dim)
+    shapes["item_embed"] = ((items + 1) // of_shards, dim)
+    return shapes
+
+
+def _launch_groups(opt, big: int = 1 << 31) -> list:
+    """The ``chunk_groups`` groups of ``opt`` that hold the last element of
+    a param, or element ``big`` (2^31: past 32-bit offsets) of one."""
+    out = []
+    for gi, group in enumerate(opt.groups):
+        for i, a, b, _ in group:
+            p = opt.params[i]
+            row = math.prod(p.shape[1:])
+            if b * row == p.numel() or a * row <= big < b * row:
+                out.append(gi)
+                break
+    return out
+
+
+def adamw_fused_rank(shapes: dict, seed: int, reps: int, plain_reps: int) -> dict:
+    """The rank of the adamw_fused phase (a fresh process of its own): an
+    ``OptaxAdamW`` over params of ``shapes`` (weight decay 1e-4 on every
+    param, as the sharded step's) with random params and gradients drawn on
+    the device, the clip's factors from ``sharded_global_norm`` (the tables
+    as shards) at 1.0. Bit-equality of a step, twice: group by group
+    (``chunk_groups``), the foreach update (``clip_`` + ``_adamw_update``)
+    of a copy of the group's params and moments against the kernel's
+    (``adamw_fused_`` on the group's row ranges); then ``OptaxAdamW.step``
+    as the sharded step makes it, one launch over the whole tensors
+    (launches counted), against the foreach update of copies of the groups
+    of :func:`_launch_groups` (each param's last rows, and where a param
+    passes 2^31 elements the rows around element 2^31). On the CPU the
+    step is the foreach path on both sides. ``max_abs_err``: the largest
+    difference of any compared element. Then, by CUDA events, ms a step of
+    ``OptaxAdamW.step`` (the kernel), of its foreach path
+    ``_step_foreach``, of the norm with the factors, and of PyTorch's own
+    fused AdamW (``torch._fused_adamw_``, no clip) over the foreach path's
+    row ranges (``library_ms``)."""
+    import torch.distributed as dist
+
+    from recommendit_tpu_torch.ops import adamw
+    from recommendit_tpu_torch.parallel.mesh import sharded_global_norm
+    from recommendit_tpu_torch.training.train_embeddings import (
+        ADAM_B1,
+        ADAM_B2,
+        ADAM_EPS,
+        OptaxAdamW,
+        _adamw_update,
+        clip_,
+        clip_factors,
+    )
+
+    on_card = dist.get_backend() == "nccl"
+    dev = torch.device("cuda", torch.cuda.current_device()) if on_card else torch.device("cpu")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    names = list(shapes)
+    params = [0.1 * torch.randn(shapes[k], generator=gen, device=dev) for k in names]
+    grads = [torch.randn(shapes[k], generator=gen, device=dev) for k in names]
+    opt = OptaxAdamW(params, [True] * len(names), 1e-4)
+    sharded = [k.endswith("_embed") for k in names]
+
+    def factors():
+        return clip_factors(sharded_global_norm(grads, sharded, dist.group.WORLD), 1.0)
+
+    def views(group):
+        return [[t[i] if whole else t[i][a:b] for i, a, b, whole in group]
+                for t in (opt.params, grads, opt.mu, opt.nu)]
+
+    def compare(got, want) -> tuple:
+        """(bit-equal, largest difference) of p, m, v against ``want``'s."""
+        pairs = [(x, y) for k in (0, 2, 3) for x, y in zip(got[k], want[k])]
+        same = all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in pairs)
+        err = max(float((x - y).abs().max()) for x, y in pairs if x.numel())
+        return same, err
+
+    clip = factors()
+    s = opt._scalars(1e-3)
+    equal, errs = [], []
+    for group, decayed in zip(opt.groups, opt._group_decayed):
+        got = views(group)
+        want = [[x.clone() for x in xs] for xs in got]
+        clip_(want[1], clip)
+        _adamw_update(*want, decayed, opt.weight_decay, s)
+        p, g, m, v = got
+        if on_card:
+            adamw.adamw_fused_(p, g, m, v, [True] * len(p), s, opt.weight_decay,
+                               ADAM_EPS, clip)
+        else:
+            g = [x.clone() for x in g]
+            clip_(g, clip)
+            _adamw_update(p, g, m, v, decayed, opt.weight_decay, s)
+        same, err = compare(got, want)
+        equal.append(same)
+        errs.append(err)
+        del want
+    # the step as the sharded step makes it, held against copies of a few
+    # groups updated by the foreach path
+    picked = _launch_groups(opt)
+    wants = [[[x.clone() for x in xs] for xs in views(opt.groups[gi])] for gi in picked]
+    s = opt._scalars(1e-3)
+    opt.count -= 1                       # the step below advances it again
+    before = adamw.LAUNCHES["adamw_fused"]
+    opt.step(grads, 1e-3, clip=clip)
+    launches = adamw.LAUNCHES["adamw_fused"] - before
+    launch_equal = []
+    for gi, want in zip(picked, wants):
+        clip_(want[1], clip)
+        _adamw_update(*want, opt._group_decayed[gi], opt.weight_decay, s)
+        same, err = compare(views(opt.groups[gi]), want)
+        launch_equal.append(same)
+        errs.append(err)
+    del wants
+    rec = {"shapes": {k: list(v) for k, v in shapes.items()},
+           "numel": sum(p.numel() for p in params), "groups": len(opt.groups),
+           "bit_equal_groups": sum(equal), "launch_groups": picked,
+           "launch_bit_equal_groups": sum(launch_equal),
+           "bit_equal": all(equal) and all(launch_equal), "max_abs_err": max(errs),
+           "route": "cuda" if adamw.on_card({"param": params, "gradient": grads,
+                                             "clip factor": clip}) else "foreach",
+           "launches": launches}
+    if on_card:
+        rec["kernel_ms"] = cuda_ms(lambda: opt.step(grads, 1e-3, clip=clip), reps)
+        # the foreach path clips the gradients in place: from here they shrink
+        rec["foreach_ms"] = cuda_ms(lambda: opt._step_foreach(grads, 1e-3, clip), plain_reps)
+        rec["norm_ms"] = cuda_ms(factors, reps)
+        lib = [[], [], [], []]
+        for group in opt.groups:
+            for xs, ys in zip(lib, views(group)):
+                xs.extend(ys)
+        steps = [torch.ones((), device=dev) for _ in lib[0]]
+        rec["library_ms"] = cuda_ms(lambda: torch._fused_adamw_(
+            *lib, [], steps, lr=1e-3, beta1=ADAM_B1, beta2=ADAM_B2,
+            weight_decay=opt.weight_decay, eps=ADAM_EPS, amsgrad=False,
+            maximize=False), reps)
+        rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return rec
+
+
+def adamw_fused_phase(device, seed: int, card: str, shapes=None, reps: int = ADAMW_REPS,
+                      plain_reps: int = ADAMW_PLAIN_REPS,
+                      timeout: float = SHARD_TIMEOUT_S) -> dict:
+    """The optimizer's one-pass kernel (``csrc/adamw.cu``) at one web100m
+    rank's exact params (``web100m_shard_shapes``; ``shapes`` to override)
+    in a fresh process (one NCCL rank, the allocator empty):
+    :func:`adamw_fused_rank`. Checks: every group bit-equal to the foreach
+    path, by row ranges and after the step's one launch over the whole
+    tensors; on the card one launch a step and the kernel's time at or
+    above its bound, 28 bytes an element (p, g, m, v read; p, m, v
+    written)."""
+    from recommendit_tpu_torch.parallel.launch import spawn
+
+    shapes = web100m_shard_shapes() if shapes is None else shapes
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    rec = spawn(adamw_fused_rank, 1, (shapes, seed, reps, plain_reps),
+                device=torch.device(device).type, timeout=timeout)[0]
+    rec["seconds"] = time.perf_counter() - t0
+    rec["bound_ms"], rec["bound_by"] = bound(28 * rec["numel"])
+    print(json.dumps({"adamw_fused": rec, "card": card}), flush=True)
+    if not rec["bit_equal"]:
+        picked = len(rec["launch_groups"])
+        raise AssertionError(
+            f"adamw_fused: {rec['groups'] - rec['bit_equal_groups']} of {rec['groups']} "
+            f"groups by row ranges and {picked - rec['launch_bit_equal_groups']} of "
+            f"{picked} after the whole launch differ from the foreach path (max abs "
+            f"err {rec['max_abs_err']})")
+    if rec["launches"] != (1 if on_card else 0):
+        raise AssertionError(f"adamw_fused: {rec['launches']} launches in a step")
+    if on_card:
+        print(f"adamw_fused ({card}): {rec['numel']:,} elements, {rec['kernel_ms']:.3f} ms "
+              f"a step ({100 * rec['bound_ms'] / rec['kernel_ms']:.1f} % of the bound "
+              f"{rec['bound_ms']:.3f}), foreach {rec['foreach_ms']:.3f} ms, torch's fused "
+              f"AdamW {rec['library_ms']:.3f} ms, norm {rec['norm_ms']:.3f} ms; every group "
+              f"bit-equal, {len(rec['launch_groups'])} of them after the whole launch",
+              flush=True)
     return rec
 
 
@@ -5203,6 +5419,47 @@ class _HostTrainings:
 
     def __exit__(self, *exc):
         self.cls.train = self.train
+
+
+class _AdamWSteps:
+    """Every ``OptaxAdamW.step`` call while installed, by the device of its
+    params (``steps``: {"cuda": n, "cpu": n}), and the optimizer kernel's
+    launches, its wrapper's count set to 0 on entry (``launches``). On
+    leaving without an error it checks one launch a step on the card and
+    none on the CPU, and at least one step on the card where ``on_card``:
+    a trainer whose step left the kernel would fail here."""
+
+    def __init__(self, name: str, on_card: bool):
+        self.name, self.on_card = name, on_card
+
+    def __enter__(self):
+        from recommendit_tpu_torch.ops import adamw
+        from recommendit_tpu_torch.training.train_embeddings import OptaxAdamW
+
+        self.counts, self.cls, self.step = adamw.LAUNCHES, OptaxAdamW, OptaxAdamW.step
+        self.steps = {"cuda": 0, "cpu": 0}
+        outer = self
+
+        def step(opt, *a, **k):
+            kind = opt.params[0].device.type if opt.params else "cpu"
+            outer.steps[kind] = outer.steps.get(kind, 0) + 1
+            return outer.step(opt, *a, **k)
+
+        _reset(self.counts)
+        self.cls.step = step
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        self.cls.step = self.step
+        self.launches = self.counts["adamw_fused"]
+        if exc_type is None and (self.launches != self.steps["cuda"]
+                                 or (self.on_card and not self.steps["cuda"])):
+            raise AssertionError(f"{self.name}: {self.launches} launches of the optimizer's "
+                                 f"kernel in {self.steps} OptaxAdamW steps by device; "
+                                 f"expected one a step on the card")
+
+    def record(self) -> dict:
+        return {"steps": self.steps, "launches": self.launches}
 
 
 class _WindowLaunches:
@@ -5750,6 +6007,8 @@ def main(argv=None) -> int:
     bpr_checks = bpr_phase(device, args.seed, card)
     phase_start("web100m_shard", t_start)
     shard = web100m_shard_phase(device, args.seed, card)
+    phase_start("adamw_fused", t_start)
+    adamw_rec = adamw_fused_phase(device, args.seed, card)
     stages = ctypes.c_int(0)
     d_dev = -(-(DIM + 1) // 8) * 8           # the bias column, padded to 8
     smem = _build.load_library("window_mips").window_mips_bf16_smem(
@@ -5833,9 +6092,13 @@ def main(argv=None) -> int:
     print(json.dumps({"capacity": capacity, "card": card}), flush=True)
     torch.cuda.empty_cache()
 
+    # the optimizer's kernel once a step of every trainer the phases below run
+    adamw_steps = {}
     phase_start("host_table", t_start)
     t0 = time.perf_counter()
-    host = host_table_phase(device, args.seed, workdir, card)
+    with _AdamWSteps("host_table", True) as counted:
+        host = host_table_phase(device, args.seed, workdir, card)
+    adamw_steps["host_table"] = counted.record()
     print(json.dumps({"host_table_s": time.perf_counter() - t0}), flush=True)
     torch.cuda.empty_cache()
     phase_start("train", t_start)
@@ -5845,10 +6108,14 @@ def main(argv=None) -> int:
         "ratings": len(data), "train_view": len(view), "users": data.n_users,
         "items": data.n_items, "seconds": time.perf_counter() - t0}}),
         flush=True)
-    model, train = train_phase(view, device, args.seed, workdir)
+    with _AdamWSteps("train", True) as counted:
+        model, train = train_phase(view, device, args.seed, workdir)
+    adamw_steps["train"] = counted.record()
     print(json.dumps({"train": train, "card": card}), flush=True)
     phase_start("train_profile", t_start)
-    train_profile_phase(view, device, args.seed)
+    with _AdamWSteps("train_profile", True) as counted:
+        train_profile_phase(view, device, args.seed)
+    adamw_steps["train_profile"] = counted.record()
     phase_start("index", t_start)
     index = index_phase(model, data, view, device, args.seed, workdir)
     print(json.dumps({"index": index}), flush=True)
@@ -5856,7 +6123,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_start("pipeline", t_start)
     t0 = time.perf_counter()
-    pipeline = pipeline_phase(data, device, args.seed, workdir, card)
+    with _AdamWSteps("pipeline", True) as counted:      # the towers and the ranker
+        pipeline = pipeline_phase(data, device, args.seed, workdir, card)
+    adamw_steps["pipeline"] = counted.record()
     print(json.dumps({"pipeline_s": time.perf_counter() - t0,
                       "pipeline_bpr_launches": pipeline["bpr_launches"],
                       "pipeline_tower_steps": pipeline["tower_steps"]}),
@@ -5868,18 +6137,25 @@ def main(argv=None) -> int:
                       "gbdt_bpr_launches": gbdt_pipe["bpr_launches"]}), flush=True)
     phase_start("host_pipeline", t_start)
     t0 = time.perf_counter()
-    host_pipe = host_pipeline_phase(data, device, args.seed, workdir, card)
+    with _AdamWSteps("host_pipeline", True) as counted:
+        host_pipe = host_pipeline_phase(data, device, args.seed, workdir, card)
+    adamw_steps["host_pipeline"] = counted.record()
     print(json.dumps({"host_pipeline_s": time.perf_counter() - t0,
                       "host_pipeline_bpr_launches": host_pipe["launches"]}), flush=True)
     del data, view
     torch.cuda.empty_cache()
     phase_start("ctr", t_start)
     t0 = time.perf_counter()
-    ctr_phase(device, args.seed, card)
+    with _AdamWSteps("ctr", True) as counted:
+        ctr_phase(device, args.seed, card)
+    adamw_steps["ctr"] = counted.record()
     print(json.dumps({"ctr_s": time.perf_counter() - t0}), flush=True)
     torch.cuda.empty_cache()
     phase_start("parallel", t_start)
-    par = parallel_phase(paths, device, args.seed, workdir, card)
+    with _AdamWSteps("parallel", True) as counted:
+        par = parallel_phase(paths, device, args.seed, workdir, card)
+    adamw_steps["parallel"] = counted.record()
+    print(json.dumps({"adamw_steps": adamw_steps, "card": card}), flush=True)
     print(json.dumps({"parallel_s": par["seconds"]}), flush=True)
     torch.cuda.empty_cache()
     phase_start("quality", t_start)
@@ -6007,6 +6283,22 @@ def main(argv=None) -> int:
         f"bound_ms_{shape_shard}": b_shard["bwd"][0],
         # the scores, then du = G V and dv = G^T U
         "bound": bpr_bounds(b, d)["bwd"], "library_ms": None,
+    }, {
+        "name": "adamw_fused", "source": ADAMW_SOURCE, "replaces": ADAMW_REPLACES,
+        # one a step of the sharded step (web100m_shard) and of the phase's
+        "launches": adamw_rec["launches"],
+        "web100m_shard_launches": shard["adamw_launches"],
+        # each trainer phase's launches, one a step of its OptaxAdamW
+        **{f"{name}_launches": r["launches"] for name, r in adamw_steps.items()},
+        "max_abs_err": adamw_rec["max_abs_err"],
+        "numel": adamw_rec["numel"], "ms": adamw_rec["kernel_ms"],
+        "plain_ms": adamw_rec["foreach_ms"],
+        # the clip's norm, beside it: the gradients read once
+        "norm_ms": adamw_rec["norm_ms"], "norm_bound_ms": bound(4 * adamw_rec["numel"])[0],
+        # p, g, m, v read and p, m, v written once: 28 bytes an element
+        # torch._fused_adamw_ over the foreach path's row ranges, without the clip
+        "bound": (adamw_rec["bound_ms"], adamw_rec["bound_by"]),
+        "library_ms": adamw_rec["library_ms"],
     }, {
         "name": "quantize_i8", "source": QUANT_SOURCE, "replaces": QUANT_REPLACES,
         "launches": quant["launches"]["quantize_i8"],

@@ -354,8 +354,9 @@ class LambdaRankScorer:
         epoch."""
         from recommendit_tpu_torch.training.train_embeddings import (
             OptaxAdamW,
-            clip_by_global_norm_,
+            clip_factors,
             cosine_lr,
+            global_norm,
         )
 
         dev = self.device
@@ -405,8 +406,8 @@ class LambdaRankScorer:
             for s in range(steps_per_epoch):
                 loss = batched_group_loss(params, xb[s], gb[s], mb[s], self.loss_type)
                 grads = list(torch.autograd.grad(loss, plist))
-                clip_by_global_norm_(grads, 1.0)
-                opt.step(grads, cosine_lr(self.learning_rate, count, decay_steps))
+                opt.step(grads, cosine_lr(self.learning_rate, count, decay_steps),
+                         clip=clip_factors(global_norm(grads), 1.0))
                 losses.append(loss.detach())
                 count += 1
             loss = float(torch.stack(losses).mean())

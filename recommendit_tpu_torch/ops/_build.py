@@ -5,12 +5,14 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``ctypes``. The file name carries a hash of the source, of every
 ``csrc/*.cuh`` header (a source may include any of them) and of the flags,
 so an edited kernel or header is rebuilt and a stale library is never
-loaded. Nothing is compiled when a module is imported: CPU-only installs
-never reach this code.
+loaded; processes that start together build each library once, under a
+file lock. Nothing is compiled when a module is imported: CPU-only
+installs never reach this code.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -73,6 +75,24 @@ def source_digest(name: str, csrc: Path = CSRC_DIR) -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(src: Path, out: Path) -> None:
+    """nvcc ``src`` into ``out``, with ptxas's report beside it. It
+    compiles to a private name, then renames: a concurrent process never
+    loads a half-written library."""
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}{proc.stderr}")
+        out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The compiled ``csrc/<name>.cu`` as a ``ctypes.CDLL``, built on the
     first call in this process if no library for this source exists yet.
@@ -88,28 +108,17 @@ def load_library(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = CSRC_DIR / f"{name}.cu"
-        out = BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
+        out = BUILD_DIR / f"lib{name}-{source_digest(name, CSRC_DIR)}.so"
         t0 = time.perf_counter()
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            # compile to a private name, then rename: a concurrent process
-            # never loads a half-written library
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                    capture_output=True, text=True,
-                )
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed for {src.name}:\n{proc.stdout}{proc.stderr}"
-                    )
-                out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
-                os.replace(tmp, out)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
+            # one build of a library across processes (the ranks of a job
+            # start together): the first to take the file lock builds, the
+            # others wait for it and load its library
+            with open(BUILD_DIR / f"lib{name}.lock", "w") as lock_file:
+                fcntl.flock(lock_file, fcntl.LOCK_EX)
+                if not out.exists():
+                    _compile(src, out)
         build_seconds[name] = time.perf_counter() - t0
         report = out.with_suffix(".ptxas.txt")
         ptxas_logs[name] = report.read_text() if report.exists() else ""

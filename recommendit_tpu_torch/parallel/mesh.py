@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from recommendit_tpu_torch.training.train_embeddings import OptaxAdamW
+from recommendit_tpu_torch.training.train_embeddings import OptaxAdamW, clip_, clip_factors
 from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from recommendit_tpu_torch.utils.profiling import span
 
@@ -240,14 +240,21 @@ class ShardedOptState:
 
     @torch.no_grad()
     def apply_(self, grads: List[torch.Tensor]) -> None:
-        """Clip (over the global norm of every shard) and step in place."""
+        """Clip (over the global norm of every shard) and step in place:
+        the norm and the clip's factors first (``train.clip``), then the
+        step with the clip's scale applied inside it (``train.adamw``; on
+        the card one launch of ``csrc/adamw.cu``, which leaves the
+        gradients as they were; elsewhere they are left clipped). Nothing
+        reads the gradients afterwards."""
         with span("train.optim"):
+            clip = None
             if self.tx.clip_norm is not None:
                 with span("train.clip"):
-                    clip_by_global_norm_sharded_(grads, self.sharded,
-                                                 self.tx.clip_norm, self.model_group)
+                    clip = clip_factors(
+                        sharded_global_norm(grads, self.sharded, self.model_group),
+                        self.tx.clip_norm)
             with span("train.adamw"):
-                self.adam.step(grads, self.tx.lr)
+                self.adam.step(grads, self.tx.lr, clip=clip)
 
     def state_dict(self) -> dict:
         return {"mu": dict(zip(self.names, self.adam.mu)),
@@ -262,13 +269,13 @@ class ShardedOptState:
         self.adam.count = int(state["count"])
 
 
-def clip_by_global_norm_sharded_(grads: List[torch.Tensor], sharded: List[bool],
-                                 max_norm: float, model_group) -> None:
-    """``optax.clip_by_global_norm`` over params of which some are row
-    shards, in place. The squared norm counts each replicated grad once and
-    the shards' squares summed over the ``model`` group, so every rank
-    clips by the norm of the whole (global) gradient. Summing replicated
-    grads over the group would count them once a model rank."""
+def sharded_global_norm(grads: List[torch.Tensor], sharded: List[bool],
+                        model_group) -> torch.Tensor:
+    """The global norm of gradients of which some are row shards, a device
+    scalar: the squared norm counts each replicated grad once and the
+    shards' squares summed over the ``model`` group, so every rank reads
+    the norm of the whole (global) gradient. Summing replicated grads over
+    the group would count them once a model rank."""
     def sum_sq(gs):
         if not gs:
             return grads[0].new_zeros(())
@@ -276,11 +283,14 @@ def clip_by_global_norm_sharded_(grads: List[torch.Tensor], sharded: List[bool],
 
     shard_sq = sum_sq([g for g, s in zip(grads, sharded) if s])
     dist.all_reduce(shard_sq, group=model_group)
-    norm = torch.sqrt(sum_sq([g for g, s in zip(grads, sharded) if not s]) + shard_sq)
-    keep = norm < max_norm
-    one = torch.ones_like(norm)
-    torch._foreach_div_(grads, torch.where(keep, one, norm))
-    torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
+    return torch.sqrt(sum_sq([g for g, s in zip(grads, sharded) if not s]) + shard_sq)
+
+
+def clip_by_global_norm_sharded_(grads: List[torch.Tensor], sharded: List[bool],
+                                 max_norm: float, model_group) -> None:
+    """``optax.clip_by_global_norm`` over params of which some are row
+    shards, in place, by :func:`sharded_global_norm`."""
+    clip_(grads, clip_factors(sharded_global_norm(grads, sharded, model_group), max_norm))
 
 
 def opt_shardings_like(params: dict, opt_state, mesh,

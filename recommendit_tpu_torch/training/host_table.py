@@ -37,7 +37,8 @@ import torch
 
 from recommendit_tpu_torch.training.train_embeddings import (
     OptaxAdamW,
-    clip_by_global_norm_,
+    clip_factors,
+    global_norm,
 )
 from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -284,7 +285,7 @@ def prefetch_to_device(source: Iterable, depth: int = 2, device=DEFAULT_DEVICE):
 class DenseAdamW:
     """The dense half's optimizer, ``optax.chain(clip_by_global_norm(
     max_norm), adamw(schedule, weight_decay=…, mask=…))``, on a dict of f32
-    tensors updated in place: the port's ``clip_by_global_norm_`` and
+    tensors updated in place: the port's ``clip_factors`` and
     :class:`~recommendit_tpu_torch.training.train_embeddings.OptaxAdamW`
     (optax's order of operations, C.12). ``schedule`` maps the update count
     (0, 1, …) to the learning rate; ``decay`` maps a param name to whether
@@ -305,8 +306,8 @@ class DenseAdamW:
     def update(self, grads: Dict[str, torch.Tensor], state: OptaxAdamW,
                dense: Dict[str, torch.Tensor]) -> None:
         g = [grads[k] for k in dense]
-        clip_by_global_norm_(g, self.max_norm)
-        state.step(g, self.schedule(state.count))
+        state.step(g, self.schedule(state.count),
+                   clip=clip_factors(global_norm(g), self.max_norm))
 
 
 def _leaves(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -21,7 +21,7 @@ Two table modes (``CTR_TABLE_UPDATE``), as in JAX:
 The step follows JAX's: the cosine schedule over ``epochs × n_batches``
 (``train_embeddings.cosine_lr``), ``optax.clip_by_global_norm`` then
 ``optax.adamw`` with weight decay on every param it updates
-(``clip_by_global_norm_``, ``OptaxAdamW``), a zero gradient for a param the
+(``clip_factors`` handed to ``OptaxAdamW.step``), a zero gradient for a param the
 loss does not reach (the towers in plain mode), the batches from the same
 numpy generator (permutation, remainder dropped). JAX scans an epoch in one
 jitted call; here a Python loop keeps the per-step losses on the device and
@@ -56,8 +56,9 @@ from recommendit_tpu_torch.ops.sparse_embed import (
 from recommendit_tpu_torch.ops.topk import fast_topk, full_f32_matmul
 from recommendit_tpu_torch.training.train_embeddings import (
     OptaxAdamW,
-    clip_by_global_norm_,
+    clip_factors,
     cosine_lr,
+    global_norm,
 )
 from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from recommendit_tpu_torch.utils.profiling import span
@@ -209,9 +210,10 @@ class CTRTrainer:
                      for p, g in zip(wrt, grads)]
             with span("ctr::adamw"):
                 dense_grads = grads[:len(state.train)]
-                clip_by_global_norm_(dense_grads, cfg.GRAD_CLIP_NORM)
                 state.opt.step(dense_grads, cosine_lr(cfg.CTR_LEARNING_RATE,
-                                                      state.opt.count, decay_steps))
+                                                      state.opt.count, decay_steps),
+                               clip=clip_factors(global_norm(dense_grads),
+                                                 cfg.GRAD_CLIP_NORM))
             if state.sparse:
                 with span("ctr::sparse_update"):
                     sparse_table_update(

@@ -53,7 +53,7 @@ import logging
 import math
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +68,7 @@ from recommendit_tpu_torch.models.two_tower import (
     user_tower,
 )
 from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from recommendit_tpu_torch.ops.adamw import adamw_fused_, on_card
 from recommendit_tpu_torch.ops.bpr import (
     in_batch_bpr_loss,
     in_batch_softmax_loss,
@@ -115,15 +116,32 @@ def cosine_lr(lr: float, count: int, decay_steps: int) -> float:
     return float(f32(lr) * decay)
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
-    """``optax.clip_by_global_norm`` in place: g ← g / norm · max_norm when
-    norm >= max_norm, else g unchanged. The choice is made on the device,
-    so the step never waits for the norm."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm of all of ``grads`` together, a device scalar."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def clip_factors(norm: torch.Tensor, max_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``optax.clip_by_global_norm``'s scale for the global norm ``norm``
+    as two device scalars (d, c), applied as g ← (g / d) · c, two roundings
+    as optax's ``g / norm * max_norm``: (norm, max_norm) when norm >=
+    max_norm, else (1, 1). The choice is made on the device, so the step
+    never waits for the norm."""
     keep = norm < max_norm
     one = torch.ones_like(norm)
-    torch._foreach_div_(grads, torch.where(keep, one, norm))
-    torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
+    return torch.where(keep, one, norm), torch.where(keep, one, one * max_norm)
+
+
+def clip_(grads: List[torch.Tensor], clip: Tuple[torch.Tensor, torch.Tensor]) -> None:
+    """g ← (g / d) · c in place for (d, c) = ``clip`` (:func:`clip_factors`)."""
+    torch._foreach_div_(grads, clip[0])
+    torch._foreach_mul_(grads, clip[1])
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+    """``optax.clip_by_global_norm`` in place: g ← g / norm · max_norm when
+    norm >= max_norm, else g unchanged."""
+    clip_(grads, clip_factors(global_norm(grads), max_norm))
 
 
 # optax.adamw's defaults, which the JAX trainer uses
@@ -201,23 +219,33 @@ class OptaxAdamW:
     * ``apply_updates``: p ← p + u.
 
     Every scalar is an f32 value computed on the host from the step count
-    (numpy's f32 power equals XLA's for the bias corrections), and every
-    tensor operation is a ``torch._foreach_*`` call, so a step never waits
-    for the device.
+    (numpy's f32 power equals XLA's for the bias corrections), so a step
+    never waits for the device. ``step(grads, lr, clip=(d, c))`` also
+    applies ``optax.clip_by_global_norm``'s scale, g ← (g / d) · c, with
+    the device scalars of :func:`clip_factors`.
 
-    The step runs in place over row ranges of the params, their gradients
-    and moments, packed into groups of at most ``chunk`` elements
-    (:func:`chunk_groups`), one group after another: its temporaries are a
-    group's size, so a step's peak is params + grads + two moments plus
+    The step takes one of two paths, by device, with bit-equal results.
+    On a CUDA device one launch of ``csrc/adamw.cu``
+    (``ops/adamw.adamw_fused_``) updates each element in one pass, with the
+    clip's scale in registers; it allocates nothing and leaves the
+    gradients as they were. Every param, gradient, moment and clip factor
+    must then be a contiguous f32 tensor on that device, or the step raises
+    ValueError (``ops/adamw.on_card``). On the CPU every tensor operation is
+    a ``torch._foreach_*`` call over row ranges of the params, their
+    gradients and moments, packed into groups of at most ``chunk``
+    elements (:func:`chunk_groups`), one group after another, each group's
+    gradients clipped in place just before its update: its temporaries are
+    a group's size, so a step's peak is params + grads + two moments plus
     two chunks, as XLA's in-place (donated) update of JAX's step. The
-    operations are elementwise, so the result is bit-equal to
-    :meth:`_step_unchunked` (the one-pass step, with full-size
+    operations are elementwise, so both paths are bit-equal to
+    :meth:`_step_unchunked` (the one-pass foreach step, with full-size
     temporaries). Gradients must have their params' shapes; the moments
     are updated in place (restore them with ``copy_``)."""
 
     def __init__(self, params: List[torch.Tensor], decay: List[bool],
                  weight_decay: float, chunk: int = ADAM_CHUNK):
         self.params = list(params)
+        self.decay = [bool(d) for d in decay]
         self.decayed = [i for i, d in enumerate(decay) if d]
         self.weight_decay = weight_decay
         self.mu = [torch.zeros_like(p) for p in self.params]
@@ -238,20 +266,40 @@ class OptaxAdamW:
                 "-lr": -float(f32(lr))}
 
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor], lr: float) -> None:
+    def step(self, grads: List[torch.Tensor], lr: float,
+             clip: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> None:
+        if on_card({"param": self.params, "gradient": grads, "mu": self.mu,
+                    "nu": self.nu, "clip factor": clip or ()}):
+            adamw_fused_(self.params, grads, self.mu, self.nu, self.decay,
+                         self._scalars(lr), self.weight_decay, ADAM_EPS, clip)
+        else:
+            self._step_foreach(grads, lr, clip)
+
+    @torch.no_grad()
+    def _step_foreach(self, grads: List[torch.Tensor], lr: float,
+                      clip: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> None:
+        """The step's foreach path, by chunk groups (the class docstring);
+        ``chip_smoke.py`` times it beside the kernel on the card."""
         s = self._scalars(lr)
         for group, decayed in zip(self.groups, self._group_decayed):
             p, g, m, v = ([t[i] if whole else t[i][a:b] for i, a, b, whole in group]
                           for t in (self.params, grads, self.mu, self.nu))
+            if clip is not None:
+                clip_(g, clip)
             _adamw_update(p, g, m, v, decayed, self.weight_decay, s)
 
     @torch.no_grad()
-    def _step_unchunked(self, grads: List[torch.Tensor], lr: float) -> None:
-        """The step as it was before it ran by chunks: one pass over the
-        whole lists, every temporary a full-size copy of the params (the
-        squares, the denominators and the update alive together). The
-        reference :meth:`step` equals bit for bit; only the tests and
-        ``chip_smoke.py`` call it."""
+    def _step_unchunked(self, grads: List[torch.Tensor], lr: float,
+                        clip: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> None:
+        """The step as it was before it ran by chunks: the gradients
+        clipped in place, then one pass over the whole lists, every
+        temporary a full-size copy of the params (the squares, the
+        denominators and the update alive together). The reference both
+        paths of :meth:`step` equal bit for bit, on the CPU and on the card;
+        only the tests, ``chip_smoke.py`` and ``tools/shard_memory.py`` call
+        it."""
+        if clip is not None:
+            clip_(grads, clip)
         s = self._scalars(lr)
         torch._foreach_mul_(self.mu, s["b1"])
         torch._foreach_add_(self.mu, torch._foreach_mul(grads, s["1-b1"]))
@@ -450,8 +498,8 @@ class EmbeddingTrainer:
                 loss.backward()
                 grads = [torch.zeros_like(p) if p.grad is None else p.grad
                          for p in plist]
-                clip_by_global_norm_(grads, cfg.GRAD_CLIP_NORM)
-                opt.step(grads, cosine_lr(cfg.LEARNING_RATE, count, decay_steps))
+                opt.step(grads, cosine_lr(cfg.LEARNING_RATE, count, decay_steps),
+                         clip=clip_factors(global_norm(grads), cfg.GRAD_CLIP_NORM))
                 losses.append(loss.detach())
                 count += 1
             loss = float(torch.stack(losses).mean()) if losses else float("nan")

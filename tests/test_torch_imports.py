@@ -44,6 +44,7 @@ MODULES = [
     "recommendit_tpu_torch.scripts.serve_bench",
     "recommendit_tpu_torch.scripts.load_test",
     "recommendit_tpu_torch.ops.bpr",
+    "recommendit_tpu_torch.ops.adamw",
     "recommendit_tpu_torch.data",
     "recommendit_tpu_torch.data.movielens",
     "recommendit_tpu_torch.data.synthetic",
@@ -261,6 +262,56 @@ print("shard", rec["users"], rec["user_rows"], rec["item_rows"], rec["of_shards"
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "shard 1003 251 251 4 {'data': 1, 'model': 1} 6 (512, 64)" in proc.stdout
+
+
+def test_adamw_fused_phase_runs_without_jax_or_pandas():
+    """chip_smoke's adamw_fused phase in a fresh gloo process at small
+    shapes (a table, an odd-length bias, a tower), all three blocked: both
+    sides are the foreach path here (no launch), the group bit-equal by row
+    ranges and after the whole step; the web100m rank's exact param
+    shapes, 3.53 G elements; the groups the whole step is checked on; and
+    ``_AdamWSteps``, which counts the trainers' steps against the kernel's
+    launches and puts ``OptaxAdamW.step`` back."""
+    code = """
+import torch
+import chip_smoke
+torch.set_num_threads(1)
+shapes = {"w": (16, 32), "item_bias": (1001,), "user_embed": (3000, 16)}
+rec = chip_smoke.adamw_fused_phase("cpu", 0, "cpu", shapes=shapes)
+assert rec["bit_equal"] and rec["groups"] == 1 and rec["launches"] == 0, rec
+assert rec["launch_groups"] == [0] and rec["launch_bit_equal_groups"] == 1, rec
+assert rec["max_abs_err"] == 0.0, rec
+assert rec["route"] == "foreach" and "kernel_ms" not in rec, rec
+from recommendit_tpu_torch.training.train_embeddings import OptaxAdamW
+# groups of 100 elements: the 10 x 7 table's last rows, the 250-long
+# vector's element 160 and its end, the scalar
+opt = OptaxAdamW([torch.ones(10, 7), torch.ones(250), torch.ones(())], [True] * 3, 0.1,
+                 chunk=100)
+assert opt.groups == [[(0, 0, 10, True), (1, 0, 30, False)], [(1, 30, 130, False)],
+                      [(1, 130, 230, False)], [(1, 230, 250, False), (2, 0, 1, True)]]
+assert chip_smoke._launch_groups(opt, big=160) == [0, 2, 3], chip_smoke._launch_groups(opt, 160)
+# the trainers' steps counted against the kernel's launches: none on the CPU
+with chip_smoke._AdamWSteps("cpu", False) as counted:
+    opt.step([torch.ones(10, 7), torch.ones(250), torch.ones(())], 1e-3)
+assert counted.record() == {"steps": {"cuda": 0, "cpu": 1}, "launches": 0}, counted.record()
+try:
+    with chip_smoke._AdamWSteps("card", True):
+        opt.step([torch.ones(10, 7), torch.ones(250), torch.ones(())], 1e-3)
+except AssertionError as e:
+    assert "0 launches" in str(e), e
+else:
+    raise SystemExit("no step on the card passed the check")
+assert OptaxAdamW.step.__name__ == "step" and OptaxAdamW.step.__qualname__ == "OptaxAdamW.step"
+assert rec["numel"] == 16 * 32 + 1001 + 3000 * 16 and rec["bound_by"] == "bytes", rec
+web = chip_smoke.web100m_shard_shapes()
+assert web["user_embed"] == (25_000_001, 128) and web["item_embed"] == (2_500_001, 128), web
+assert web["item_bias"] == (10_000_004,) and list(web)[-3:] == ["item_bias", "user_embed",
+                                                                "item_embed"], web
+print("adamw", sum(torch.Size(s).numel() for s in web.values()))
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "adamw 3530136708" in proc.stdout
 
 
 def test_bpr_phase_runs_in_a_fresh_process_without_jax_or_pandas():

@@ -550,6 +550,47 @@ def test_build_key_follows_every_header(tmp_path):
     assert _build.source_digest("window_mips") != _build.source_digest("window_mips_i8")
 
 
+def test_processes_started_together_build_a_library_once(tmp_path):
+    """Four processes that load one library at once (the ranks of a job)
+    run its build once, under the build directory's file lock, and each
+    loads the one library: nvcc stands in as a script that counts its
+    runs, waits and copies a loadable shared object."""
+    import _ctypes
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    csrc, build, runs = tmp_path / "csrc", tmp_path / "build", tmp_path / "runs"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// a kernel\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"""#!{sys.executable}
+import shutil, sys, time
+with open({str(runs)!r}, "a") as f:
+    f.write("run\\n")
+time.sleep(1.0)
+shutil.copy({_ctypes.__file__!r}, sys.argv[sys.argv.index("-o") + 1])
+""")
+    nvcc.chmod(0o755)
+    code = f"""
+from pathlib import Path
+from recommendit_tpu_torch.ops import _build
+_build.CSRC_DIR, _build.BUILD_DIR = Path({str(csrc)!r}), Path({str(build)!r})
+_build._nvcc = lambda: {str(nvcc)!r}
+_build.load_library("k")
+"""
+    root = Path(__file__).resolve().parent.parent
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=root, env=env,
+                              stderr=subprocess.PIPE, text=True) for _ in range(4)]
+    for p in procs:
+        _, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err
+    assert runs.read_text().splitlines() == ["run"]
+    assert len(list(build.glob("libk-*.so"))) == 1
+
+
 def _int8_queries(n_q, d, device, seed):
     g = torch.Generator().manual_seed(seed)
     q8, _ = quantize_queries(torch.randn(n_q, d, generator=g))

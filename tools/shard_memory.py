@@ -1,7 +1,8 @@
 """Peak device memory of one rank of a sharded two-tower run, in the two
 memory plans of its step, on one card: ``chunked`` — ``OptaxAdamW.step``
-a chunk at a time and ``sharded_grads`` in place, the plan of JAX's
-donated step — and ``one-pass`` — ``OptaxAdamW._step_unchunked`` (every
+in place (on the card one launch of ``csrc/adamw.cu``, no temporary;
+elsewhere a chunk at a time) and ``sharded_grads`` in place, the plan of
+JAX's donated step — and ``one-pass`` — ``OptaxAdamW._step_unchunked`` (every
 temporary a full-size copy of the params, four of them alive at the
 decay: the squares, denominators, update and decay product) and
 ``_sharded_grads_flat`` (every gradient copied into one flat buffer), the
