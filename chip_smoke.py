@@ -87,6 +87,16 @@ Phases (each failure raises, so the exit code is not 0):
    element 2^31 bit-equal after the step's one launch over the whole
    tensors, its ms against its bound (28 bytes an element) and the
    foreach path's, the clip's norm's and ``torch._fused_adamw_``'s ms;
+   then the dlrm_bags phase: DLRM-DCNv2's bags and table update
+   (``csrc/embedding_bag.cu``) at the benchmark cell's shape (one card's
+   51,137,046 x 128 rows, 16,384 examples of 214 Zipf(1.05) ids): the
+   forward bit-equal to the plain sum, the update within 1e-4 by norm of
+   the plain update of the touched rows from a warm and a zero
+   accumulator, the rows one slot names bit-equal; the kernels', the
+   sort's, the plain versions' and ``F.embedding_bag``'s ms; then
+   ``dcn_step`` over the same table: one launch of each kernel a step, no
+   wait for the host, the counter of rows updated, ms a step
+   (:func:`dlrm_bags_phase`);
 2. write the artifacts, embed the catalog with the port's item tower and
    build + save the fused bf16 index and, from the same embeddings and
    bias, the fused int8 index (quant seed ``--seed``);
@@ -463,8 +473,10 @@ GATHER_SOURCE = "recommendit_tpu_torch/csrc/gather_rows.cu"
 GATHER_REPLACES = "recommendit_tpu/ops/gather.py:27"
 ADAMW_SOURCE = "recommendit_tpu_torch/csrc/adamw.cu"
 ADAMW_REPLACES = None             # no TPU kernel: XLA fuses optax's update
+BAGS_SOURCE = "recommendit_tpu_torch/csrc/embedding_bag.cu"
+BAGS_REPLACES = None              # no TPU kernel: JAX's CTR model looks up one id a field
 LIBRARIES = ("window_mips", "bpr", "window_mips_i8", "quantize_i8",
-             "fold_mips", "gather_rows", "adamw")
+             "fold_mips", "gather_rows", "adamw", "embedding_bag")
 
 # the router's two routes (mips_topk_fused_auto) timed at these batch sizes
 ROUTER_QS = (1, 16, 64, 128, 256, 384, 512, 1024)
@@ -5284,6 +5296,211 @@ def adamw_fused_phase(device, seed: int, card: str, shapes=None, reps: int = ADA
     return rec
 
 
+# the dlrm_bags phase: DLRM-DCNv2's id block at the benchmark cell's shape
+# (one card's rows of a four-card host, 16,384 examples, Zipf(1.05) ids)
+DLRM_BATCH = 16384
+DLRM_ZIPF_S = 1.05
+DLRM_REPS = 10
+DLRM_STEPS = 5            # dcn_step calls counted
+
+
+def dlrm_rows(published, shards: int = 4, whole_below: int = 65536):
+    """One card's rows of each table, split by rows over ``shards`` cards
+    above ``whole_below`` rows (torchrec's row-wise sharding)."""
+    return tuple(v if v <= whole_below else -(-v // shards) for v in published)
+
+
+def _update_pair(table, acc, ids, grad, lay, uniq, inv) -> dict:
+    """The update (``bag_adagrad_``: the sort, then the two kernels) against
+    the plain update of the touched rows, copied out and addressed by their
+    place among the distinct ids: the accumulators' and the steps' changes
+    by norm, and whether every row that one slot names comes out bit-equal
+    (its gradient is one slot's, summed in no order)."""
+    from recommendit_tpu_torch.ops import embedding_bag as eb
+
+    t_rows, a_rows = table[uniq], acc[uniq]
+    w0, a0 = t_rows.clone(), a_rows.clone()
+    eb.bag_adagrad_(table, acc, ids, grad, lay, 0.005, 1e-8)
+    eb.bag_adagrad_plain_(t_rows, a_rows, inv.view(ids.shape), grad, lay, 0.005, 1e-8)
+    once = torch.bincount(inv) == 1
+    return {"acc_rel_err": float((acc[uniq] - a_rows).norm() / (a_rows - a0).norm()),
+            "acc_max_rel_err": float(((acc[uniq] - a_rows).abs()
+                                      / (a_rows - a0).abs().clamp(min=1e-30)).max()),
+            "step_rel_err": float((table[uniq] - t_rows).norm() / (t_rows - w0).norm()),
+            "rows_once": int(once.sum()),
+            "once_equal": bool(torch.equal(table[uniq][once], t_rows[once])
+                               and torch.equal(acc[uniq][once], a_rows[once]))}
+
+
+def dlrm_bags_rank(vocab, bags, dim: int, batch: int, seed: int, reps: int,
+                   steps: int = DLRM_STEPS) -> dict:
+    """The dlrm_bags phase's work (a fresh process of its own, or here on
+    the CPU): a (Σ rows, dim) table, one Zipf id block (the benchmark
+    cell's draw), a pooled gradient. ``bag_fwd_kernel`` against the plain
+    sum, bit for bit. The update against the plain update (:func:`_update_pair`)
+    twice: from a warm accumulator, U[0.5, 1.5) (``warm``), and from zero,
+    the published run's start (``zero``: Adagrad's first step is then
+    lr · g / (|g| + eps), sign-like where the summed g nears 0, so the steps
+    compare by norm and the rows one slot names bit for bit). Then, by CUDA
+    events, ms a call: the kernel, the plain sum and ``F.embedding_bag``
+    (the library yardstick); the update, its sort alone, and the plain
+    update. Last, the model's own path: a ``DCNState`` of DLRM-DCNv2's
+    widths over the same table, one ``dcn_step`` to warm, then ``steps``
+    steps with the launch counters set to 0 just before and, on the card,
+    any call that waits for the host an error
+    (``torch.cuda.set_sync_debug_mode``): their launches of each kernel,
+    ms a step, and the device count of rows updated."""
+    import dataclasses
+
+    from perfbench.ctr_inputs import batches
+    from recommendit_tpu_torch.models.ctr import DLRM_DCNV2, init_dcn_params
+    from recommendit_tpu_torch.ops import embedding_bag as eb
+    from recommendit_tpu_torch.training.train_ctr import DCNState, dcn_step
+
+    dev = torch.device("cuda", torch.cuda.current_device()) if torch.cuda.is_available() \
+        else torch.device("cpu")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lay = eb.BagLayout(tuple(vocab), tuple(bags))
+    table = torch.randn((lay.rows, dim), generator=gen, device=dev)
+    acc = torch.rand((lay.rows, dim), generator=gen, device=dev) + 0.5
+    # the benchmark cell's id draw (Zipf over a permutation of each field's rows)
+    (dense, ids, labels), = batches(
+        {"vocab_sizes": vocab, "bag_sizes": bags, "dense_in": 13},
+        {"batch": batch, "pool": 1, "ids": {"s": DLRM_ZIPF_S}, "dense": {"mean": 10.0},
+         "click_rate": 0.25}, seed, dev)
+    grad = torch.randn((batch, lay.n_fields, dim), generator=gen, device=dev)
+    uniq, inv = torch.unique(ids.reshape(-1).long(), return_inverse=True)
+    out = eb.pool_bags(table, ids, lay)
+    want = eb.pool_bags_plain(table, ids.long(), lay)
+    rec = {"rows": lay.rows, "dim": dim, "batch": batch, "slots": lay.slots,
+           "fields": lay.n_fields, "unique_rows": uniq.numel(),
+           "hottest_row_hits": int(torch.bincount(inv).max()),
+           "fwd_equal": bool(torch.equal(out, want)),
+           "fwd_max_abs_err": float((out - want).abs().max()),
+           "route": "cuda" if dev.type == "cuda" else "plain"}
+    del out, want
+    rec["warm"] = _update_pair(table, acc, ids, grad, lay, uniq, inv)
+    acc.zero_()
+    rec["zero"] = _update_pair(table, acc, ids, grad, lay, uniq, inv)
+    if dev.type == "cuda":
+        offsets = (torch.arange(batch, device=dev)[:, None] * lay.slots
+                   + torch.as_tensor(lay.bag_start[:-1], device=dev)[None, :]).reshape(-1)
+        flat = ids.reshape(-1).long()
+        rec["fwd_ms"] = cuda_ms(lambda: eb.pool_bags(table, ids, lay), reps)
+        rec["fwd_plain_ms"] = cuda_ms(lambda: eb.pool_bags_plain(table, ids.long(), lay), 2)
+        rec["fwd_library_ms"] = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+            flat, table, offsets, mode="sum"), reps)
+        rec["update_ms"] = cuda_ms(lambda: eb.bag_adagrad_(table, acc, ids, grad, lay, 0.005,
+                                                           1e-8), reps)
+        rec["sort_ms"] = cuda_ms(lambda: torch.sort(ids.reshape(-1), stable=True), reps)
+        rec["update_plain_ms"] = cuda_ms(lambda: eb.bag_adagrad_plain_(
+            table, acc, ids, grad, lay, 0.005, 1e-8), 2)
+        del offsets, flat
+    del acc, grad, uniq, inv
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # the model's own path over the same table
+    arch = dataclasses.replace(DLRM_DCNV2, vocab_sizes=tuple(vocab), bag_sizes=tuple(bags),
+                               embed_dim=dim)
+    params = init_dcn_params(torch.Generator().manual_seed(seed),
+                             dataclasses.replace(arch, vocab_sizes=(1,) * lay.n_fields), dev)
+    params["embed"] = table
+    state = DCNState(params, arch)
+    dcn_step(state, dense, ids, labels)
+    syncs = None
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+    for k in eb.LAUNCHES:
+        eb.LAUNCHES[k] = 0
+    try:
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        for _ in range(steps):
+            dcn_step(state, dense, ids, labels)
+        syncs = 0 if dev.type == "cuda" else None
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        syncs = str(e).splitlines()[0]
+    finally:
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    rec["steps"] = steps
+    rec["step_launches"] = dict(eb.LAUNCHES)
+    rec["step_syncs"] = syncs
+    if dev.type == "cuda":
+        end.record()
+        end.synchronize()
+        rec["step_ms"] = start.elapsed_time(end) / steps
+        rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    rec["step_rows_updated"] = int(state.rows_updated)
+    return rec
+
+
+def dlrm_bags_phase(device, seed: int, card: str, vocab=None, bags=None, dim: int = 128,
+                    batch: int = DLRM_BATCH, reps: int = DLRM_REPS,
+                    timeout: float = SHARD_TIMEOUT_S) -> dict:
+    """DLRM-DCNv2's two kernels (``csrc/embedding_bag.cu``) at the
+    benchmark cell's shape (``models/ctr.DLRM_DCNV2``'s bags and widths
+    over one card's rows of a four-card host: 51,137,046 x 128, 16,384
+    examples) in a fresh process: :func:`dlrm_bags_rank`. Checks: the
+    forward bit-equal to the plain sum; the update's accumulators' and
+    steps' changes within 1e-4 by norm of the plain update's, from a warm
+    accumulator and from zero (f32 sums of up to ~140,000 terms in another
+    order; ``acc_max_rel_err``, the worst element, is recorded), and the
+    rows one slot names bit-equal; in ``steps`` calls of ``dcn_step``, the
+    model's path, one launch of each kernel a step and no wait for the
+    host, the counter of rows updated equal to the distinct ids a step; on
+    the card every time at or above its bound (the bytes of
+    ``perfbench/metrics/bag_*_roofline.py``)."""
+    from recommendit_tpu_torch.models.ctr import DLRM_DCNV2
+    from recommendit_tpu_torch.parallel.launch import spawn
+
+    vocab = dlrm_rows(DLRM_DCNV2.vocab_sizes) if vocab is None else vocab
+    bags = DLRM_DCNV2.bag_sizes if bags is None else bags
+    t0 = time.perf_counter()
+    rec = spawn(dlrm_bags_rank, 1, (tuple(vocab), tuple(bags), dim, batch, seed, reps),
+                device=torch.device(device).type, timeout=timeout)[0]
+    rec["seconds"] = time.perf_counter() - t0
+    check_dlrm_bags(rec, torch.device(device).type == "cuda")
+    print(json.dumps({"dlrm_bags": rec, "card": card}), flush=True)
+    return rec
+
+
+def check_dlrm_bags(rec: dict, on_card: bool) -> None:
+    """Add the bounds to a dlrm_bags record and raise where it fails."""
+    b, s, d, u = rec["batch"], rec["slots"], rec["dim"], rec["unique_rows"]
+    n_fields = rec["fields"]
+    rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound(4.0 * (u * d + b * s + b * n_fields * d))
+    rec["update_bound_ms"], rec["update_bound_by"] = bound(
+        4.0 * (b * n_fields * d + b * s + 4 * u * d))
+    # the sort: the keys and their positions read and written once
+    rec["sort_bound_ms"], _ = bound(2.0 * b * s * (4 + 8))
+    n = rec["steps"]
+    bad = []
+    if not rec["fwd_equal"]:
+        bad.append(f"the pooled bags differ from the plain sum by {rec['fwd_max_abs_err']}")
+    for start in ("warm", "zero"):
+        r = rec[start]
+        if not (r["acc_rel_err"] <= 1e-4 and r["step_rel_err"] <= 1e-4):
+            bad.append(f"the update from a {start} accumulator differs from the plain one: "
+                       f"accumulators {r['acc_rel_err']}, steps {r['step_rel_err']}")
+        if not r["once_equal"]:
+            bad.append(f"the {r['rows_once']} rows one slot names differ from the plain "
+                       f"update from a {start} accumulator")
+    want = {"bag_fwd": n, "bag_update": n} if on_card else {"bag_fwd": 0, "bag_update": 0}
+    if rec["step_launches"] != want:
+        bad.append(f"launches {rec['step_launches']} in {n} dcn_step calls, not {want}")
+    if on_card and rec["step_syncs"] != 0:
+        bad.append(f"dcn_step waited for the host: {rec['step_syncs']}")
+    if rec["step_rows_updated"] != (n + 1) * u:
+        bad.append(f"{rec['step_rows_updated']} rows counted in {n + 1} steps of {u}")
+    if bad:
+        raise AssertionError("dlrm_bags: " + "; ".join(bad))
+
+
 # 5,000 evaluation users, not the script's 500: at 1M ratings over 162,541
 # users the retrieval-only NDCG@10 of 500 users reads near 0.0002 (a random
 # ranking's 0.0), too near zero to hold the two apart reliably
@@ -6009,6 +6226,8 @@ def main(argv=None) -> int:
     shard = web100m_shard_phase(device, args.seed, card)
     phase_start("adamw_fused", t_start)
     adamw_rec = adamw_fused_phase(device, args.seed, card)
+    phase_start("dlrm_bags", t_start)
+    bags_rec = dlrm_bags_phase(device, args.seed, card)
     stages = ctypes.c_int(0)
     d_dev = -(-(DIM + 1) // 8) * 8           # the bias column, padded to 8
     smem = _build.load_library("window_mips").window_mips_bf16_smem(
@@ -6299,6 +6518,30 @@ def main(argv=None) -> int:
         # torch._fused_adamw_ over the foreach path's row ranges, without the clip
         "bound": (adamw_rec["bound_ms"], adamw_rec["bound_by"]),
         "library_ms": adamw_rec["library_ms"],
+    }, {
+        "name": "bag_fwd", "source": BAGS_SOURCE, "replaces": BAGS_REPLACES,
+        # in `steps` dcn_step calls at the DLRM cell's shape, counted from 0
+        "launches": bags_rec["step_launches"]["bag_fwd"], "steps": bags_rec["steps"],
+        "shape": [
+            bags_rec["batch"], bags_rec["slots"], bags_rec["rows"], bags_rec["dim"]],
+        "max_abs_err": bags_rec["fwd_max_abs_err"],
+        "ms": bags_rec["fwd_ms"], "plain_ms": bags_rec["fwd_plain_ms"],
+        # each distinct row read once, the ids, the pooled output written once
+        "bound": (bags_rec["fwd_bound_ms"], bags_rec["fwd_bound_by"]),
+        "library_ms": bags_rec["fwd_library_ms"],
+    }, {
+        "name": "bag_update", "source": BAGS_SOURCE, "replaces": BAGS_REPLACES,
+        # the sort and the two update kernels, one call a dcn_step
+        "launches": bags_rec["step_launches"]["bag_update"], "steps": bags_rec["steps"],
+        "unique_rows": bags_rec["unique_rows"],
+        "hottest_row_hits": bags_rec["hottest_row_hits"],
+        "max_rel_err": max(bags_rec["warm"]["acc_rel_err"], bags_rec["zero"]["acc_rel_err"]),
+        "ms": bags_rec["update_ms"], "plain_ms": bags_rec["update_plain_ms"],
+        "sort_ms": bags_rec["sort_ms"], "sort_bound_ms": bags_rec["sort_bound_ms"],
+        # the pooled gradient and the ids read once, each distinct row's
+        # weights and accumulator read and written once
+        "bound": (bags_rec["update_bound_ms"], bags_rec["update_bound_by"]),
+        "library_ms": None,
     }, {
         "name": "quantize_i8", "source": QUANT_SOURCE, "replaces": QUANT_REPLACES,
         "launches": quant["launches"]["quantize_i8"],

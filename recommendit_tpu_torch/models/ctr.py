@@ -22,6 +22,17 @@ is (``torch.relu``'s is 0), and ``bce_loss`` takes ``|x|`` as
 (``torch.abs``'s is 0). So at a logit of exactly 0 the BCE gradient is
 −y, as in JAX, not σ(0) − y.
 
+The same module holds a second model, DLRM-DCNv2 (MLPerf Training's
+recommendation benchmark, torchrec's ``DLRM_DCN``), shaped by a
+:class:`CTRArch` (the :data:`DLRM_DCNV2` preset at the published widths).
+Each field has a bag of ids, sum-pooled from the stacked table
+(``ops/embedding_bag.py``: ``bag_fwd_kernel`` on the card); the dense
+features go through the bottom MLP; the low-rank cross net
+(:func:`cross_net`) mixes ``x0 = concat(dense, pooled fields)``, and the
+over MLP gives the logit. Its MLPs place torchrec's ReLUs (``torch.relu``
+after every layer of the bottom, after every layer of the over arch but
+its last), and its loss is torch's BCE with logits.
+
 f32 products run in full f32 on the card: every entry point and the
 trainer's step run inside ``ops/topk.full_f32_matmul`` (TF32 off, whatever
 the caller set; the flag is a process-wide switch). ``compute_dtype``
@@ -40,6 +51,8 @@ from __future__ import annotations
 
 import functools
 import json
+import math
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
@@ -47,6 +60,7 @@ import numpy as np
 import torch
 
 from recommendit_tpu_torch.data.ctr import N_DENSE, N_SPARSE, N_USER_FIELDS
+from recommendit_tpu_torch.ops.embedding_bag import BagLayout, pool_bags
 from recommendit_tpu_torch.ops.topk import full_f32_matmul
 from recommendit_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from recommendit_tpu_torch.utils.profiling import span
@@ -278,6 +292,140 @@ def weighted_in_batch_softmax(
         diag = torch.log_softmax(scores, dim=1).diagonal()
         denom = torch.clamp(weights.sum(), min=1.0)
         return -(weights * diag).sum() / denom
+
+
+# --- DLRM-DCNv2 ----------------------------------------------------------- #
+
+@dataclass(frozen=True)
+class CTRArch:
+    """The shape of a DLRM-DCNv2 model.
+
+    * ``vocab_sizes``: each field's rows in the stacked table;
+      ``bag_sizes``: ids a field an example;
+    * ``embed_dim``: a row's width, and the bottom MLP's output's;
+    * ``cross_layers`` low-rank cross layers of rank ``cross_rank``;
+    * ``bottom``: the dense MLP's hidden widths; ``top``: the over MLP's
+      hidden widths, its output one logit."""
+    vocab_sizes: Tuple[int, ...]
+    bag_sizes: Tuple[int, ...]
+    embed_dim: int
+    cross_layers: int
+    cross_rank: int
+    bottom: Tuple[int, ...]
+    top: Tuple[int, ...]
+    n_dense: int = N_DENSE
+
+    def __post_init__(self):
+        if self.cross_layers < 1 or self.cross_rank < 1:
+            raise ValueError("the cross net takes at least one layer of rank at least 1")
+
+    @property
+    def layout(self) -> BagLayout:
+        """The id block's static shape."""
+        return BagLayout(tuple(self.vocab_sizes), tuple(self.bag_sizes))
+
+    @property
+    def cross_width(self) -> int:
+        """``x0``'s width: the dense vector and every field's pooled row."""
+        return self.embed_dim * (len(self.vocab_sizes) + 1)
+
+
+# MLPerf Training's recommendation benchmark (mlcommons/training,
+# recommendation_v2/torchrec_dlrm): the Criteo 1TB tables with the
+# synthetic multi-hot sizes, 128-wide rows, DCN of three rank-512 layers.
+DLRM_DCNV2 = CTRArch(
+    vocab_sizes=(40000000, 39060, 17295, 7424, 20265, 3, 7122, 1543, 63, 40000000,
+                 3067956, 405282, 10, 2209, 11938, 155, 4, 976, 14, 40000000, 40000000,
+                 40000000, 590152, 12973, 108, 36),
+    embed_dim=128,
+    bag_sizes=(3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 100, 27, 10,
+               3, 1, 1),
+    cross_layers=3, cross_rank=512, bottom=(512, 256), top=(1024, 1024, 512, 256))
+
+
+def _linear_init(rng: torch.Generator, n_in: int, n_out: int):
+    """``nn.Linear``'s default: weight and bias U(−1/√in, 1/√in), the
+    weight in JAX's (in, out) layout."""
+    k = 1.0 / math.sqrt(n_in)
+    return ((torch.rand((n_in, n_out), generator=rng) * 2 - 1) * k,
+            (torch.rand(n_out, generator=rng) * 2 - 1) * k)
+
+
+def init_dcn_params(rng: torch.Generator, arch: CTRArch, device=DEFAULT_DEVICE) -> Params:
+    """DLRM-DCNv2's params with torchrec's initialisers, drawn on the
+    host from ``rng`` and moved to ``device``: each field's rows
+    U(−1/√rows, 1/√rows) (``EmbeddingBagConfig``'s default), the MLPs'
+    ``nn.Linear`` default, the cross net's V and W Xavier-normal and its
+    bias zero (``LowRankCrossNet``)."""
+    d = arch.embed_dim
+    embed = torch.cat([(torch.rand((n, d), generator=rng) * 2 - 1) / math.sqrt(n)
+                       for n in arch.vocab_sizes])
+    params = {"embed": embed}
+    widths = (arch.n_dense,) + tuple(arch.bottom) + (d,)
+    for i in range(len(widths) - 1):
+        params[f"bot_w{i + 1}"], params[f"bot_b{i + 1}"] = _linear_init(
+            rng, widths[i], widths[i + 1])
+    w, r = arch.cross_width, arch.cross_rank
+    std = math.sqrt(2.0 / (w + r))
+    for li in range(1, arch.cross_layers + 1):
+        params[f"cross_v{li}"] = torch.randn((w, r), generator=rng) * std
+        params[f"cross_w{li}"] = torch.randn((r, w), generator=rng) * std
+        params[f"cross_b{li}"] = torch.zeros(w)
+    widths = (w,) + tuple(arch.top) + (1,)
+    for i in range(len(widths) - 1):
+        params[f"top_w{i + 1}"], params[f"top_b{i + 1}"] = _linear_init(
+            rng, widths[i], widths[i + 1])
+    device = resolve_device(device)
+    return {k: v.to(device) for k, v in params.items()}
+
+
+def pool_fields(params: Params, ids: torch.Tensor, layout: BagLayout) -> torch.Tensor:
+    """(B, S) stacked row ids → (B, F, D): each field's bag summed
+    (``bag_fwd_kernel`` on the card, one launch)."""
+    with span("ctr::bags"):
+        return pool_bags(params["embed"], ids, layout)
+
+
+def cross_net(params: Params, x0: torch.Tensor, n_layers: int) -> torch.Tensor:
+    """torchrec's ``LowRankCrossNet``: ``x_{l+1} = x0 ⊙ (W_l (V_l x_l) +
+    b_l) + x_l`` over ``n_layers`` layers (``cross_v{l}`` (in, rank),
+    ``cross_w{l}`` (rank, in), ``cross_b{l}`` (in,))."""
+    with span("ctr::cross"):
+        x = x0
+        for li in range(1, n_layers + 1):
+            x = x0 * ((x @ params[f"cross_v{li}"]) @ params[f"cross_w{li}"]
+                      + params[f"cross_b{li}"]) + x
+        return x
+
+
+def _mlp_relu(params: Params, x: torch.Tensor, prefix: str, relu_last: bool) -> torch.Tensor:
+    n = 0
+    while f"{prefix}_w{n + 1}" in params:
+        n += 1
+    for li in range(1, n + 1):
+        x = x @ params[f"{prefix}_w{li}"] + params[f"{prefix}_b{li}"]
+        if li < n or relu_last:
+            x = torch.relu(x)
+    return x
+
+
+def dcn_forward_from_pooled(params: Params, arch: CTRArch, dense: torch.Tensor,
+                            pooled: torch.Tensor) -> torch.Tensor:
+    """DLRM-DCNv2 from the (B, F, D) pooled fields: bottom MLP (a ReLU
+    after every layer), ``x0 = concat(dense vector, pooled fields)``, the
+    cross net, the over MLP (ReLUs but after the last) → (B,) logits."""
+    with span("ctr::mlp"):
+        d = _mlp_relu(params, dense, "bot", relu_last=True)
+    x = cross_net(params, torch.cat([d, pooled.reshape(pooled.shape[0], -1)], dim=1),
+                  arch.cross_layers)
+    with span("ctr::mlp"):
+        return _mlp_relu(params, x, "top", relu_last=False)[:, 0]
+
+
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean BCE with logits as torch computes it (torchrec's loss)."""
+    with span("ctr::loss"):
+        return torch.nn.functional.binary_cross_entropy_with_logits(logits, labels)
 
 
 class CTRModel:

@@ -27,12 +27,24 @@ numpy generator (permutation, remainder dropped). JAX scans an epoch in one
 jitted call; here a Python loop keeps the per-step losses on the device and
 reads their mean once an epoch, so no step waits for the host. Matmuls run
 in full f32 (``ops/topk.full_f32_matmul``).
+
+DLRM-DCNv2 (``models/ctr.py``'s :class:`CTRArch`, :data:`DLRM_DCNV2`) trains by
+its published recipe, :func:`dcn_step` on a :class:`DCNState`, on device
+batches (no ``CTRDataset``): Adagrad everywhere at a constant rate
+(:class:`AdagradRecipe`: lr 0.005, eps 1e-8, accumulators from 0, no weight
+decay, clipping, warm-up or decay), as torchrec maps ``torch.optim.Adagrad``:
+the dense params by :func:`adagrad_` (torch's Adagrad, its foreach ops), the
+table by FBGEMM's exact sparse Adagrad on the rows the step touches
+(``ops/embedding_bag.bag_adagrad_``: the pooled gradient's rows summed per
+distinct id, one accumulator an element). The gradient stops at the pooled
+bags, so no table-shaped gradient exists.
 """
 from __future__ import annotations
 
 import logging
 import time
-from typing import Dict, List, Mapping, Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,14 +53,19 @@ from recommendit_tpu_torch.config import Settings, settings as default_settings
 from recommendit_tpu_torch.data.ctr import CTRDataset
 from recommendit_tpu_torch.evaluation.metrics import binary_auc, binary_logloss
 from recommendit_tpu_torch.models.ctr import (
+    CTRArch,
     CTRModel,
     bce_loss,
+    bce_with_logits,
     ctr_forward_from_embed,
+    dcn_forward_from_pooled,
     embed_fields,
     item_tower_ctr,
+    pool_fields,
     user_tower_ctr,
     weighted_in_batch_softmax,
 )
+from recommendit_tpu_torch.ops.embedding_bag import bag_adagrad_
 from recommendit_tpu_torch.ops.sparse_embed import (
     sparse_adagrad_init,
     sparse_table_update,
@@ -286,3 +303,70 @@ class CTRTrainer:
                 hits = (top_idx[:, :k] == true_items[:, None]).any(axis=1)
                 out[f"recall@{k}"] = float(hits.mean())
         return out
+
+
+# --- DLRM-DCNv2: the published recipe ------------------------------------- #
+
+@dataclass(frozen=True)
+class AdagradRecipe:
+    """The DLRM-DCNv2 run line's optimizer: Adagrad on every param at a
+    constant ``lr``, ``eps`` beside the root, accumulators from 0."""
+    lr: float = 0.005
+    eps: float = 1e-8
+
+
+@torch.no_grad()
+def adagrad_(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+             accs: Sequence[torch.Tensor], lr: float, eps: float) -> None:
+    """``torch.optim.Adagrad``'s step with no lr decay and no weight decay,
+    in place: ``acc += g²; p -= lr · (g / (√acc + eps))``, each operation
+    rounded once, as ``bag_adagrad_`` rounds the table's."""
+    params, grads, accs = list(params), list(grads), list(accs)
+    torch._foreach_add_(accs, torch._foreach_mul(grads, grads))
+    den = torch._foreach_sqrt(accs)
+    torch._foreach_add_(den, eps)
+    upd = torch._foreach_div(grads, den)
+    torch._foreach_mul_(upd, lr)
+    torch._foreach_sub_(params, upd)
+
+
+class DCNState:
+    """A DLRM-DCNv2 run's state: the params (the caller's tensors, updated
+    in place; ``embed`` the stacked table), an Adagrad accumulator beside
+    each, and ``rows_updated``, the table rows updated so far, counted on
+    the device (read it only where the host may wait)."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], arch: CTRArch,
+                 recipe: AdagradRecipe = AdagradRecipe()):
+        self.arch, self.recipe, self.layout = arch, recipe, arch.layout
+        self.params = params
+        self.table = params["embed"]
+        if tuple(self.table.shape) != (self.layout.rows, arch.embed_dim):
+            raise ValueError(f"a table of {tuple(self.table.shape)} for "
+                             f"{self.layout.rows} rows of {arch.embed_dim}")
+        self.dense = [p.requires_grad_(True) for k, p in params.items() if k != "embed"]
+        self.dense_acc = [torch.zeros_like(p) for p in self.dense]
+        self.table_acc = torch.zeros_like(self.table)
+        self.rows_updated = torch.zeros((), dtype=torch.int64, device=self.table.device)
+
+
+def dcn_step(state: DCNState, dense: torch.Tensor, ids: torch.Tensor, labels: torch.Tensor,
+             keep: Optional[dict] = None) -> torch.Tensor:
+    """One step of the published recipe on a device batch: (B, 13) dense
+    features, (B, S) stacked row ids (int32 on the card), (B,) labels.
+    Returns the loss, on the device; nothing waits for the host. ``keep``,
+    where given, receives the dense params' gradients (``"dense_grads"``)."""
+    r = state.recipe
+    with full_f32_matmul():
+        pooled = pool_fields(state.params, ids, state.layout).requires_grad_(True)
+        logits = dcn_forward_from_pooled(state.params, state.arch, dense, pooled)
+        loss = bce_with_logits(logits, labels)
+        grads = torch.autograd.grad(loss, state.dense + [pooled])
+        if keep is not None:
+            keep["dense_grads"] = grads[:-1]
+        with span("ctr::adagrad"):
+            adagrad_(state.dense, grads[:-1], state.dense_acc, r.lr, r.eps)
+        with span("ctr::sparse_update"):
+            bag_adagrad_(state.table, state.table_acc, ids, grads[-1], state.layout, r.lr,
+                         r.eps, counter=state.rows_updated)
+    return loss.detach()

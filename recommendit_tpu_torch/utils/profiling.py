@@ -47,6 +47,8 @@ SPANS = (
     # the CTR family: models/ctr.py, training/train_ctr.py
     "ctr::gather", "ctr::towers", "ctr::mlp", "ctr::interaction", "ctr::loss",
     "ctr::softmax", "ctr::adamw", "ctr::sparse_update",
+    # DLRM-DCNv2 (``models/ctr.CTRArch``): the bags, the cross net, the dense Adagrad
+    "ctr::bags", "ctr::cross", "ctr::adagrad",
 )
 
 _NO_SPAN = contextlib.nullcontext()

@@ -7,7 +7,8 @@ records of only some calls (``device_kernel_ms``), the kernels line's
 rule that no kernel time is under its bound (``check_kernel_times``), the
 record each phase starts with (``phase_start``) and the archive the
 pipeline phase's ``data`` stage downloads (``write_ml1m_archive``,
-``check_download``)."""
+``check_download``), and the dlrm_bags phase's work and checks at a small
+shape (``dlrm_bags_rank``, ``check_dlrm_bags``)."""
 import warnings
 
 import numpy as np
@@ -349,3 +350,28 @@ def test_offline_refuses_a_connect_and_restores_it():
     with pytest.raises(AssertionError, match="offline"):
         chip_smoke.offline(dial)()
     assert socket.socket.connect is connect
+
+
+def test_dlrm_bags_phase_work_on_the_cpu():
+    """The dlrm_bags phase's work at a small shape (plain path on both
+    sides): the record it checks, the model's steps counted, and its
+    refusals."""
+    rec = chip_smoke.dlrm_bags_rank((1, 500, 300, 40), (3, 2, 8, 1), 16, 64, 5, 2, steps=3)
+    chip_smoke.check_dlrm_bags(rec, on_card=False)
+    assert rec["step_rows_updated"] == 4 * rec["unique_rows"]
+    assert rec["hottest_row_hits"] >= 64 * 3
+    assert rec["zero"]["once_equal"] and rec["zero"]["rows_once"] > 0
+    assert rec["fwd_bound_by"] == "bytes" and rec["update_bound_ms"] > rec["fwd_bound_ms"]
+    with pytest.raises(AssertionError, match="launches"):
+        chip_smoke.check_dlrm_bags(dict(rec, step_syncs=0), on_card=True)
+    with pytest.raises(AssertionError, match="waited for the host"):
+        chip_smoke.check_dlrm_bags(dict(rec, step_syncs="a sync",
+                                        step_launches={"bag_fwd": 3, "bag_update": 3}),
+                                   on_card=True)
+    with pytest.raises(AssertionError, match="rows counted"):
+        chip_smoke.check_dlrm_bags(dict(rec, step_rows_updated=rec["step_rows_updated"] - 1),
+                                   on_card=False)
+    with pytest.raises(AssertionError, match="rows one slot names"):
+        chip_smoke.check_dlrm_bags(dict(rec, zero=dict(rec["zero"], once_equal=False)),
+                                   on_card=False)
+    assert chip_smoke.dlrm_rows((70_000, 65_536, 3)) == (17_500, 65_536, 3)

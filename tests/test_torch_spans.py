@@ -191,4 +191,25 @@ def test_ctr_ranges_appear_under_a_profiler():
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         tt.step(state, [b[0] for b in batches], decay_steps=20)
     names = {name for name, _ in span_tree(prof)}
-    assert names == {n for n in SPANS if n.startswith("ctr::")}
+    assert names == {n for n in SPANS if n.startswith("ctr::")} - DCN_ONLY
+
+
+# the spans only DLRM-DCNv2's step opens
+DCN_ONLY = {"ctr::bags", "ctr::cross", "ctr::adagrad"}
+
+
+def test_dcn_step_spans():
+    """DLRM-DCNv2's step: the bags, the two MLPs, the cross net, the loss,
+    the dense Adagrad and the table's update, each opened at the top."""
+    from recommendit_tpu_torch.models.ctr import CTRArch, init_dcn_params
+    from recommendit_tpu_torch.training.train_ctr import DCNState, dcn_step
+
+    arch = CTRArch(vocab_sizes=(5, 1, 9), embed_dim=8, bag_sizes=(2, 1, 3),
+                   cross_layers=2, cross_rank=4, bottom=(16,), top=(16,))
+    st = DCNState(init_dcn_params(torch.Generator().manual_seed(0), arch, "cpu"), arch)
+    ids = torch.as_tensor(arch.layout.stack([[0, 4, 0, 1, 8, 8], [3, 3, 0, 7, 2, 5]]))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        dcn_step(st, torch.rand(2, 13), ids, torch.tensor([0.0, 1.0]))
+    assert span_tree(prof) == Counter({
+        ("ctr::bags", None): 1, ("ctr::mlp", None): 2, ("ctr::cross", None): 1,
+        ("ctr::loss", None): 1, ("ctr::adagrad", None): 1, ("ctr::sparse_update", None): 1})
